@@ -1,0 +1,282 @@
+"""The wrapper of the CUDA step kernel: build, bind, launch, count.
+
+`NfaStep(query, config)` is the batched advance `(state, xs) -> (state,
+ys)` with the kernel of csrc/nfa_step.cu behind it. It replaces
+`pallas_step.py::build_pallas_batched_advance` of the JAX package. For
+tensors on the card it launches the kernel or raises -- a failed build, a
+shape outside the kernel's envelope or a launch error never falls back.
+For tensors on the CPU it runs the plain version (ops/step.py), which is
+what the kernel is held to.
+
+Build: the query's header (ops/codegen.py) is spliced into the kernel
+source; the result is compiled at first use with
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
+         -shared -Xcompiler -fPIC -Xptxas -v
+
+into csrc/_build/ (listed in .gitignore), keyed by a hash of the
+generated source and the flags, and loaded with ctypes; ptxas's
+register and spill report is kept beside the library. The library
+exports a plain C function, so no PyTorch header is compiled.
+
+`build_library(..., target="cpu")` compiles the same source with g++
+under csrc/cpu_emu.h (threads for CUDA threads, a barrier for
+__syncthreads): the tests use it to run the kernel's own code on the CPU
+against the plain version. The wrapper never uses it.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from .codegen import XI_FIXED, field_layout, query_header, threads_per_block
+from .engine import WM_NONE, EngineConfig, node_window_cap
+from .step import COUNTER_FIELDS, build_plain_step
+from .tables import CompiledQuery
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC / "_build"
+KERNEL_SOURCE = CSRC / "nfa_step.cu"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+CPU_FLAGS = (
+    "-x", "c++", "-std=c++20", "-O1", "-ffp-contract=off", "-shared",
+    "-fPIC", "-pthread", "-DNFA_CPU_EMU",
+)
+
+#: Shared memory one block may use on an H100 (dynamic + static).
+SMEM_LIMIT = 227 * 1024
+MAX_LANES = 1024
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def kernel_source(query: CompiledQuery, config: EngineConfig) -> str:
+    """The complete kernel source for one (query, config)."""
+    src = KERNEL_SOURCE.read_text()
+    return src.replace('#include "nfa_query.cuh"\n', query_header(query, config))
+
+
+def _compiler(target: str) -> Tuple[List[str], Tuple[str, ...]]:
+    if target == "sm_90a":
+        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+        if not os.path.exists(nvcc):
+            raise RuntimeError("nvcc not found (CUDA toolkit needed to build the step kernel)")
+        return [nvcc], NVCC_FLAGS
+    if target == "cpu":
+        gxx = shutil.which("g++")
+        if gxx is None:
+            raise RuntimeError("g++ not found")
+        return [gxx], CPU_FLAGS
+    raise ValueError(f"unknown target {target!r}")
+
+
+def build_library(
+    query: CompiledQuery, config: EngineConfig, target: str = "sm_90a",
+    build_dir: Optional[Path] = None,
+) -> Path:
+    """Compile the kernel for one (query, config) and return the .so path.
+    Cached by a hash of the generated source and the flags; concurrent
+    builders of the same key are safe (atomic rename)."""
+    cmd, flags = _compiler(target)
+    src = kernel_source(query, config)
+    keyed = src + "\0" + " ".join(flags)
+    if target == "cpu":
+        keyed += (CSRC / "cpu_emu.h").read_text()
+    key = hashlib.sha256(keyed.encode()).hexdigest()[:20]
+    out_dir = Path(build_dir) if build_dir is not None else BUILD_DIR
+    out_dir.mkdir(parents=True, exist_ok=True)
+    lib = out_dir / f"nfa_step_{target}_{key}.so"
+    if lib.exists():
+        return lib
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        cu = Path(tmp) / f"nfa_step_{key}.cu"
+        cu.write_text(src)
+        tmp_lib = Path(tmp) / lib.name
+        proc = subprocess.run(
+            cmd + list(flags) + ["-I", str(CSRC), "-o", str(tmp_lib), str(cu)],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"building the step kernel failed ({target}):\n{proc.stderr[-4000:]}"
+            )
+        # The compiler's report (ptxas registers / spills) beside the .so.
+        (Path(tmp) / "log").write_text(proc.stdout + proc.stderr)
+        os.replace(Path(tmp) / "log", lib.with_suffix(".log"))
+        os.replace(tmp_lib, lib)
+    return lib
+
+
+def load_library(path: Path) -> ctypes.CDLL:
+    with _lock:
+        lib = _libs.get(str(path))
+        if lib is None:
+            lib = ctypes.CDLL(str(path))
+            lib.nfa_step_launch.argtypes = [
+                ctypes.POINTER(ctypes.c_void_p), ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p,
+            ]
+            lib.nfa_step_launch.restype = ctypes.c_int
+            lib.nfa_step_smem_bytes.argtypes = []
+            lib.nfa_step_smem_bytes.restype = ctypes.c_longlong
+            _libs[str(path)] = lib
+    return lib
+
+
+def pack_inputs(query: CompiledQuery, xs) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """xi [T, K, CI] int32 (ts, topic, gidx, valid, wm, int fields,
+    stateless predicate columns) and xf [T, K, NF] float32 (None when the
+    schema has no float field)."""
+    ints, floats = field_layout(query)
+    valid = xs["valid"]
+    wm = xs["wm"] if "wm" in xs else torch.full_like(xs["ts"], int(WM_NONE))
+    cols = [xs["ts"], xs["topic"], xs["gidx"], valid.to(torch.int32), wm]
+    assert len(cols) == len(XI_FIXED)
+    cols += [xs[f"f:{n}"] for n in ints]
+    xi = torch.cat(
+        [torch.stack([c.to(torch.int32) for c in cols], dim=2),
+         xs["spred"][..., : query.n_preds].to(torch.int32)],
+        dim=2,
+    ).contiguous()
+    xf = None
+    if floats:
+        xf = torch.stack([xs[f"f:{n}"] for n in floats], dim=2).to(torch.float32).contiguous()
+    return xi, xf
+
+
+_STATE_IN = (
+    "active", "src", "eps", "vlen", "seq", "node", "ts", "branching",
+    "ignored", "root", "ver", "regs", "regs_set", "gc_phase",
+)
+_STATE_OUT = _STATE_IN[:-1]
+
+
+def prepare(query: CompiledQuery, config: EngineConfig, state, xs):
+    """Check (state, xs) against the kernel's contract, pack xi/xf and
+    allocate every output. Returns (pointer array, T, K, state', ys); the
+    outputs are filled by `call`."""
+    T, K = xs["valid"].shape
+    R = config.lanes
+    D = config.dewey_width(query)
+    A = query.n_aggs
+    P_CAP = node_window_cap(query, config)
+    M_STEP = config.matches_per_step
+    expect = {
+        "active": ((R, K), torch.bool), "src": ((R, K), torch.int32),
+        "eps": ((R, K), torch.int32), "vlen": ((R, K), torch.int32),
+        "seq": ((R, K), torch.int32), "node": ((R, K), torch.int32),
+        "ts": ((R, K), torch.int32), "branching": ((R, K), torch.bool),
+        "ignored": ((R, K), torch.bool), "root": ((R, K), torch.int32),
+        "ver": ((R, D, K), torch.int32), "regs": ((R, A, K), torch.float32),
+        "regs_set": ((R, A, K), torch.bool), "gc_phase": ((K,), torch.int32),
+    }
+    for c in COUNTER_FIELDS:
+        expect[c] = ((K,), torch.int32)
+    dev = xs["valid"].device
+    for name, (shape, dtype) in expect.items():
+        leaf = state[name]
+        if tuple(leaf.shape) != shape or leaf.dtype != dtype or leaf.device != dev:
+            raise ValueError(
+                f"state[{name!r}]: expected {dtype} {shape} on {dev}, got "
+                f"{leaf.dtype} {tuple(leaf.shape)} on {leaf.device}"
+            )
+        if not leaf.is_contiguous():
+            raise ValueError(f"state[{name!r}] is not contiguous")
+    xi, xf = pack_inputs(query, xs)
+    out = {n: torch.empty_like(state[n]) for n in _STATE_OUT}
+    ctr_out = {c: torch.empty_like(state[c]) for c in COUNTER_FIELDS}
+    i32 = dict(dtype=torch.int32, device=dev)
+    ys = {
+        "w_event": torch.empty((T, K, P_CAP), **i32),
+        "w_name": torch.empty((T, K, P_CAP), **i32),
+        "w_pred": torch.empty((T, K, P_CAP), **i32),
+        "w_match": torch.empty((T, K, M_STEP), **i32),
+        "w_mroot": torch.empty((T, K, M_STEP), **i32),
+    }
+    ptrs = [xi.data_ptr(), xf.data_ptr() if xf is not None else 0]
+    ptrs += [state[n].data_ptr() for n in _STATE_IN]
+    ptrs += [state[c].data_ptr() for c in COUNTER_FIELDS]
+    ptrs += [out[n].data_ptr() for n in _STATE_OUT]
+    ptrs += [ctr_out[c].data_ptr() for c in COUNTER_FIELDS]
+    ptrs += [ys[k].data_ptr() for k in ("w_event", "w_name", "w_pred", "w_match", "w_mroot")]
+    new_state = dict(state)
+    new_state.update(out)
+    new_state.update(ctr_out)
+    # xi/xf ride along so they outlive the (asynchronous) launch.
+    keep = (xi, xf)
+    return (ctypes.c_void_p * len(ptrs))(*ptrs), int(T), int(K), new_state, ys, keep
+
+
+def call(lib: ctypes.CDLL, ptrs, T: int, K: int, device: torch.device) -> None:
+    """One launch of the compiled kernel on the device's current stream;
+    raises if the launch was refused."""
+    stream = torch.cuda.current_stream(device).cuda_stream if device.type == "cuda" else 0
+    err = lib.nfa_step_launch(ptrs, T, K, ctypes.c_void_p(stream))
+    if err != 0:
+        raise RuntimeError(f"nfa_step kernel launch failed: cudaError {err}")
+
+
+def launch(lib: ctypes.CDLL, query: CompiledQuery, config: EngineConfig, state, xs):
+    """Run the compiled step on (state, xs) with tensors on the library's
+    device (the card for sm_90a builds, the CPU for the emulation build).
+    Returns (state', ys); does not synchronize."""
+    ptrs, T, K, new_state, ys, _keep = prepare(query, config, state, xs)
+    call(lib, ptrs, T, K, xs["valid"].device)
+    return new_state, ys
+
+
+class NfaStep:
+    """The batched advance backed by the CUDA kernel (plain version for
+    CPU tensors). Builds the kernel at its first launch on the card."""
+
+    #: Kernel launches, counted where the kernel is launched and nowhere
+    #: else (chip_smoke.py zeroes and reads it around the main path).
+    launches = 0
+
+    def __init__(self, query: CompiledQuery, config: EngineConfig) -> None:
+        if config.lanes > MAX_LANES:
+            raise ValueError(
+                f"lanes={config.lanes} exceeds the kernel's {MAX_LANES}-thread block"
+            )
+        self.query = query
+        self.config = config
+        self.threads = threads_per_block(config)
+        self._plain = build_plain_step(query, config)
+        self._lib: Optional[ctypes.CDLL] = None
+
+    def library(self) -> ctypes.CDLL:
+        """Build (or reuse) and load the kernel; checks its shared memory."""
+        if self._lib is None:
+            lib = load_library(build_library(self.query, self.config))
+            smem = int(lib.nfa_step_smem_bytes())
+            if smem > SMEM_LIMIT - 8 * 1024:
+                raise ValueError(
+                    f"step kernel needs {smem} B of shared memory per block "
+                    f"(limit {SMEM_LIMIT}); reduce lanes or Dewey digits"
+                )
+            self._lib = lib
+        return self._lib
+
+    def __call__(self, state, xs):
+        if xs["valid"].device.type == "cpu":
+            return self._plain(state, xs)
+        if xs["valid"].device.type != "cuda":
+            raise ValueError(f"unsupported device {xs['valid'].device}")
+        lib = self.library()
+        result = launch(lib, self.query, self.config, state, xs)
+        NfaStep.launches += 1
+        return result
