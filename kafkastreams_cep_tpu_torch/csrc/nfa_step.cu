@@ -608,3 +608,28 @@ extern "C" int nfa_step_launch(void** p, int T, int K, void* stream) {
 // The block's shared-memory bytes (dynamic part), for the wrapper's
 // envelope check.
 extern "C" long long nfa_step_smem_bytes() { return (long long)SMEM_BYTES; }
+
+#ifdef NFA_CPU_EMU
+// Expression probe of the CPU emulation build, with which the tests hold
+// the generated C against eager jnp: for each of n events, the stateful
+// predicate bits against the registers as given, then one stage's fold
+// chain applied to those registers in place. Row-major inputs: fi [n, NI],
+// ff [n, NF], regs and rset [n, A].
+extern "C" void nfa_eval_exprs(int n, int stage, const int* ts, const int* topic,
+                               const int* fi, const float* ff, float* regs,
+                               uint8_t* rset, unsigned long long* bits) {
+  for (int i = 0; i < n; ++i) {
+    Ev ev;
+    ev.ts = ts[i];
+    ev.topic = topic[i];
+    for (int j = 0; j < NI; ++j) ev.fi[j] = fi[(size_t)i * NI + j];
+    for (int j = 0; j < NF; ++j) ev.ff[j] = ff[(size_t)i * NF + j];
+    float* rg = regs + (size_t)i * A;
+    bool rs[A > 0 ? A : 1];
+    for (int a = 0; a < A; ++a) rs[a] = rset[(size_t)i * A + a] != 0;
+    bits[i] = stateful_pred_bits(ev, rg, rs);
+    apply_folds(ev, true, stage, rg, rs);
+    for (int a = 0; a < A; ++a) rset[(size_t)i * A + a] = rs[a];
+  }
+}
+#endif

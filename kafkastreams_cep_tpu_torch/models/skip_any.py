@@ -1,7 +1,6 @@
-"""The flagship bench workloads: the 8-stage skip-till-any SASE pattern
-and the strict letters pattern, with their seeded streams (copies of the
-JAX package's bench.py definitions, `skip_any8_pattern`,
-`skip_any8_stream`, `letters_pattern`, `letters_stream`)."""
+"""The flagship bench workload: the 8-stage skip-till-any SASE pattern
+and its seeded stream (copies of the JAX package's bench.py
+definitions, `skip_any8_pattern` and `skip_any8_stream`)."""
 from __future__ import annotations
 
 import random
@@ -15,20 +14,6 @@ from ..pattern.pattern import Pattern, Selected
 TS0 = 1_000_000
 SKIP_ANY_STAGES = "ABCDEFGH"   # 8 stage letters
 SKIP_ANY_NOISE = "QRSTUV"      # noise letters only the IGNORE edges see
-
-
-def letters_pattern() -> Pattern:
-    return (
-        QueryBuilder()
-        .select("select-A").where(value() == "A")
-        .then().select("select-B").where(value() == "B")
-        .then().select("select-C").where(value() == "C")
-        .build()
-    )
-
-
-def letters_stream(rng: random.Random, n: int) -> List[Event]:
-    return [Event("K", rng.choice("ABCD"), TS0 + i, "t", 0, i) for i in range(n)]
 
 
 def skip_any8_pattern() -> Pattern:

@@ -8,15 +8,22 @@ options this port slice leaves out turned off: `auto_drain=False`,
 `BatchedDeviceNFA(device="cpu")`, whose wrapper runs the plain PyTorch
 step on CPU tensors.
 
-Per conformance case (K=8 keys, T=10 events, 3 batches, stream seed 5):
-  * the test_pallas.py loop with gc_group=1: state, pool and decoded JSON
-    matches equal after every batch; and carry-across: a JAX engine's
+Per conformance case (K=8 keys, T=10 events, 3 batches, stream seed 5),
+and for skip2 again at the flagship deployment's post-pass settings
+(`pin_interval=True`, so the GC pins the id interval from pend_min
+instead of walking from the match pages; matches >= T x matches_per_step,
+so the pend append takes its dense path):
+  * the test_pallas.py loop with gc_group=1: state and pool equal after
+    every advance (before its drain, so the ring the append wrote and the
+    GC remapped is compared as it stands) and again after the drain, and
+    the decoded JSON matches equal; and carry-across: a JAX engine's
     state and pool moved into a port engine after batch 1 with
     `state_from_numpy`, both continuing equal;
-  * the same loop with gc_group=4 and a per-event watermark column, with
-    the plain step alone held against the JAX batched XLA advance on each
-    batch's inputs (nonzero gc_phase, "wm" column): state and ys equal,
-    ys moved to one layout.
+  * the same loop with gc_group=4 and a per-event watermark column, run
+    for 4 batches so that the fourth advance ends in a group flush that
+    GCs the 4-advance window, with the plain step alone held against the JAX
+    batched XLA advance on each batch's inputs (nonzero gc_phase, "wm"
+    column): state and ys equal, ys moved to one layout.
 Each test builds its own engines (the JAX compiles dominate), so no
 fixture is rebuilt by several xdist workers.
 """
@@ -40,8 +47,20 @@ from kafkastreams_cep_tpu_torch.models.cases import CASES, TS0  # noqa: E402
 from kafkastreams_cep_tpu_torch.ops.step import build_plain_step  # noqa: E402
 
 K, T, N_BATCHES = 8, 10, 3
+#: The gc_group=4 run: its fourth advance flushes the group.
+G4 = N_BATCHES_G4 = 4
 KEYS = [f"k{i}" for i in range(K)]
 YS = ("w_event", "w_name", "w_pred", "w_match", "w_mroot")
+
+#: name -> (conformance case, EngineConfig overrides).
+VARIANTS = {name: (name, {}) for name in CASES}
+VARIANTS["skip2_pinned"] = (
+    "skip2", dict(matches=T * CASES["skip2"][3]["matches_per_step"], pin_interval=True),
+)
+
+
+def _dense_append(cfg):
+    return cfg["matches"] >= T * cfg["matches_per_step"]
 
 
 def _jax_engine(query, cfg, gc_group):
@@ -71,16 +90,21 @@ def _watermarks(b):
             for j, k in enumerate(KEYS)}
 
 
-def _setup(case):
+def _setup(variant):
+    case, overrides = VARIANTS[variant]
     pattern, fields, stream, cfg = CASES[case]
+    cfg = {**cfg, **overrides}
+    # The pinned variant runs the flagship's GC and append branches; the
+    # conformance cases run the precise walk and the compact append.
+    assert cfg.get("pin_interval", False) == _dense_append(cfg) == bool(overrides)
     qj = jax_compile_query(J.compile_pattern(pattern(J)),
                            JaxEventSchema(fields) if fields else None)
     qp = P.compile_query(P.compile_pattern(pattern()),
                          P.EventSchema(fields) if fields else None)
     rng = random.Random(5)
-    sj = {k: stream(rng, T * N_BATCHES, J) for k in KEYS}
+    sj = {k: stream(rng, T * N_BATCHES_G4, J) for k in KEYS}
     rng = random.Random(5)
-    sp = {k: stream(rng, T * N_BATCHES) for k in KEYS}
+    sp = {k: stream(rng, T * N_BATCHES_G4) for k in KEYS}
     return qj, qp, sj, sp, cfg
 
 
@@ -92,13 +116,30 @@ def _matches_json(out, to_json):
     return {k: [to_json(s) for s in v] for k, v in out.items()}
 
 
+def _assert_same_state(label, bx, bp):
+    assert not _diffs(bx.state, bp.state), f"{label}: state {_diffs(bx.state, bp.state)}"
+    assert not _diffs(bx.pool, bp.pool), f"{label}: pool {_diffs(bx.pool, bp.pool)}"
+
+
 def _assert_equal_after(b, label, bx, bp, jx, jp):
-    assert not _diffs(bx.state, bp.state), f"{label} batch {b}: state {_diffs(bx.state, bp.state)}"
-    assert not _diffs(bx.pool, bp.pool), f"{label} batch {b}: pool {_diffs(bx.pool, bp.pool)}"
+    _assert_same_state(f"{label} batch {b}", bx, bp)
     assert jx == jp, f"{label} batch {b}: matches differ"
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
+def _advance_and_drain(b, label, bx, bp, xs_j, xs_p):
+    """Advance both engines without decoding, compare them with the
+    batch's matches still in the ring, then drain both and compare the
+    matches and the drained state."""
+    bx.advance_packed(xs_j, decode=False)
+    bp.advance_packed(xs_p, decode=False)
+    _assert_same_state(f"{label} batch {b} before the drain", bx, bp)
+    jx = _matches_json(bx.drain(), jax_json)
+    jp = _matches_json(bp.drain(), P.sequence_to_json)
+    _assert_equal_after(b, label, bx, bp, jx, jp)
+    return jx
+
+
+@pytest.mark.parametrize("case", sorted(VARIANTS))
 def test_engine_matches_jax_xla_and_carries_state(case):
     """(e) with gc_group=1 -- the test_pallas.py loop -- and (f): after
     batch 0 a fresh port engine (which only registered batch 0's events)
@@ -114,9 +155,8 @@ def test_engine_matches_jax_xla_and_carries_state(case):
     carried = P.BatchedDeviceNFA(qp, keys=KEYS, device="cpu", config=P.EngineConfig(**cfg))
     n_matches = 0
     for b in range(N_BATCHES):
-        jx = _matches_json(bx.advance(_batch(sj, b)), jax_json)
-        jp = _matches_json(bp.advance(_batch(sp, b)), P.sequence_to_json)
-        _assert_equal_after(b, f"{case} G=1", bx, bp, jx, jp)
+        jx = _advance_and_drain(b, f"{case} G=1", bx, bp,
+                                bx.pack(_batch(sj, b)), bp.pack(_batch(sp, b)))
         n_matches += sum(map(len, jx.values()))
         if b == 0:
             carried.pack(_batch(sp, 0))
@@ -132,18 +172,19 @@ def test_engine_matches_jax_xla_and_carries_state(case):
     assert n_matches > 0, "the case produced no matches"
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("case", sorted(VARIANTS))
 def test_engine_and_plain_step_match_jax_with_groups_and_watermarks(case):
     """(e) with gc_group=4 and a watermark column, and (d): before each
     advance, the plain step alone against the JAX batched XLA advance on
-    the same inputs -- gc_phase is nonzero from the second batch on."""
+    the same inputs -- gc_phase is nonzero from the second batch on and
+    back to 0 after the flush."""
     qj, qp, sj, sp, cfg = _setup(case)
-    bx = _jax_engine(qj, cfg, 4)
+    bx = _jax_engine(qj, cfg, G4)
     bp = P.BatchedDeviceNFA(qp, keys=KEYS, device="cpu",
-                            config=P.EngineConfig(**cfg, gc_group=4))
+                            config=P.EngineConfig(**cfg, gc_group=G4))
     plain = build_plain_step(qp, bp.config)
     phases = []
-    for b in range(N_BATCHES):
+    for b in range(N_BATCHES_G4):
         xs_j = bx.pack(_batch(sj, b), _watermarks(b))
         xs_p = bp.pack(_batch(sp, b), _watermarks(b))
         phases.append(int(np.asarray(bx.state["gc_phase"])[0]))
@@ -153,7 +194,6 @@ def test_engine_and_plain_step_match_jax_with_groups_and_watermarks(case):
         for n in YS:
             assert np.array_equal(np.transpose(np.asarray(jys[n]), (0, 2, 1)),
                                   pys[n].numpy()), f"{case} batch {b}: ys {n}"
-        jx = _matches_json(bx.advance_packed(xs_j), jax_json)
-        jp = _matches_json(bp.advance_packed(xs_p), P.sequence_to_json)
-        _assert_equal_after(b, f"{case} G=4", bx, bp, jx, jp)
-    assert max(phases) > 0, "no batch ran at a nonzero gc_phase"
+        _advance_and_drain(b, f"{case} G=4", bx, bp, xs_j, xs_p)
+    phases.append(int(np.asarray(bx.state["gc_phase"])[0]))
+    assert phases == [0, T, 2 * T, 3 * T, 0], f"gc_phase before each batch and at the end: {phases}"

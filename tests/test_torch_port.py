@@ -3,15 +3,19 @@ expression semantics, and the stock demo golden.
 
 Everything here runs on the CPU: the JAX side is the reference
 (`JAX_PLATFORMS=cpu`, eager jnp for expressions), the port side runs its
-plain PyTorch code. Inputs are made from fixed seeds and compared
-bitwise.
+plain PyTorch code, and the C that ops/codegen.py emits into the step
+kernel runs in the kernel source's g++ emulation build. Inputs are made
+from fixed seeds and compared bitwise.
 """
 import ast
+import ctypes
 import dataclasses
 import os
 import random
+import shutil
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -33,6 +37,8 @@ from kafkastreams_cep_tpu_torch.models.cases import CASES, STOCK_FIELDS  # noqa:
 from kafkastreams_cep_tpu_torch.models.stocks import (  # noqa: E402
     GOLDEN_EVENTS, GOLDEN_MATCHES, stocks_pattern,
 )
+from kafkastreams_cep_tpu_torch.ops import step_kernel as sk  # noqa: E402
+from kafkastreams_cep_tpu_torch.ops.codegen import field_layout  # noqa: E402
 from kafkastreams_cep_tpu_torch.ops.numerics import TV  # noqa: E402
 from kafkastreams_cep_tpu_torch.ops.tables import TorchEnv  # noqa: E402
 
@@ -282,6 +288,106 @@ def test_fold_chain_matches_eager_jnp():
         ts[:, slot] = ts[:, slot] | m
         assert _same(np.asarray(jr), tr.numpy()), repr(expr)
         assert np.array_equal(np.asarray(js), ts.numpy())
+
+
+def _probe_query(stages):
+    """A query over the fuzz schema: each stage is (where-predicate,
+    [(register, fold expression)])."""
+    b = P.QueryBuilder()
+    for i, (pred, folds) in enumerate(stages):
+        b = (b if i == 0 else b.then()).select(f"s{i}").where(pred)
+        for reg, expr in folds:
+            b = b.fold(reg, expr)
+    fields = {"a": np.int32, "nz": np.int32, "x": np.float32, "y": np.float32}
+    return P.compile_query(P.compile_pattern(b.build()), P.EventSchema(fields))
+
+
+def _fuzz_stages(rng: random.Random, n_stages: int):
+    """Stateful predicates (each reads a register, so the kernel computes
+    it) and one fold per register per stage, r1's reading r0's new value
+    where the generator makes it so."""
+    stages = []
+    for _ in range(n_stages):
+        pred = _gen(rng, 3, "bool")
+        while not pred.aggs():
+            pred = _gen(rng, 3, "bool")
+        stages.append((pred, [(r, _gen(rng, 3, "num")) for r in REG_NAMES]))
+    return stages
+
+
+def _edge_stages():
+    """The integer and float division edge cases of the jnp fuzz, as folds
+    (an int32 result is exact in the f32 register up to 2^24 and at
+    INT_MIN)."""
+    E = P.pattern.expressions
+    exprs = [E.field("a") // E.field("nz"), E.field("nz") // E.field("a"),
+             E.field("nz") % E.field("a"), E.field("a") % E.field("nz"),
+             E.field("a") // -1, E.field("a") % -1, 7 // E.field("a"),
+             E.field("a") / E.field("nz"), E.field("x") // 2, E.field("x") % 3,
+             E.field("x") // E.field("y"), E.field("x") % E.field("y")]
+    on = E.agg("r0") > -1e30
+    return [(on, [("r0", exprs[i]), ("r1", exprs[i + 1])]) for i in range(0, len(exprs), 2)]
+
+
+def _probe_c(lib, query, cols, regs, rset, stage):
+    """The generated C of `query` on the fuzz columns, through the
+    emulation build's expression probe: (predicate bits, regs', rset')."""
+    ints, floats = field_layout(query)
+    fi = np.ascontiguousarray(np.stack([cols[f"f:{n}"] for n in ints], 1), np.int32)
+    ff = np.ascontiguousarray(np.stack([cols[f"f:{n}"] for n in floats], 1), np.float32)
+    r = np.ascontiguousarray(regs, np.float32).copy()
+    rs = np.ascontiguousarray(rset, np.uint8).copy()
+    bits = np.zeros(N, np.uint64)
+    ts = np.ascontiguousarray(cols["ts"], np.int32)
+    topic = np.ascontiguousarray(cols["topic"], np.int32)
+    ptr = lambda a: a.ctypes.data_as(ctypes.c_void_p)  # noqa: E731
+    lib.nfa_eval_exprs(ctypes.c_int(N), ctypes.c_int(stage), ptr(ts), ptr(topic), ptr(fi),
+                       ptr(ff), ptr(r), ptr(rs), ptr(bits))
+    return bits, r, rs.astype(bool)
+
+
+def test_generated_c_matches_eager_jnp():
+    """The C that `CudaEnv` emits into the kernel (ops/codegen.py), built
+    under the CPU emulation, against eager jnp on the fuzz columns: every
+    stateful predicate, and every stage's fold chain, bitwise."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is needed to compile the kernel source for the CPU")
+    queries = [_probe_query(_fuzz_stages(random.Random(seed), 8)) for seed in (11, 12)]
+    queries.append(_probe_query(_edge_stages()))
+    config = P.EngineConfig(lanes=32, nodes=64, matches=16)
+    with ThreadPoolExecutor(len(queries)) as ex:
+        paths = list(ex.map(lambda q: sk.build_library(q, config, target="cpu"), queries))
+    cols, regs, rset = _columns(np.random.default_rng(17))
+    checked = 0
+    for query, path in zip(queries, paths):
+        lib = ctypes.CDLL(str(path))
+        assert query.agg_slots == {"r0": 0, "r1": 1}
+        jenv = DeviceEnv({k: jnp.asarray(v) for k, v in cols.items()},
+                         jnp.asarray(regs), jnp.asarray(rset),
+                         query.agg_slots, query.agg_defaults)
+        bits, _, _ = _probe_c(lib, query, cols, regs, rset, stage=-1)
+        for p, pred in enumerate(query.predicates):
+            if not query.pred_stateful[p]:
+                continue
+            want = np.broadcast_to(np.asarray(pred(jenv), bool), (N,))
+            got = ((bits >> np.uint64(p)) & np.uint64(1)).astype(bool)
+            assert np.array_equal(want, got), f"predicate {p}"
+            checked += 1
+        for cs, stage_folds in enumerate(query.folds):
+            if not stage_folds:
+                continue
+            jr, js = jnp.asarray(regs), jnp.asarray(rset)
+            for slot, fn in stage_folds:
+                env = DeviceEnv({k: jnp.asarray(v) for k, v in cols.items()}, jr, js,
+                                query.agg_slots, query.agg_defaults)
+                jv = jnp.broadcast_to(jnp.asarray(fn(env), jnp.float32), (N,))
+                jr = jr.at[:, slot].set(jv)
+                js = js.at[:, slot].set(True)
+                checked += 1
+            _, r, rs = _probe_c(lib, query, cols, regs, rset, stage=cs)
+            assert _same(np.asarray(jr), r), f"stage {cs} folds"
+            assert np.array_equal(np.asarray(js), rs), f"stage {cs} fold flags"
+    assert checked == 2 * (8 + 16) + (6 + 12)
 
 
 # --------------------------------------------------------- (g) stock golden

@@ -11,6 +11,7 @@ itself held to the JAX engine in tests/test_torch_batched.py.
 """
 import random
 import shutil
+from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 import torch
@@ -26,13 +27,18 @@ K, T, N_BATCHES = 8, 10, 3
 KEYS = [f"k{i}" for i in range(K)]
 
 
-def _trajectory(case, device="cpu"):
-    """(query, config, [(state, xs)]) along a plain-step run with
-    gc_group=4 and a per-event watermark column (some ahead of ts)."""
+def _query_config(case):
     pattern, fields, stream, cfg = CASES[case]
     query = P.compile_query(P.compile_pattern(pattern()),
                             P.EventSchema(fields) if fields else None)
-    config = P.EngineConfig(**cfg, gc_group=4)
+    return query, P.EngineConfig(**cfg, gc_group=4)
+
+
+def _trajectory(case, device="cpu"):
+    """(query, config, [(state, xs)]) along a plain-step run with
+    gc_group=4 and a per-event watermark column (some ahead of ts)."""
+    stream = CASES[case][2]
+    query, config = _query_config(case)
     eng = P.BatchedDeviceNFA(query, keys=KEYS, config=config, device=device,
                              engine="torch")
     rng = random.Random(5)
@@ -51,12 +57,21 @@ def _bad_leaves(a, b):
     return [n for n in a if a[n].dtype != b[n].dtype or not torch.equal(a[n], b[n])]
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_kernel_source_matches_plain_step_on_cpu(case, tmp_path):
+@pytest.fixture(scope="module")
+def cpu_libraries():
+    """The emulation build of every case's kernel, all compiled at once."""
     if shutil.which("g++") is None:
         pytest.skip("g++ is needed to compile the kernel source for the CPU")
+    with ThreadPoolExecutor(len(CASES)) as ex:
+        futs = {case: ex.submit(sk.build_library, *_query_config(case), target="cpu")
+                for case in CASES}
+        return {case: f.result() for case, f in futs.items()}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_kernel_source_matches_plain_step_on_cpu(case, cpu_libraries):
     query, config, pairs = _trajectory(case)
-    lib = sk.load_library(sk.build_library(query, config, target="cpu", build_dir=tmp_path))
+    lib = sk.load_library(cpu_libraries[case])
     plain = build_plain_step(query, config)
     assert any(int(state["gc_phase"][0]) > 0 for state, _ in pairs)
     for b, (state, xs) in enumerate(pairs):
