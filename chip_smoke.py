@@ -7,19 +7,28 @@ Builds the step kernel from csrc/ with nvcc (one build per compiled query,
 all started together), then:
 
   1. prints the card (`nvidia-smi --query-gpu=name,power.limit`);
-  2. builds every kernel and prints the build seconds and ptxas's report;
+  2. builds every kernel and prints the build seconds, ptxas's registers
+     and spills, and the kernel's resident blocks and warps per SM (one
+     warp per key);
   3. holds the CUDA step bitwise equal to the plain PyTorch step on the
-     card, on identical inputs: the three conformance cases (K=8, T=10,
-     3 batches) and the flagship shape (K=2048, T=64, 3 batches), every
-     state leaf and every w_* output; times both at the flagship shape;
+     card, on identical inputs, every state leaf and every w_* output:
+     the three conformance cases (K=8, T=10, 3 batches), the multi-chunk
+     cases of models/chunked.py (K=8, T=64, 3 batches: more than 32 live
+     lanes in a key, lane overflow, folds across chunks), an entry state
+     whose live lanes are not a prefix, a key whose events are all
+     padding, and the flagship shape (K=2048, T=64, 3 batches); prints
+     the flagship's live lanes per key and event (the plain step one
+     event at a time over those 3 batches); times kernel and plain step
+     at the flagship shape on the third batch's state;
   4. drives the port's main path, `BatchedDeviceNFA(engine="cuda")`, on
      the flagship skip_any8 deployment (2048 keys x 64 events per batch,
      2 warm + 8 timed batches, stream seed 7, each batch packed, advanced
      and drained in turn, as `advance()` does), prints events/s with and
-     without the host packing, and checks: the kernel's launch count
-     equals the advances, the drop counters are 0, there are matches, and
-     the final state, pool and the first 64 keys' matches equal the same
-     run with engine="torch";
+     without the host packing and the live lanes per key at batch ends,
+     and checks: the kernel's launch count equals the advances, the drop
+     counters are 0, there are matches, and the final state, pool and the
+     first 64 keys' matches equal the same run with engine="torch"; then
+     times the kernel on the last batch's state;
   5. runs the stock demo golden through engine="cuda" (4 matches);
   6. prints the kernel line, the card line, and last the ok line.
 
@@ -28,6 +37,7 @@ Without a card it exits 2 and prints nothing on stdout.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import random
 import subprocess
@@ -69,6 +79,12 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def spread(values: torch.Tensor) -> str:
+    v = values.double()
+    return (f"mean {float(v.mean()):.2f}, p50 {float(v.quantile(0.5)):.0f}, "
+            f"p90 {float(v.quantile(0.9)):.0f}, max {int(v.max())}")
+
+
 def max_abs_diff(a: dict, b: dict) -> float:
     """Largest |a - b| over every leaf; raises if a leaf is not bitwise equal."""
     bad = [n for n in a if a[n].dtype != b[n].dtype or not torch.equal(a[n], b[n])]
@@ -85,6 +101,7 @@ def main() -> int:
     import kafkastreams_cep_tpu_torch as P
     from kafkastreams_cep_tpu_torch.models import skip_any
     from kafkastreams_cep_tpu_torch.models.cases import CASES, STOCK_FIELDS
+    from kafkastreams_cep_tpu_torch.models.chunked import CHUNKED, CHUNKED_T, scatter_live_lanes
     from kafkastreams_cep_tpu_torch.models.stocks import (
         GOLDEN_EVENTS, GOLDEN_MATCHES, stocks_pattern,
     )
@@ -106,6 +123,9 @@ def main() -> int:
     for name, (pat, fields, stream, cfg) in CASES.items():
         q = P.compile_query(P.compile_pattern(pat()), P.EventSchema(fields) if fields else None)
         builds[name] = (q, P.EngineConfig(**cfg), stream)
+    for name, (pat, fields, stream, _seed, cfg) in CHUNKED.items():
+        q = P.compile_query(P.compile_pattern(pat()), P.EventSchema(fields) if fields else None)
+        builds[name] = (q, P.EngineConfig(**cfg), stream)
     flag_q = P.compile_query(P.compile_pattern(skip_any.skip_any8_pattern()), None)
     flag_cfg = P.EngineConfig(**skip_any.FLAGSHIP_CONFIG)
     builds["skip_any8"] = (flag_q, flag_cfg, None)
@@ -121,18 +141,31 @@ def main() -> int:
     for line in libs["skip_any8"].with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line or "smem" in line:
             log(f"ptxas[skip_any8]: {line.strip()}")
+    flag_lib = sk.load_library(libs["skip_any8"])
+    blocks, threads = ctypes.c_int(), ctypes.c_int()
+    err = flag_lib.nfa_step_occupancy(ctypes.byref(blocks), ctypes.byref(threads))
+    if err:
+        raise RuntimeError(f"occupancy query failed: cudaError {err}")
+    log(f"occupancy[skip_any8]: {blocks.value} block(s) of {threads.value} threads per SM, "
+        f"{blocks.value * threads.value // 32} warps (keys) per SM, "
+        f"{blocks.value * threads.value // 32 * torch.cuda.get_device_properties(0).multi_processor_count}"
+        f" keys resident on the card")
 
     # -- 3. kernel == plain step on the card ----------------------------------
     def compare(name, q, cfg, states_xs):
+        """Kernel == plain step on every (state, xs); returns the largest
+        |difference| (0 when equal) and the most live lanes a key holds
+        after any of the steps."""
         lib = sk.load_library(libs[name])
         plain = build_plain_step(q, cfg)
-        worst = 0.0
+        worst, live = 0.0, 0
         for state, xs in states_xs:
             s1, y1 = plain(state, xs)
             s2, y2 = sk.launch(lib, q, cfg, state, xs)
             torch.cuda.synchronize()
             worst = max(worst, max_abs_diff(s1, s2), max_abs_diff(y1, y2))
-        return worst
+            live = max(live, int(s1["active"].sum(0).max()))
+        return worst, live
 
     def trajectory(name, q, cfg, make_stream, K, T, n_batches, seed):
         """(state, xs) pairs along a torch-engine run (the kernel is fed
@@ -152,28 +185,68 @@ def main() -> int:
         q, cfg, stream = builds[name]
         compare(name, q, cfg, trajectory(name, q, cfg, stream, 8, 10, 3, 5))
         log(f"kernel == plain on the card: {name} (K=8, T=10, 3 batches)")
+    chunked_pairs = {}
+    for name in CHUNKED:
+        q, cfg, stream = builds[name]
+        pairs = trajectory(name, q, cfg, stream, 8, CHUNKED_T, 3, CHUNKED[name][3])
+        chunked_pairs[name] = pairs
+        _, live = compare(name, q, cfg, pairs)
+        log(f"kernel == plain on the card: {name} (K=8, T={CHUNKED_T}, 3 batches; "
+            f"up to {live} of {cfg.lanes} live lanes in a key at a batch end)")
+    # An entry state whose live lanes are not a prefix, run ids shared
+    # across chunks in its fullest key; a key whose events are all padding.
+    q, cfg, _ = builds["stock_lanes64"]
+    state, xs = chunked_pairs["stock_lanes64"][1]
+    k = int(state["active"].sum(0).argmax())
+    live = torch.nonzero(state["active"][:, k]).flatten()
+    state = {n: v.clone() for n, v in state.items()}
+    state["seq"][live[32:], k] = state["seq"][live[: len(live) - 32], k]
+    compare("stock_lanes64", q, cfg, [(scatter_live_lanes(state, 11), xs)])
+    q, cfg, _ = builds["skip_any8_lanes96"]
+    state, xs = chunked_pairs["skip_any8_lanes96"][1]
+    xs = dict(xs, valid=xs["valid"].clone())
+    xs["valid"][:, 3] = False
+    compare("skip_any8_lanes96", q, cfg, [(scatter_live_lanes(state, 12), xs)])
+    log("kernel == plain on the card: an entry state that is not a prefix, an all-padding key")
+    del chunked_pairs
+
     K, T = skip_any.FLAGSHIP_KEYS, skip_any.FLAGSHIP_T
     flag_pairs = trajectory("skip_any8", flag_q, flag_cfg, skip_any.skip_any8_stream, K, T, 3, 7)
-    max_err = compare("skip_any8", flag_q, flag_cfg, flag_pairs)
+    max_err, _ = compare("skip_any8", flag_q, flag_cfg, flag_pairs)
     log(f"kernel == plain on the card: skip_any8 (K={K}, T={T}, 3 batches)")
 
-    # Times at the flagship shape, on the third batch's (state, xs).
-    lib = sk.load_library(libs["skip_any8"])
-    state, xs = flag_pairs[-1]
-    ptrs, T_, K_, s_out, ys, _keep = sk.prepare(flag_q, flag_cfg, state, xs)
-    kernel_ms = cuda_ms(lambda: sk.call(lib, ptrs, T_, K_, dev), reps=20)
+    # Live lanes per key and event at the flagship shape: the plain step
+    # one event at a time over the 3 batches, read before each valid event.
     plain = build_plain_step(flag_q, flag_cfg)
+    per_event = []
+    for state, xs in flag_pairs:
+        for t in range(T):
+            xs_t = {n: v[t:t + 1] for n, v in xs.items()}
+            per_event.append(state["active"].sum(0)[xs_t["valid"][0]])
+            state, _ = plain(state, xs_t)
+    per_event = torch.cat(per_event)
+    log(f"live lanes per key and event (K={K}, batches 1-3, {per_event.numel()} key-events): "
+        f"{spread(per_event)}; chunks of 32 walked per key-event: mean "
+        f"{float(((per_event + 31) // 32).double().mean()):.3f} of {(flag_cfg.lanes + 31) // 32}")
+
+    # Times at the flagship shape, on the third batch's (state, xs).
+    lib = flag_lib
+    words = int(lib.nfa_step_scratch_words())
+    state, xs = flag_pairs[-1]
+    ptrs, T_, K_, s_out, ys, _keep = sk.prepare(flag_q, flag_cfg, state, xs, words)
+    kernel_ms = cuda_ms(lambda: sk.call(lib, ptrs, T_, K_, dev), reps=20)
     plain_ms = cuda_ms(lambda: plain(state, xs), reps=2)
-    xi, xf = _keep
+    xi, xf, scratch = _keep
     moved = xi.numel() * 4 + (xf.numel() * 4 if xf is not None else 0)
     moved += sum(state[n].numel() * state[n].element_size() for n in s_out if n in state)
     moved += sum(s_out[n].numel() * s_out[n].element_size() for n in s_out
                  if n != "gc_phase")
     moved += sum(v.numel() * 4 for v in ys.values())
     bound_ms = moved / HBM_BYTES_PER_S * 1e3
-    log(f"nfa_step at K={K} T={T}: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, "
-        f"bytes moved {moved} -> bound {bound_ms:.4f} ms")
-    del flag_pairs, state, xs, s_out, ys, _keep, xi, xf
+    log(f"nfa_step at K={K} T={T}, third batch: kernel {kernel_ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, bytes moved {moved} -> bound {bound_ms:.4f} ms "
+        f"({bound_ms / kernel_ms:.1%} of it); scratch {scratch.numel() * 4} B")
+    del flag_pairs, state, xs, s_out, ys, _keep, xi, xf, scratch, per_event
 
     # -- 4. the main path: BatchedDeviceNFA(engine="cuda") at K=2048, T=64 ----
     n_warm, n_timed = 2, 8
@@ -184,7 +257,7 @@ def main() -> int:
                                  config=flag_cfg, device=dev, engine=engine)
         rng = random.Random(7)
         streams = {k: skip_any.skip_any8_stream(rng, T * n_batches) for k in eng.keys}
-        matches, lanes_peak, nodes_peak = {}, 0, 0
+        matches, lanes_peak, nodes_peak, live_ends, last = {}, 0, 0, [], None
         pack_s = adv_s = drain_s = 0.0
         # Per-phase host walls (each phase ends in a synchronize), summed
         # over the timed batches.
@@ -215,6 +288,8 @@ def main() -> int:
             xs = eng.pack({k: s[b * T:(b + 1) * T] for k, s in streams.items()})
             torch.cuda.synchronize()
             t1 = time.perf_counter()
+            if b == n_batches - 1:
+                last = (eng.state, xs)
             eng.advance_packed(xs, decode=False)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
@@ -226,12 +301,14 @@ def main() -> int:
                 drain_s += t3 - t2
             for key, seqs in out.items():
                 matches.setdefault(key, []).extend(P.sequence_to_json(s) for s in seqs)
-            lanes_peak = max(lanes_peak, int(eng.state["active"].sum(0).max()))
+            live_ends.append(eng.state["active"].sum(0))
+            lanes_peak = max(lanes_peak, int(live_ends[-1].max()))
             nodes_peak = max(nodes_peak, int(eng.pool["node_count"].max()))
         launches = sk.NfaStep.launches
         return dict(eng=eng, matches=matches, adv_s=adv_s, drain_s=drain_s,
                     pack_s=pack_s, launches=launches, lanes_peak=lanes_peak,
-                    nodes_peak=nodes_peak, phases=phases)
+                    nodes_peak=nodes_peak, phases=phases, live_ends=torch.cat(live_ends),
+                    last=last)
 
     torch.cuda.reset_peak_memory_stats()
     run = flagship_run("cuda")
@@ -253,6 +330,7 @@ def main() -> int:
     log(f"main path: {n_match} matches, stats {stats}, lanes peak "
         f"{run['lanes_peak']}/{flag_cfg.lanes}, node_count peak "
         f"{run['nodes_peak']}/{flag_cfg.nodes}, nfa_step launches {run['launches']}")
+    log(f"main path: live lanes per key at the {n_batches} batch ends: {spread(run['live_ends'])}")
     if run["launches"] != n_batches:
         raise AssertionError(f"nfa_step launched {run['launches']} times for {n_batches} advances")
     drops = {k: stats[k] for k in DROP_COUNTER_KEYS}
@@ -273,6 +351,10 @@ def main() -> int:
     log(f"main path == engine='torch' run: final state, pool, first 64 keys' matches "
         f"(torch engine: advance {ref['adv_s'] / n_timed * 1e3:.1f} ms/batch)")
     del ref
+    ptrs, T_, K_, _s, _y, _keep = sk.prepare(flag_q, flag_cfg, *run["last"], words)
+    last_ms = cuda_ms(lambda: sk.call(lib, ptrs, T_, K_, dev), reps=20)
+    log(f"nfa_step at K={K} T={T}, last ({n_batches}th) batch: kernel {last_ms:.4f} ms")
+    del run["last"], _s, _y, _keep
 
     # -- 5. stock golden through the kernel -----------------------------------
     gold = P.BatchedDeviceNFA(gold_q, keys=["s1", "s2"], config=gold_cfg, device=dev,

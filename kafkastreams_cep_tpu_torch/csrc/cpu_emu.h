@@ -2,17 +2,20 @@
 //
 // nfa_step.cu compiles with g++ when NFA_CPU_EMU is defined: every CUDA
 // thread of a block becomes an OS thread, __syncthreads() a block-wide
-// std::barrier and shared memory a per-block buffer. __syncthreads_or()
-// meets at the block barrier; a warp shuffle meets at its warp's own
-// barrier, so it needs all 32 lanes of the warp, as the kernel's
-// full-mask shuffles do on the card. Blocks run one after another. The
-// point is to execute the kernel's own arithmetic, ranks and scatters
-// against the plain PyTorch version in the CPU test suite; speed is not a
-// goal, and nothing about warp scheduling is modelled.
+// std::barrier. Each warp intrinsic the kernel uses (__shfl_sync,
+// __shfl_up_sync, __ballot_sync, __any_sync, __syncwarp) meets at its
+// warp's own barrier, so it needs all 32 lanes of the warp, as the
+// kernel's full-mask calls do on the card; a call with a partial mask
+// aborts rather than guess at the card's behaviour. Blocks run one after
+// another. The point is to execute the kernel's own arithmetic, ranks and
+// scatters against the plain PyTorch version in the CPU test suite; speed
+// is not a goal, and nothing about warp scheduling is modelled.
 #pragma once
 
-#include <atomic>
+#include <algorithm>
 #include <barrier>
+#include <cstdio>
+#include <cstdlib>
 #include <cstring>
 #include <functional>
 #include <memory>
@@ -24,7 +27,7 @@
 #define __forceinline__ inline
 #define __constant__
 #define __shared__ static
-#define __launch_bounds__(n)
+#define __launch_bounds__(...)
 
 namespace emu {
 
@@ -33,22 +36,17 @@ struct Idx {
 };
 
 struct Block {
-  explicit Block(int nthreads, size_t smem_bytes)
-      : bar(nthreads), xchg(nthreads), smem(smem_bytes / sizeof(int) + 1) {
+  explicit Block(int nthreads) : bar(nthreads), xchg(nthreads) {
     for (int w = 0; w < nthreads / 32; ++w) warp_bar.emplace_back(new std::barrier<>(32));
   }
   std::barrier<> bar;                                    // __syncthreads
   std::vector<std::unique_ptr<std::barrier<>>> warp_bar;  // one per warp
-  std::vector<int> xchg;
-  std::vector<int> smem;
-  std::atomic<int> flag{0};
+  std::vector<int> xchg;                                 // one slot per thread
 };
 
 inline thread_local Block* blk = nullptr;
 
-inline void* dyn_smem() { return blk->smem.data(); }
-
-inline void launch(int grid, int nthreads, size_t smem_bytes, const std::function<void()>& body);
+inline void launch(int grid, int nthreads, const std::function<void()>& body);
 
 }  // namespace emu
 
@@ -57,30 +55,64 @@ inline thread_local emu::Idx blockIdx;
 
 inline void __syncthreads() { emu::blk->bar.arrive_and_wait(); }
 
-inline int __syncthreads_or(int p) {
-  emu::Block& b = *emu::blk;
-  if (p) b.flag.store(1);
-  b.bar.arrive_and_wait();
-  const int res = b.flag.load();
-  b.bar.arrive_and_wait();
-  if (threadIdx.x == 0) b.flag.store(0);
-  b.bar.arrive_and_wait();
-  return res;
+namespace emu {
+
+inline void full_mask(unsigned mask, const char* fn) {
+  if (mask != 0xffffffffu) {
+    std::fprintf(stderr, "cpu_emu: %s with partial mask %#x is not emulated\n", fn, mask);
+    std::abort();
+  }
 }
 
-// A full-warp shuffle: the 32 threads of the calling warp meet at their
-// warp's barrier (the kernel calls it with all 32 lanes, mask ~0u).
-inline int __shfl_up_sync(unsigned /*mask*/, int v, int delta) {
-  emu::Block& b = *emu::blk;
+// The 32 threads of the calling warp publish v and meet at their warp's
+// barrier; pick(lane0_slot) reads any lane's value; a second meeting lets
+// the slots be reused.
+template <class Pick>
+inline auto warp_exchange(unsigned mask, const char* fn, int v, Pick pick) {
+  full_mask(mask, fn);
+  Block& b = *blk;
   const int tid = threadIdx.x;
   std::barrier<>& wb = *b.warp_bar[tid / 32];
   b.xchg[tid] = v;
   wb.arrive_and_wait();
-  const int res = (tid & 31) >= delta ? b.xchg[tid - delta] : v;
+  const auto res = pick(&b.xchg[tid & ~31], tid & 31);
   wb.arrive_and_wait();
   return res;
 }
 
+}  // namespace emu
+
+inline int __shfl_sync(unsigned mask, int v, int src) {
+  return emu::warp_exchange(mask, "__shfl_sync", v,
+                            [&](const int* w, int) { return w[src & 31]; });
+}
+
+inline int __shfl_up_sync(unsigned mask, int v, int delta) {
+  return emu::warp_exchange(mask, "__shfl_up_sync", v, [&](const int* w, int lane) {
+    return lane >= delta ? w[lane - delta] : w[lane];
+  });
+}
+
+inline unsigned __ballot_sync(unsigned mask, int pred) {
+  return emu::warp_exchange(mask, "__ballot_sync", pred != 0, [](const int* w, int) {
+    unsigned bits = 0;
+    for (int i = 0; i < 32; ++i) bits |= (w[i] ? 1u : 0u) << i;
+    return bits;
+  });
+}
+
+inline int __any_sync(unsigned mask, int pred) { return __ballot_sync(mask, pred) != 0; }
+
+inline void __syncwarp(unsigned mask = 0xffffffffu) {
+  emu::full_mask(mask, "__syncwarp");
+  emu::blk->warp_bar[threadIdx.x / 32]->arrive_and_wait();
+}
+
+using std::max;
+using std::min;
+
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffsll(long long x) { return __builtin_ffsll(x); }
 inline int __popcll(unsigned long long x) { return __builtin_popcountll(x); }
 
 inline int __float_as_int(float f) {
@@ -95,10 +127,9 @@ inline float __int_as_float(int i) {
   return f;
 }
 
-inline void emu::launch(int grid, int nthreads, size_t smem_bytes,
-                        const std::function<void()>& body) {
+inline void emu::launch(int grid, int nthreads, const std::function<void()>& body) {
   for (int g = 0; g < grid; ++g) {
-    Block block(nthreads, smem_bytes);
+    Block block(nthreads);
     std::vector<std::thread> threads;
     threads.reserve(nthreads);
     for (int t = 0; t < nthreads; ++t) {

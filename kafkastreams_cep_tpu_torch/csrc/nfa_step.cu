@@ -10,41 +10,51 @@
 // re-adds, the 3L-slot table in the oracle's DFS order, fresh run ids,
 // match extraction (M_STEP), lane compaction and 8 counters. The plain
 // PyTorch version of the same function is ops/step.py; the two are held
-// bitwise equal on the card (chip_smoke.py).
+// bitwise equal on the card (chip_smoke.py) and, through a g++ build of
+// this file under cpu_emu.h, in the CPU tests.
 //
-// Design. One block per key, one thread per run lane (R rounded up to a
-// whole warp), the loop over T inside the block: the lane state is loaded
-// once, carried in registers across all T events and written once -- the
-// counterpart of the Pallas kernel's VMEM carry. Where the TPU kernel
-// ranked slots with an MXU matmul against a triangular matrix and selected
-// them with one-hot matmuls (f32 16-bit splits and sentinel biasing
-// included), this kernel runs one block-wide exclusive scan per event
-// (warp shuffles plus one shared-memory pass over the warp totals) and
-// each thread scatters its slots straight to their rank: matches and
-// buffer nodes to the w_* rows, surviving slots to a shared-memory
-// next-lane table the lanes reload from. Integers stay integers, so the
-// 2^24 node-id and 512-cap envelope of supports_pallas() does not apply;
-// this kernel's own envelope (lanes <= 1024, shared memory) is checked by
-// the wrapper, ops/step_kernel.py. An event that is padding for a key
-// (valid == 0) is a block-uniform branch: the state is held and the rows
-// are written empty.
+// What bounds it on an H100. The data is small: at the flagship shape
+// (skip_any8: K = 2048 keys, T = 64 events, R = 320 lanes, D = 11 Dewey
+// digits, A = 1 register, P_CAP = 128, M_STEP = 32) one launch reads and
+// writes the lane state once, reads xi and writes the w_* rows: 351 MB,
+// 0.105 ms at 3.35 TB/s. The work is a chain of dependent integer
+// operations per live lane and event (stage-table lookups, the descent,
+// the slot table, a prefix scan), and most of a key's R lanes are empty
+// (about 11 live lanes per key and event on average at the flagship, p90
+// 26). Work is issued for live lanes only, so a launch lasts about as
+// long as its busiest key takes to walk its chunks through the T events:
+// the latency of one warp's dependent chain bounds it, not bytes
+// (PERF.md has the measurements).
 //
-// What bounds it on an H100. The kernel moves little data: at the
-// flagship shape (skip_any8: K = 2048 keys, T = 64 events, R = 320 lanes,
-// D = 11 Dewey digits, A = 1 register, P_CAP = 128, M_STEP = 32) one
-// launch reads and writes the lane state once (80 bytes per lane:
-// 2 x 52 MB), reads xi (64 x 2048 x 21 words: 11 MB) and writes
-// w_event/w_name/w_pred and w_match/w_mroot (64 x 2048 x (3 x 128 +
-// 2 x 32) words: 235 MB) -- 351 MB, 0.105 ms at 3.35 TB/s. It measured
-// ~2.1 ms per launch on an H100 80GB HBM3 at 700 W (PERF.md): per event
-// and lane it does a few hundred
-// dependent integer operations (table lookups in shared memory, the
-// descent, the slot table, the scan), so it is bound by integer issue
-// and by the block-wide barriers of the per-event scan, not by memory.
-// The design keeps every lane's state in registers for the whole batch,
-// so no event touches device memory for state, and reads each event's
-// row once per block; tuning (several keys per block, persistent
-// blocks, TMA for the xi rows) is later work.
+// Design. One warp per key, 16 keys per block (one block per SM, every
+// key of the flagship resident at once), no block barrier between the
+// staging of the stage tables and the exit:
+//   * The key's lanes live in a scratch table in device memory (the
+//     wrapper allocates it; 2 x NREC x R words per key, double-buffered by
+//     event parity, field-major so a chunk's loads coalesce). Only the
+//     live prefix is touched, so the working set stays in the 50 MB L2.
+//   * Per event the warp walks the live lanes in chunks of 32 and touches
+//     no chunk past the live count. Ranks still run in lane order across
+//     the whole key: each chunk's warp scan (warp shuffles, two counts
+//     packed per word) is offset by running bases carried from chunk to
+//     chunk, so puts into P_CAP, matches into M_STEP, fresh seq ids and
+//     kept lanes land where the plain version's exclusive prefix puts
+//     them. Each thread walks only its own occupied slots, scattering
+//     kept lanes to the other parity's table, which the next event reads
+//     after a __syncwarp. Stage-table lookups are branch-free.
+//   * The next event's xi/xf row is loaded into registers before the
+//     current event computes; its columns reach the warp by shuffles, the
+//     stateless predicate bits by ballots.
+//   * Entry gathers the active lanes, in lane order, into the table (the
+//     initial state or a restored snapshot need not be compacted; an
+//     inactive lane contributes nothing, so no rank moves). Exit waits for
+//     the block's 16 keys and writes their state together: the state is
+//     K-last ([R, K], [R, D, K], as the post pass reads it), so a warp's
+//     store covers 16 consecutive keys of two lanes, not 32 lanes of one
+//     key 4 x K bytes apart (32 partial sectors a store, which congests the
+//     memory system under every warp still walking its events). Past the
+//     live count go the defaults; a key whose events were all padding
+//     writes its state back as it came in.
 //
 // Exactness: integer planes and f32 fold registers are bitwise the plain
 // version's. Build with --fmad=false (no contraction) and IEEE division;
@@ -59,10 +69,8 @@
 
 #ifdef NFA_CPU_EMU
 #include "cpu_emu.h"
-#define NFA_DYN_SMEM(T, name) T* name = reinterpret_cast<T*>(emu::dyn_smem())
 #else
 #include <cuda_runtime.h>
-#define NFA_DYN_SMEM(T, name) extern __shared__ T name[]
 #endif
 
 // ---- jnp arithmetic (XLA division semantics, wrapping int32) ------------
@@ -112,16 +120,23 @@ enum { PR_NONE = 0, PR_PROCEED = 1, PR_SKIP = 2 };
 // Counter order (ops/step.py COUNTER_FIELDS).
 enum { C_RUNS, C_EVENTS, C_BRANCHES, C_EXPIRED, C_LANE_DROPS, C_NODE_DROPS,
        C_MATCH_DROPS, C_COLLISIONS, N_CTR };
-// Fields of one lane record in the shared next-lane table.
+// Fields of one lane record in the scratch lane table (the Dewey digits
+// and the registers follow F_VER; a lane in the table is active).
 enum { F_SRC, F_EPS, F_VLEN, F_SEQ, F_NODE, F_ROOT, F_TS, F_BR, F_IG, F_VER };
 #include "nfa_query.cuh"
 
-
 constexpr int NREC = F_VER + D + 2 * A;
-constexpr int NWARPS = NTHREADS / 32;
 constexpr int S = 3 * L;
 static_assert(S <= 64, "slot masks are 64-bit");
-static_assert(NTHREADS % 32 == 0 && NTHREADS <= 1024, "block of whole warps");
+constexpr int WARPS = 16;                 // keys per block, one warp each
+constexpr int NTHREADS = 32 * WARPS;      // one block per SM: <= 128 registers
+constexpr int XW = (CI + 31) / 32;        // xi words each thread holds of a row
+constexpr int FW = NF > 0 ? (NF + 31) / 32 : 1;
+constexpr unsigned FULL = 0xffffffffu;
+// Scratch words per key: two lane tables (event parity), then the
+// fold-divergence detector's event-start seq/active arrays.
+constexpr int TABLE_WORDS = NREC * R;
+constexpr long long SCRATCH_WORDS = 2LL * TABLE_WORDS + (HAS_FOLDS ? 2 * R : 0);
 
 struct Args {
   const int* xi;           // [T, K, CI]
@@ -140,437 +155,546 @@ struct Args {
   // step outputs
   int* w_event; int* w_name; int* w_pred;   // [T, K, P_CAP]
   int* w_match; int* w_mroot;               // [T, K, M_STEP]
+  int* scratch;                             // [K, SCRATCH_WORDS]
   int T, K;
 };
 
-// Block-wide scan of NV per-thread counts: exclusive prefixes in thread
-// order and block totals. All threads must call it.
-template <int NV>
-__device__ __forceinline__ void block_scan(const int (&v)[NV], int (&excl)[NV],
-                                           int (&tot)[NV], int (*s_scan)[32]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int incl[NV];
+// a[i] of a small register array, by selects (no local memory).
+template <class T, int N>
+__device__ __forceinline__ T pick(const T (&a)[N], int i) {
+  T v = a[0];
 #pragma unroll
-  for (int i = 0; i < NV; ++i) incl[i] = v[i];
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      const int y = __shfl_up_sync(0xffffffffu, incl[i], o);
-      if (lane >= o) incl[i] += y;
-    }
-  }
-  if (lane == 31) {
-#pragma unroll
-    for (int i = 0; i < NV; ++i) s_scan[i][warp] = incl[i];
-  }
-  __syncthreads();
-  if (warp == 0) {
-#pragma unroll
-    for (int i = 0; i < NV; ++i) {
-      int x = lane < NWARPS ? s_scan[i][lane] : 0;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int y = __shfl_up_sync(0xffffffffu, x, o);
-        if (lane >= o) x += y;
-      }
-      if (lane < NWARPS) s_scan[i][lane] = x;
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < NV; ++i) {
-    excl[i] = (warp > 0 ? s_scan[i][warp - 1] : 0) + incl[i] - v[i];
-    tot[i] = s_scan[i][NWARPS - 1];
-  }
-  __syncthreads();  // s_scan is rewritten by the next call
+  for (int j = 1; j < N; ++j) v = i == j ? a[j] : v;
+  return v;
 }
 
-__global__ void __launch_bounds__(NTHREADS) nfa_step_kernel(Args a) {
+// Inclusive warp scan.
+__device__ __forceinline__ int warp_scan(int v, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(FULL, v, o);
+    if (lane >= o) v += y;
+  }
+  return v;
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1) nfa_step_kernel(Args a) {
   __shared__ int s_tab[N_TAB][N_ST];
-  __shared__ int s_scan[6][32];
-  NFA_DYN_SMEM(int, s_next);  // [NREC][R] next-lane table (+ [2][R] seq/active)
-  const int k = blockIdx.x;
-  const int r = threadIdx.x;
+  for (int i = threadIdx.x; i < N_TAB * N_ST; i += NTHREADS)
+    s_tab[i / N_ST][i % N_ST] = c_tab[i / N_ST][i % N_ST];
+  __shared__ int s_exit_live[WARPS], s_exit_parity[WARPS];
+  __syncthreads();  // each warp runs alone from here to the exit
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int k = blockIdx.x * WARPS + warp;
   const int K = a.K;
-  const bool is_lane = r < R;
+  const unsigned lanes_below = (1u << lane) - 1u;
 
-  for (int i = r; i < N_TAB * N_ST; i += NTHREADS) s_tab[i / N_ST][i % N_ST] = c_tab[i / N_ST][i % N_ST];
-  __syncthreads();
-
+  // Stage-table lookups without a branch: the index is clamped into the
+  // table, an id outside it reads as 0 (predicate lookups: false).
   auto tab = [&](int t, int id) -> int {
-    return (id >= 0 && id < N_ST) ? s_tab[t][id] : 0;
+    const int v = s_tab[t][min(max(id, 0), N_ST - 1)];
+    return (unsigned)id < (unsigned)N_ST ? v : 0;
+  };
+  // Window expiry of an active lane at clock clk.
+  auto expired_at = [&](int src, int eps, int ts, int clk) -> bool {
+    const int w_src = tab(TB_WINDOW, src);
+#if STRICT_WINDOWS
+    int w_eps = tab(TB_WINDOW, eps);
+    if (w_eps < 0) w_eps = w_src;
+    const int eff_window = eps >= 0 ? w_eps : w_src;
+    return ts >= 0 && eff_window >= 0 && jsub_i(clk, ts) > eff_window;
+#else
+    const int eff_window = eps >= 0 ? -1 : w_src;
+    return tab(TB_IS_BEGIN, src) == 0 && eff_window >= 0 && jsub_i(clk, ts) > eff_window;
+#endif
   };
 
-  // ---- load the lane (registers for the whole batch) --------------------
-  bool st_act = false, st_br = false, st_ig = false;
-  int st_src = 0, st_eps = -1, st_vlen = 0, st_seq = 0, st_node = -1,
-      st_root = -1, st_ts = -1;
-  int ver[D];
-  float regs[A];
-  bool rset[A];
-#pragma unroll
-  for (int d = 0; d < D; ++d) ver[d] = 0;
-#pragma unroll
-  for (int s = 0; s < A; ++s) { regs[s] = 0.0f; rset[s] = false; }
-  if (is_lane) {
-    const size_t o = (size_t)r * K + k;
-    st_act = a.active[o] != 0; st_src = a.src[o]; st_eps = a.eps[o];
-    st_vlen = a.vlen[o]; st_seq = a.seq[o]; st_node = a.node[o];
-    st_ts = a.ts[o]; st_br = a.branching[o] != 0; st_ig = a.ignored[o] != 0;
-    st_root = a.root[o];
-#pragma unroll
-    for (int d = 0; d < D; ++d) ver[d] = a.ver[((size_t)r * D + d) * K + k];
-#pragma unroll
-    for (int s = 0; s < A; ++s) {
-      regs[s] = a.regs[((size_t)r * A + s) * K + k];
-      rset[s] = a.regs_set[((size_t)r * A + s) * K + k] != 0;
-    }
-  }
-  int ctr[N_CTR];
-#pragma unroll
-  for (int i = 0; i < N_CTR; ++i) ctr[i] = a.ctr_in[i][k];
-  const int phase = a.gc_phase[k];
+  int n_live = 0, parity = 0;
+  bool touched = false;  // a valid event ran: the state goes out compacted
+  if (k < K) {
+    int* const table0 = a.scratch + (size_t)k * SCRATCH_WORDS;
 
-  for (int t = 0; t < a.T; ++t) {
-    const size_t row = (size_t)t * K + k;
-    const int* x = a.xi + row * CI;
-    int* wev = a.w_event + row * P_CAP;
-    int* wnm = a.w_name + row * P_CAP;
-    int* wpr = a.w_pred + row * P_CAP;
-    int* wmt = a.w_match + row * M_STEP;
-    int* wmr = a.w_mroot + row * M_STEP;
-    if (x[XI_VALID] == 0) {  // padding for this key: hold state, empty rows
-      for (int j = r; j < P_CAP; j += NTHREADS) { wev[j] = -1; wnm[j] = -1; wpr[j] = -1; }
-      for (int j = r; j < M_STEP; j += NTHREADS) { wmt[j] = -1; wmr[j] = -1; }
-      continue;
+    // ---- entry: gather the active lanes, in lane order, into table 0 -------
+    for (int c = 0; c < R; c += 32) {
+      const int j = c + lane;
+      const bool act = j < R && a.active[(size_t)j * K + k] != 0;
+      const unsigned m = __ballot_sync(FULL, act);
+      if (act) {
+        int* rec = table0 + n_live + __popc(m & lanes_below);
+        const size_t o = (size_t)j * K + k;
+        rec[F_SRC * R] = a.src[o]; rec[F_EPS * R] = a.eps[o]; rec[F_VLEN * R] = a.vlen[o];
+        rec[F_SEQ * R] = a.seq[o]; rec[F_NODE * R] = a.node[o]; rec[F_ROOT * R] = a.root[o];
+        rec[F_TS * R] = a.ts[o]; rec[F_BR * R] = a.branching[o] != 0;
+        rec[F_IG * R] = a.ignored[o] != 0;
+#pragma unroll
+        for (int d = 0; d < D; ++d) rec[(F_VER + d) * R] = a.ver[((size_t)j * D + d) * K + k];
+#pragma unroll
+        for (int s = 0; s < A; ++s) {
+          rec[(F_VER + D + s) * R] = __float_as_int(a.regs[((size_t)j * A + s) * K + k]);
+          rec[(F_VER + D + A + s) * R] = a.regs_set[((size_t)j * A + s) * K + k] != 0;
+        }
+      }
+      n_live += __popc(m);
     }
-    Ev ev;
-    ev.ts = x[XI_TS];
-    ev.topic = x[XI_TOPIC];
+    __syncwarp();  // table 0 is written
+    int ctr[N_CTR];
 #pragma unroll
-    for (int j = 0; j < NI; ++j) ev.fi[j] = x[XI_FIELDS + j];
+    for (int i = 0; i < N_CTR; ++i) ctr[i] = a.ctr_in[i][k];
+    const int phase = a.gc_phase[k];
+
+    // ---- the event row, one ahead ------------------------------------------
+    int x_next[XW];
+    float f_next[FW];
+    auto load_row = [&](int t) {
+      const size_t row = (size_t)t * K + k;
 #pragma unroll
-    for (int j = 0; j < NF; ++j) ev.ff[j] = a.xf[row * NF + j];
-    const int gidx = x[XI_GIDX];
-    const int clk = ev.ts > x[XI_WM] ? ev.ts : x[XI_WM];
-    uint64_t pbits = 0;
+      for (int w = 0; w < XW; ++w) {
+        const int c = w * 32 + lane;
+        x_next[w] = c < CI ? a.xi[row * CI + c] : 0;
+      }
 #pragma unroll
-    for (int p = 0; p < NP; ++p)
-      if (((STATELESS_MASK >> p) & 1ull) && x[XI_SPRED + p] != 0) pbits |= 1ull << p;
-    if (is_lane) pbits |= stateful_pred_bits(ev, regs, rset);
-    auto pred = [&](int t_, int id) -> bool {
-      if (id < 0 || id >= N_ST) return false;
-      const int pid = s_tab[t_][id];
-      return pid >= 0 && ((pbits >> pid) & 1ull);
+      for (int w = 0; w < FW; ++w) {
+        const int c = w * 32 + lane;
+        f_next[w] = c < NF ? a.xf[row * NF + c] : 0.0f;
+      }
     };
+    if (a.T > 0) load_row(0);
 
-    // ---- window expiry ---------------------------------------------------
-    const bool root_begin = tab(TB_IS_BEGIN, st_src) != 0;
-    const int w_src = tab(TB_WINDOW, st_src);
-    const int age = jsub_i(clk, st_ts);
-#if STRICT_WINDOWS
-    int w_eps = tab(TB_WINDOW, st_eps);
-    if (w_eps < 0) w_eps = w_src;
-    const int eff_window = st_eps >= 0 ? w_eps : w_src;
-    const bool expired = st_act && st_ts >= 0 && eff_window >= 0 && age > eff_window;
-#else
-    const int eff_window = st_eps >= 0 ? -1 : w_src;
-    const bool expired = st_act && !root_begin && eff_window >= 0 && age > eff_window;
-#endif
-    const bool act = st_act && !expired;
-    const bool root_fwd = st_eps >= 0 || tab(TB_IS_FWD, st_src) != 0;
-    const int start_ts = root_begin ? ev.ts : st_ts;
-    const bool state_match = (st_eps >= 0 && tab(TB_IS_FINAL, st_eps) != 0) ||
-                             (st_eps < 0 && tab(TB_FWD_FINAL, st_src) != 0);
-
-    // ---- downward pass: unrolled epsilon descent -------------------------
-    int lv_cs[L], lv_vlen[L], lv_ps[L];
-    bool lv_alive[L], lv_cm[L], lv_take[L], lv_igm[L], lv_branch[L];
-    {
-      bool alive = act, is_eps = st_eps >= 0, br = st_br, ig = st_ig;
-      int cs = st_src, ceps = st_eps, vlen = st_vlen, ps = -1;
+    for (int t = 0; t < a.T; ++t) {
+      int x[XW];
+      float xf[FW];
 #pragma unroll
-      for (int l = 0; l < L; ++l) {
-        const int c_op = is_eps ? OP_NONE : tab(TB_CONSUME_OP, cs);
-        const bool c_m = alive && !is_eps && c_op != OP_NONE && pred(TB_CONSUME_PRED, cs);
-        const bool take_m = c_m && c_op == OP_TAKE;
-        const bool ig_m = alive && !is_eps && pred(TB_IGNORE_PRED, cs);
-        const int pk = is_eps ? PR_PROCEED : tab(TB_PROCEED_KIND, cs);
-        const int ptgt = is_eps ? ceps : tab(TB_PROCEED_TARGET, cs);
-        const bool p_m = alive && pk != PR_NONE && (is_eps || pred(TB_PROCEED_PRED, cs));
-        const bool p_strict = p_m && pk == PR_PROCEED;
-        const bool branch_m = (p_strict && take_m) || (ig_m && (c_m || p_strict));
-        int pure_tgt = tab(TB_PURE_OF_PTGT, cs);
-        if (l == 0 && is_eps) pure_tgt = tab(TB_PURE_NAME, ceps);
-        const bool fwd_next = p_m && pure_tgt != tab(TB_PURE_NAME, cs) && !br && !ig;
-        lv_alive[l] = alive; lv_cs[l] = cs; lv_vlen[l] = vlen; lv_ps[l] = ps;
-        lv_cm[l] = c_m; lv_take[l] = take_m; lv_igm[l] = ig_m; lv_branch[l] = branch_m;
-        if (fwd_next) { vlen += 1; br = false; ig = false; }
-        if (pk != PR_SKIP) ps = cs;
-        alive = p_m;
-        cs = ptgt < 0 ? 0 : ptgt;
-        is_eps = false;
-        ceps = -1;
+      for (int w = 0; w < XW; ++w) x[w] = x_next[w];
+#pragma unroll
+      for (int w = 0; w < FW; ++w) xf[w] = f_next[w];
+      if (t + 1 < a.T) load_row(t + 1);
+      auto col = [&](int c) -> int { return __shfl_sync(FULL, x[c >> 5], c & 31); };
+
+      const size_t row = (size_t)t * K + k;
+      int* wev = a.w_event + row * P_CAP;
+      int* wnm = a.w_name + row * P_CAP;
+      int* wpr = a.w_pred + row * P_CAP;
+      int* wmt = a.w_match + row * M_STEP;
+      int* wmr = a.w_mroot + row * M_STEP;
+      if (col(XI_VALID) == 0) {  // padding for this key: hold state, empty rows
+        for (int j = lane; j < P_CAP; j += 32) { wev[j] = -1; wnm[j] = -1; wpr[j] = -1; }
+        for (int j = lane; j < M_STEP; j += 32) { wmt[j] = -1; wmr[j] = -1; }
+        continue;
       }
-    }
+      touched = true;
+      Ev ev;
+      ev.ts = col(XI_TS);
+      ev.topic = col(XI_TOPIC);
+#pragma unroll
+      for (int j = 0; j < NI; ++j) ev.fi[j] = col(XI_FIELDS + j);
+#pragma unroll
+      for (int j = 0; j < NF; ++j)
+        ev.ff[j] = __int_as_float(__shfl_sync(FULL, __float_as_int(xf[j >> 5]), j & 31));
+      const int gidx = col(XI_GIDX);
+      const int wm = col(XI_WM);
+      const int clk = ev.ts > wm ? ev.ts : wm;
+      uint64_t stateless_bits = 0;
+      {
+        unsigned nz[XW];
+#pragma unroll
+        for (int w = 0; w < XW; ++w) nz[w] = __ballot_sync(FULL, x[w] != 0);
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          const int c = XI_SPRED + p;
+          if (((STATELESS_MASK >> p) & 1ull) && ((nz[c >> 5] >> (c & 31)) & 1u))
+            stateless_bits |= 1ull << p;
+        }
+      }
 
-    // ---- fold-register chain (deepest level first) -----------------------
-    float cregs[L][A];
-    bool cset[L][A];
-    float fregs[A];
-    bool fset[A];
-#pragma unroll
-    for (int s = 0; s < A; ++s) { fregs[s] = regs[s]; fset[s] = rset[s]; }
-#pragma unroll
-    for (int l = L - 1; l >= 0; --l) {
-#pragma unroll
-      for (int s = 0; s < A; ++s) { cregs[l][s] = fregs[s]; cset[l][s] = fset[s]; }
-      apply_folds(ev, lv_cm[l], lv_cs[l], fregs, fset);
-    }
+      const int* cur = table0 + parity * TABLE_WORDS;
+      int* nxt = table0 + (parity ^ 1) * TABLE_WORDS;
+      const int base = B_NODES + (phase + t) * P_CAP;
 
-    // ---- fold-divergence detector ----------------------------------------
-    int collide = 0;
 #if HAS_FOLDS
-    {
-      int* s_seq = s_next + NREC * R;
-      int* s_act = s_seq + R;
-      if (is_lane) { s_seq[r] = st_seq; s_act[r] = act ? 1 : 0; }
-      __syncthreads();
-      bool consuming = false;
-#pragma unroll
-      for (int l = 0; l < L; ++l) consuming = consuming || lv_cm[l];
-      bool hit = false;
-      if (consuming)
-        for (int j = 0; j < R; ++j)
-          if (j != r && s_act[j] && s_seq[j] == st_seq) { hit = true; break; }
-      collide = __syncthreads_or(hit) ? 1 : 0;
-    }
+      // Event-start seq and activity of every live lane, for the
+      // fold-divergence detector (which compares across chunks).
+      int* d_seq = table0 + 2 * TABLE_WORDS;
+      int* d_act = d_seq + R;
+      for (int j = lane; j < n_live; j += 32) {
+        d_seq[j] = cur[F_SEQ * R + j];
+        d_act[j] = !expired_at(cur[F_SRC * R + j], cur[F_EPS * R + j], cur[F_TS * R + j], clk);
+      }
+      __syncwarp();
+      bool collide = false;
 #endif
 
-    // ---- upward pass: clones / begin re-adds -----------------------------
-    bool u_ign[L], u_clone[L], u_copy[L], u_fresh[L], u_root[L], u_add[L];
-    {
-      bool desc_any = false;
-#pragma unroll
-      for (int l = L - 1; l >= 0; --l) {
-        const bool ignore_emit = lv_igm[l] && !lv_branch[l];
-        const bool clone_m = lv_branch[l] && lv_cm[l];
-        const bool rootcopy_m = lv_branch[l] && !lv_cm[l] && !desc_any;
-        const bool readd_cond = root_begin && !root_fwd && lv_alive[l];
-        const bool fresh = readd_cond && lv_cm[l];
-        const bool rroot = readd_cond && !lv_cm[l];
-        const bool ns_before = lv_cm[l] || ignore_emit || desc_any || clone_m || rootcopy_m;
-        u_ign[l] = ignore_emit; u_clone[l] = clone_m; u_copy[l] = rootcopy_m;
-        u_fresh[l] = fresh; u_root[l] = rroot; u_add[l] = fresh && ns_before;
-        desc_any = ns_before || fresh || rroot;
-      }
-    }
+      // Running bases: what the chunks before this one produced.
+      int b_put = 0, b_new = 0, b_match = 0, b_keep = 0, n_branch = 0, n_expired = 0;
+      for (int c0 = 0; c0 < n_live; c0 += 32) {
+        const int j = c0 + lane;
+        const bool is_lane = j < n_live;
 
-    // ---- slot flags in oracle DFS order ----------------------------------
-    // slot l < L: level l's consume/ignore emission; then for each level
-    // from the deepest up, its clone (or root copy) and its begin re-add.
-    uint64_t occ = 0, mat = 0, nsq = 0;
-    int c_put = 0, c_branch = 0;
-#pragma unroll
-    for (int l = 0; l < L; ++l) {
-      const bool match_consume = lv_take[l] ? tab(TB_IS_FINAL, lv_cs[l]) != 0
-                                            : tab(TB_ISFIN_OF_CTGT, lv_cs[l]) != 0;
-      if (lv_cm[l] || u_ign[l]) occ |= 1ull << l;
-      if (lv_cm[l] ? match_consume : state_match) mat |= 1ull << l;
-      c_put += lv_cm[l] ? 1 : 0;
-      c_branch += u_clone[l] ? 1 : 0;
-    }
-#pragma unroll
-    for (int i = 0; i < L; ++i) {
-      const int l = L - 1 - i;
-      const int sc = L + 2 * i, sr = sc + 1;
-      if (u_clone[l] || u_copy[l]) occ |= 1ull << sc;
-      if (u_clone[l] ? tab(TB_IS_FINAL, lv_cs[l]) != 0 : state_match) mat |= 1ull << sc;
-      if (u_clone[l]) nsq |= 1ull << sc;
-      if (u_fresh[l] || u_root[l]) occ |= 1ull << sr;
-      if (state_match) mat |= 1ull << sr;
-      if (u_fresh[l]) nsq |= 1ull << sr;
-    }
-    nsq &= occ;
-    const uint64_t m_slots = occ & mat, k_slots = occ & ~mat;
-
-    // ---- one block-wide scan: ranks and totals ---------------------------
-    int cnt[6] = {c_put, (int)__popcll(nsq), (int)__popcll(m_slots),
-                  (int)__popcll(k_slots), c_branch, expired ? 1 : 0};
-    int ex[6], tot[6];
-    block_scan<6>(cnt, ex, tot, s_scan);
-    const int n_put = tot[0], n_new = tot[1], n_match = tot[2], n_keep = tot[3];
-
-    // ---- buffer puts at their rank ---------------------------------------
-    const int base = B_NODES + (phase + t) * P_CAP;
-    int put_idx[L];
-    {
-      int pr = ex[0];
-#pragma unroll
-      for (int l = 0; l < L; ++l) {
-        put_idx[l] = -1;
-        if (lv_cm[l]) {
-          if (pr < P_CAP) {
-            put_idx[l] = base + pr;
-            wev[pr] = gidx;
-            wnm[pr] = tab(TB_NAME_ID, lv_cs[l]);
-            wpr[pr] = st_node;
-          }
-          ++pr;
-        }
-      }
-    }
-    {
-      const int n_w = n_put < P_CAP ? n_put : P_CAP;
-      for (int j = n_w + r; j < P_CAP; j += NTHREADS) { wev[j] = -1; wnm[j] = -1; wpr[j] = -1; }
-      const int n_m = n_match < M_STEP ? n_match : M_STEP;
-      for (int j = n_m + r; j < M_STEP; j += NTHREADS) { wmt[j] = -1; wmr[j] = -1; }
-    }
-
-    // ---- slots: fresh run ids, matches, surviving lanes ------------------
-    {
-      int ns_r = ex[1], m_r = ex[2], k_r = ex[3];
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        if (!((occ >> s) & 1ull)) continue;
-        // level / clone / re-add decoding of slot s
-        const bool is_level = s < L;
-        const int i = is_level ? 0 : (s - L) >> 1;
-        const int l = is_level ? s : L - 1 - i;
-        const bool is_clone = !is_level && ((s - L) & 1) == 0;
-        int o_src, o_eps, o_vlen, o_seq, o_node, o_ts, addpos = -1;
-        bool o_br, o_ig, clone_regs = false, zero_regs = false;
-        if (is_level) {
-          const bool c_m = lv_cm[l];
-          o_src = c_m ? lv_cs[l] : st_src;
-          o_eps = c_m ? (lv_take[l] ? lv_cs[l] : tab(TB_CONSUME_TARGET, lv_cs[l])) : st_eps;
-          o_vlen = lv_vlen[l];
-          o_seq = st_seq;
-          o_node = c_m ? put_idx[l] : st_node;
-          o_ts = c_m ? start_ts : st_ts;
-          o_br = false;
-          o_ig = !c_m;
-        } else if (is_clone) {
-          const bool m = u_clone[l];
-          const bool has_ps = lv_ps[l] >= 0;
-          const bool ps_begin = !has_ps || tab(TB_IS_BEGIN, lv_ps[l]) != 0;
-          const int off = (ps_begin && lv_vlen[l] >= 2) ? 2 : 1;
-          o_src = m ? (has_ps ? lv_ps[l] : lv_cs[l]) : st_src;
-          o_eps = m ? lv_cs[l] : st_eps;
-          if (m) addpos = lv_vlen[l] - off;
-          o_vlen = m ? lv_vlen[l] : st_vlen;
-          o_seq = st_seq;
-          o_node = m ? (lv_igm[l] ? st_node : put_idx[l]) : st_node;
-          o_ts = m ? start_ts : st_ts;
-          o_br = m || st_br;
-          o_ig = !m && st_ig;
-          clone_regs = m;
-        } else {
-          const bool m = u_fresh[l];
-          o_src = st_src;
-          o_eps = st_eps;
-          if (m && u_add[l]) addpos = lv_vlen[l] - 1;
-          o_vlen = m ? lv_vlen[l] : st_vlen;
-          o_seq = st_seq;
-          o_node = m ? -1 : st_node;
-          o_ts = m ? -1 : st_ts;
-          o_br = !m && st_br;
-          o_ig = !m && st_ig;
-          zero_regs = m;
-        }
-        if ((nsq >> s) & 1ull) o_seq = ctr[C_RUNS] + 1 + ns_r++;
-        const int o_root = st_root >= 0 ? st_root : o_node;
-        if ((mat >> s) & 1ull) {
-          const int m = m_r++;
-          if (m < M_STEP) { wmt[m] = o_node; wmr[m] = o_root; }
-        } else {
-          const int q = k_r++;
-          if (q < R) {
-            int* rec = s_next + q;
-            rec[F_SRC * R] = o_src; rec[F_EPS * R] = o_eps; rec[F_VLEN * R] = o_vlen;
-            rec[F_SEQ * R] = o_seq; rec[F_NODE * R] = o_node; rec[F_ROOT * R] = o_root;
-            rec[F_TS * R] = o_ts; rec[F_BR * R] = o_br ? 1 : 0; rec[F_IG * R] = o_ig ? 1 : 0;
-#pragma unroll
-            for (int d = 0; d < D; ++d) rec[(F_VER + d) * R] = ver[d] + (d == addpos ? 1 : 0);
-#pragma unroll
-            for (int sl = 0; sl < A; ++sl) {
-              const float v = zero_regs ? 0.0f : (clone_regs ? cregs[l][sl] : fregs[sl]);
-              const bool b = !zero_regs && (clone_regs ? cset[l][sl] : fset[sl]);
-              rec[(F_VER + D + sl) * R] = __float_as_int(v);
-              rec[(F_VER + D + A + sl) * R] = b ? 1 : 0;
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();
-
-    // ---- reload the compacted lane table ---------------------------------
-    if (is_lane) {
-      const int n_live = n_keep < R ? n_keep : R;
-      if (r < n_live) {
-        const int* rec = s_next + r;
-        st_act = true;
-        st_src = rec[F_SRC * R]; st_eps = rec[F_EPS * R]; st_vlen = rec[F_VLEN * R];
-        st_seq = rec[F_SEQ * R]; st_node = rec[F_NODE * R]; st_root = rec[F_ROOT * R];
-        st_ts = rec[F_TS * R]; st_br = rec[F_BR * R] != 0; st_ig = rec[F_IG * R] != 0;
-#pragma unroll
-        for (int d = 0; d < D; ++d) ver[d] = rec[(F_VER + d) * R];
-#pragma unroll
-        for (int sl = 0; sl < A; ++sl) {
-          regs[sl] = __int_as_float(rec[(F_VER + D + sl) * R]);
-          rset[sl] = rec[(F_VER + D + A + sl) * R] != 0;
-        }
-      } else {
-        st_act = false; st_src = 0; st_eps = -1; st_vlen = 0; st_seq = 0;
-        st_node = -1; st_root = -1; st_ts = -1; st_br = false; st_ig = false;
+        // ---- the lane's record (an empty lane past the live count is inactive)
+        bool st_act = false, st_br = false, st_ig = false;
+        int st_src = 0, st_eps = -1, st_vlen = 0, st_seq = 0, st_node = -1,
+            st_root = -1, st_ts = -1;
+        int ver[D];
+        float regs[A];
+        bool rset[A];
 #pragma unroll
         for (int d = 0; d < D; ++d) ver[d] = 0;
 #pragma unroll
-        for (int sl = 0; sl < A; ++sl) { regs[sl] = 0.0f; rset[sl] = false; }
+        for (int s = 0; s < A; ++s) { regs[s] = 0.0f; rset[s] = false; }
+        if (is_lane) {
+          const int* rec = cur + j;
+          st_act = true;
+          st_src = rec[F_SRC * R]; st_eps = rec[F_EPS * R]; st_vlen = rec[F_VLEN * R];
+          st_seq = rec[F_SEQ * R]; st_node = rec[F_NODE * R]; st_root = rec[F_ROOT * R];
+          st_ts = rec[F_TS * R]; st_br = rec[F_BR * R] != 0; st_ig = rec[F_IG * R] != 0;
+#pragma unroll
+          for (int d = 0; d < D; ++d) ver[d] = rec[(F_VER + d) * R];
+#pragma unroll
+          for (int s = 0; s < A; ++s) {
+            regs[s] = __int_as_float(rec[(F_VER + D + s) * R]);
+            rset[s] = rec[(F_VER + D + A + s) * R] != 0;
+          }
+        }
+        uint64_t pbits = stateless_bits;
+        if (is_lane) pbits |= stateful_pred_bits(ev, regs, rset);
+        auto pred = [&](int t_, int id) -> bool {
+          const int pid = s_tab[t_][min(max(id, 0), N_ST - 1)];
+          return (unsigned)id < (unsigned)N_ST && pid >= 0 && ((pbits >> (pid & 63)) & 1ull);
+        };
+
+        // ---- window expiry -------------------------------------------------
+        const bool root_begin = tab(TB_IS_BEGIN, st_src) != 0;
+        const bool expired = st_act && expired_at(st_src, st_eps, st_ts, clk);
+        const bool act = st_act && !expired;
+        const bool root_fwd = st_eps >= 0 || tab(TB_IS_FWD, st_src) != 0;
+        const int start_ts = root_begin ? ev.ts : st_ts;
+        const bool state_match = (st_eps >= 0 && tab(TB_IS_FINAL, st_eps) != 0) ||
+                                 (st_eps < 0 && tab(TB_FWD_FINAL, st_src) != 0);
+
+        // ---- downward pass: unrolled epsilon descent -----------------------
+        int lv_cs[L], lv_vlen[L], lv_ps[L];
+        bool lv_alive[L], lv_cm[L], lv_take[L], lv_igm[L], lv_branch[L];
+        {
+          bool alive = act, is_eps = st_eps >= 0, br = st_br, ig = st_ig;
+          int cs = st_src, ceps = st_eps, vlen = st_vlen, ps = -1;
+#pragma unroll
+          for (int l = 0; l < L; ++l) {
+            const int c_op = is_eps ? OP_NONE : tab(TB_CONSUME_OP, cs);
+            const bool c_m = alive && !is_eps && c_op != OP_NONE && pred(TB_CONSUME_PRED, cs);
+            const bool take_m = c_m && c_op == OP_TAKE;
+            const bool ig_m = alive && !is_eps && pred(TB_IGNORE_PRED, cs);
+            const int pk = is_eps ? PR_PROCEED : tab(TB_PROCEED_KIND, cs);
+            const int ptgt = is_eps ? ceps : tab(TB_PROCEED_TARGET, cs);
+            const bool p_m = alive && pk != PR_NONE && (is_eps || pred(TB_PROCEED_PRED, cs));
+            const bool p_strict = p_m && pk == PR_PROCEED;
+            const bool branch_m = (p_strict && take_m) || (ig_m && (c_m || p_strict));
+            int pure_tgt = tab(TB_PURE_OF_PTGT, cs);
+            if (l == 0 && is_eps) pure_tgt = tab(TB_PURE_NAME, ceps);
+            const bool fwd_next = p_m && pure_tgt != tab(TB_PURE_NAME, cs) && !br && !ig;
+            lv_alive[l] = alive; lv_cs[l] = cs; lv_vlen[l] = vlen; lv_ps[l] = ps;
+            lv_cm[l] = c_m; lv_take[l] = take_m; lv_igm[l] = ig_m; lv_branch[l] = branch_m;
+            if (fwd_next) { vlen += 1; br = false; ig = false; }
+            if (pk != PR_SKIP) ps = cs;
+            alive = p_m;
+            cs = ptgt < 0 ? 0 : ptgt;
+            is_eps = false;
+            ceps = -1;
+          }
+        }
+
+        // ---- fold-register chain (deepest level first) ---------------------
+        float cregs[L][A];
+        bool cset[L][A];
+        float fregs[A];
+        bool fset[A];
+#pragma unroll
+        for (int s = 0; s < A; ++s) { fregs[s] = regs[s]; fset[s] = rset[s]; }
+#pragma unroll
+        for (int l = L - 1; l >= 0; --l) {
+#pragma unroll
+          for (int s = 0; s < A; ++s) { cregs[l][s] = fregs[s]; cset[l][s] = fset[s]; }
+          apply_folds(ev, lv_cm[l], lv_cs[l], fregs, fset);
+        }
+
+#if HAS_FOLDS
+        // ---- fold-divergence detector: a consuming lane whose seq another
+        // active lane of the key shares (event-start table, every chunk) ----
+        {
+          bool consuming = false;
+#pragma unroll
+          for (int l = 0; l < L; ++l) consuming = consuming || lv_cm[l];
+          bool hit = false;
+          if (consuming)
+            for (int i = 0; i < n_live; ++i)
+              if (i != j && d_act[i] && d_seq[i] == st_seq) { hit = true; break; }
+          collide = __any_sync(FULL, hit) || collide;
+        }
+#endif
+
+        // ---- upward pass: clones / begin re-adds ---------------------------
+        bool u_ign[L], u_clone[L], u_copy[L], u_fresh[L], u_root[L], u_add[L];
+        {
+          bool desc_any = false;
+#pragma unroll
+          for (int l = L - 1; l >= 0; --l) {
+            const bool ignore_emit = lv_igm[l] && !lv_branch[l];
+            const bool clone_m = lv_branch[l] && lv_cm[l];
+            const bool rootcopy_m = lv_branch[l] && !lv_cm[l] && !desc_any;
+            const bool readd_cond = root_begin && !root_fwd && lv_alive[l];
+            const bool fresh = readd_cond && lv_cm[l];
+            const bool rroot = readd_cond && !lv_cm[l];
+            const bool ns_before = lv_cm[l] || ignore_emit || desc_any || clone_m || rootcopy_m;
+            u_ign[l] = ignore_emit; u_clone[l] = clone_m; u_copy[l] = rootcopy_m;
+            u_fresh[l] = fresh; u_root[l] = rroot; u_add[l] = fresh && ns_before;
+            desc_any = ns_before || fresh || rroot;
+          }
+        }
+
+        // ---- slot flags in oracle DFS order --------------------------------
+        // slot l < L: level l's consume/ignore emission; then for each level
+        // from the deepest up, its clone (or root copy) and its begin re-add.
+        uint64_t occ = 0, mat = 0, nsq = 0;
+        int c_put = 0, c_branch = 0;
+#pragma unroll
+        for (int l = 0; l < L; ++l) {
+          const bool match_consume = lv_take[l] ? tab(TB_IS_FINAL, lv_cs[l]) != 0
+                                                : tab(TB_ISFIN_OF_CTGT, lv_cs[l]) != 0;
+          if (lv_cm[l] || u_ign[l]) occ |= 1ull << l;
+          if (lv_cm[l] ? match_consume : state_match) mat |= 1ull << l;
+          c_put += lv_cm[l] ? 1 : 0;
+          c_branch += u_clone[l] ? 1 : 0;
+        }
+#pragma unroll
+        for (int i = 0; i < L; ++i) {
+          const int l = L - 1 - i;
+          const int sc = L + 2 * i, sr = sc + 1;
+          if (u_clone[l] || u_copy[l]) occ |= 1ull << sc;
+          if (u_clone[l] ? tab(TB_IS_FINAL, lv_cs[l]) != 0 : state_match) mat |= 1ull << sc;
+          if (u_clone[l]) nsq |= 1ull << sc;
+          if (u_fresh[l] || u_root[l]) occ |= 1ull << sr;
+          if (state_match) mat |= 1ull << sr;
+          if (u_fresh[l]) nsq |= 1ull << sr;
+        }
+        nsq &= occ;
+        const uint64_t m_slots = occ & mat, k_slots = occ & ~mat;
+
+        // ---- the chunk's scan (two counts of at most 32 x 64 per word),
+        // offset by the running bases: ranks in lane order across the key
+        const int v0 = c_put | ((int)__popcll(nsq) << 16);
+        const int v1 = (int)__popcll(m_slots) | ((int)__popcll(k_slots) << 16);
+        const int v2 = c_branch | ((expired ? 1 : 0) << 16);
+        const int i0 = warp_scan(v0, lane), i1 = warp_scan(v1, lane), i2 = warp_scan(v2, lane);
+        const int t0 = __shfl_sync(FULL, i0, 31), t1 = __shfl_sync(FULL, i1, 31),
+                  t2 = __shfl_sync(FULL, i2, 31);
+        const int e0 = i0 - v0, e1 = i1 - v1;
+
+        // ---- buffer puts at their rank (w_event is written whole below) ---
+        int put_idx[L];
+        {
+          int pr = b_put + (e0 & 0xffff);
+#pragma unroll
+          for (int l = 0; l < L; ++l) {
+            put_idx[l] = -1;
+            if (lv_cm[l]) {
+              if (pr < P_CAP) {
+                put_idx[l] = base + pr;
+                wnm[pr] = tab(TB_NAME_ID, lv_cs[l]);
+                wpr[pr] = st_node;
+              }
+              ++pr;
+            }
+          }
+        }
+
+        // ---- slots: fresh run ids, matches, surviving lanes ----------------
+        // Each thread walks its own occupied slots (most lanes have one or
+        // two), ranked in slot order from the chunk's exclusive prefixes.
+        {
+          const int ns0 = b_new + (e0 >> 16), m0 = b_match + (e1 & 0xffff),
+                    k0 = b_keep + (e1 >> 16);
+          for (uint64_t todo = occ; todo != 0; todo &= todo - 1) {
+            const int s = __ffsll((long long)todo) - 1;
+            const uint64_t below = (1ull << s) - 1ull;
+            // level / clone / re-add decoding of slot s
+            const bool is_level = s < L;
+            const int i = is_level ? 0 : (s - L) >> 1;
+            const int l = is_level ? s : L - 1 - i;
+            const bool is_clone = !is_level && ((s - L) & 1) == 0;
+            const int cs = pick(lv_cs, l), vl = pick(lv_vlen, l);
+            int o_src, o_eps, o_vlen, o_node, o_ts, addpos = -1;
+            bool o_br, o_ig, clone_regs = false, zero_regs = false;
+            if (is_level) {
+              const bool c_m = pick(lv_cm, l);
+              o_src = c_m ? cs : st_src;
+              o_eps = c_m ? (pick(lv_take, l) ? cs : tab(TB_CONSUME_TARGET, cs)) : st_eps;
+              o_vlen = vl;
+              o_node = c_m ? pick(put_idx, l) : st_node;
+              o_ts = c_m ? start_ts : st_ts;
+              o_br = false;
+              o_ig = !c_m;
+            } else if (is_clone) {
+              const bool m = pick(u_clone, l);
+              const int ps = pick(lv_ps, l);
+              const bool has_ps = ps >= 0;
+              const bool ps_begin = !has_ps || tab(TB_IS_BEGIN, ps) != 0;
+              const int off = (ps_begin && vl >= 2) ? 2 : 1;
+              o_src = m ? (has_ps ? ps : cs) : st_src;
+              o_eps = m ? cs : st_eps;
+              if (m) addpos = vl - off;
+              o_vlen = m ? vl : st_vlen;
+              o_node = m ? (pick(lv_igm, l) ? st_node : pick(put_idx, l)) : st_node;
+              o_ts = m ? start_ts : st_ts;
+              o_br = m || st_br;
+              o_ig = !m && st_ig;
+              clone_regs = m;
+            } else {
+              const bool m = pick(u_fresh, l);
+              o_src = st_src;
+              o_eps = st_eps;
+              if (m && pick(u_add, l)) addpos = vl - 1;
+              o_vlen = m ? vl : st_vlen;
+              o_node = m ? -1 : st_node;
+              o_ts = m ? -1 : st_ts;
+              o_br = !m && st_br;
+              o_ig = !m && st_ig;
+              zero_regs = m;
+            }
+            const int o_seq = ((nsq >> s) & 1ull)
+                                  ? ctr[C_RUNS] + 1 + ns0 + (int)__popcll(nsq & below)
+                                  : st_seq;
+            const int o_root = st_root >= 0 ? st_root : o_node;
+            if ((mat >> s) & 1ull) {
+              const int m = m0 + (int)__popcll(m_slots & below);
+              if (m < M_STEP) { wmt[m] = o_node; wmr[m] = o_root; }
+            } else {
+              const int q = k0 + (int)__popcll(k_slots & below);
+              if (q < R) {
+                int* rec = nxt + q;
+                rec[F_SRC * R] = o_src; rec[F_EPS * R] = o_eps; rec[F_VLEN * R] = o_vlen;
+                rec[F_SEQ * R] = o_seq; rec[F_NODE * R] = o_node; rec[F_ROOT * R] = o_root;
+                rec[F_TS * R] = o_ts; rec[F_BR * R] = o_br ? 1 : 0; rec[F_IG * R] = o_ig ? 1 : 0;
+#pragma unroll
+                for (int d = 0; d < D; ++d) rec[(F_VER + d) * R] = ver[d] + (d == addpos ? 1 : 0);
+#pragma unroll
+                for (int sl = 0; sl < A; ++sl) {
+                  float v = fregs[sl];
+                  bool b = fset[sl];
+                  if (clone_regs) {
+#pragma unroll
+                    for (int ll = 0; ll < L; ++ll)
+                      if (ll == l) { v = cregs[ll][sl]; b = cset[ll][sl]; }
+                  }
+                  if (zero_regs) { v = 0.0f; b = false; }
+                  rec[(F_VER + D + sl) * R] = __float_as_int(v);
+                  rec[(F_VER + D + A + sl) * R] = b ? 1 : 0;
+                }
+              }
+            }
+          }
+        }
+        b_put += t0 & 0xffff; b_new += t0 >> 16;
+        b_match += t1 & 0xffff; b_keep += t1 >> 16;
+        n_branch += t2 & 0xffff; n_expired += t2 >> 16;
+      }
+
+      // ---- the rest of the rows: w_event whole, empty tails ----------------
+      const int n_w = b_put < P_CAP ? b_put : P_CAP;
+      for (int j = lane; j < P_CAP; j += 32) {
+        wev[j] = j < n_w ? gidx : -1;
+        if (j >= n_w) { wnm[j] = -1; wpr[j] = -1; }
+      }
+      const int n_m = b_match < M_STEP ? b_match : M_STEP;
+      for (int j = n_m + lane; j < M_STEP; j += 32) { wmt[j] = -1; wmr[j] = -1; }
+      __syncwarp();  // the kept lanes are the next event's table
+
+      // ---- counters (every lane keeps the warp-uniform copy) --------------
+      ctr[C_RUNS] += b_new;
+      ctr[C_EVENTS] += 1;
+      ctr[C_BRANCHES] += n_branch;
+      ctr[C_EXPIRED] += n_expired;
+      ctr[C_LANE_DROPS] += b_keep > R ? b_keep - R : 0;
+      ctr[C_NODE_DROPS] += b_put > P_CAP ? b_put - P_CAP : 0;
+      ctr[C_MATCH_DROPS] += b_match > M_STEP ? b_match - M_STEP : 0;
+#if HAS_FOLDS
+      ctr[C_COLLISIONS] += collide ? 1 : 0;
+#endif
+      n_live = b_keep < R ? b_keep : R;
+      parity ^= 1;
+    }
+
+    if (lane == 0) {
+#pragma unroll
+      for (int i = 0; i < N_CTR; ++i) a.ctr_out[i][k] = ctr[i];
+      s_exit_live[warp] = touched ? n_live : -1;
+      s_exit_parity[warp] = parity;
+    }
+  }
+
+  // ---- exit: the block writes its keys' lane state together -------------
+  // A thread takes one key and every (NTHREADS / WARPS)-th lane, so a
+  // warp's store covers whole runs of the block's consecutive keys in the
+  // K-last state. A key whose events were all padding writes its state back
+  // as it came in; past the live count go the compaction's defaults.
+  __syncthreads();
+  const int kl = threadIdx.x % WARPS;
+  const int kk = blockIdx.x * WARPS + kl;
+  if (kk >= K) return;
+  const int live = s_exit_live[kl];
+  const int* fin = a.scratch + (size_t)kk * SCRATCH_WORDS + s_exit_parity[kl] * TABLE_WORDS;
+  for (int j = threadIdx.x / WARPS; j < R; j += NTHREADS / WARPS) {
+    const size_t o = (size_t)j * K + kk;
+    if (live < 0) {
+      a.o_active[o] = a.active[o]; a.o_src[o] = a.src[o]; a.o_eps[o] = a.eps[o];
+      a.o_vlen[o] = a.vlen[o]; a.o_seq[o] = a.seq[o]; a.o_node[o] = a.node[o];
+      a.o_ts[o] = a.ts[o]; a.o_branching[o] = a.branching[o];
+      a.o_ignored[o] = a.ignored[o]; a.o_root[o] = a.root[o];
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        const size_t od = ((size_t)j * D + d) * K + kk;
+        a.o_ver[od] = a.ver[od];
+      }
+#pragma unroll
+      for (int s = 0; s < A; ++s) {
+        const size_t os = ((size_t)j * A + s) * K + kk;
+        a.o_regs[os] = a.regs[os];
+        a.o_regs_set[os] = a.regs_set[os];
+      }
+    } else if (j < live) {
+      const int* rec = fin + j;
+      a.o_active[o] = 1; a.o_src[o] = rec[F_SRC * R]; a.o_eps[o] = rec[F_EPS * R];
+      a.o_vlen[o] = rec[F_VLEN * R]; a.o_seq[o] = rec[F_SEQ * R];
+      a.o_node[o] = rec[F_NODE * R]; a.o_ts[o] = rec[F_TS * R];
+      a.o_branching[o] = (uint8_t)rec[F_BR * R]; a.o_ignored[o] = (uint8_t)rec[F_IG * R];
+      a.o_root[o] = rec[F_ROOT * R];
+#pragma unroll
+      for (int d = 0; d < D; ++d) a.o_ver[((size_t)j * D + d) * K + kk] = rec[(F_VER + d) * R];
+#pragma unroll
+      for (int s = 0; s < A; ++s) {
+        const size_t os = ((size_t)j * A + s) * K + kk;
+        a.o_regs[os] = __int_as_float(rec[(F_VER + D + s) * R]);
+        a.o_regs_set[os] = (uint8_t)rec[(F_VER + D + A + s) * R];
+      }
+    } else {
+      a.o_active[o] = 0; a.o_src[o] = 0; a.o_eps[o] = -1; a.o_vlen[o] = 0;
+      a.o_seq[o] = 0; a.o_node[o] = -1; a.o_ts[o] = -1; a.o_branching[o] = 0;
+      a.o_ignored[o] = 0; a.o_root[o] = -1;
+#pragma unroll
+      for (int d = 0; d < D; ++d) a.o_ver[((size_t)j * D + d) * K + kk] = 0;
+#pragma unroll
+      for (int s = 0; s < A; ++s) {
+        const size_t os = ((size_t)j * A + s) * K + kk;
+        a.o_regs[os] = 0.0f;
+        a.o_regs_set[os] = 0;
       }
     }
-
-    // ---- counters (every thread keeps the block-uniform copy) ------------
-    ctr[C_RUNS] += n_new;
-    ctr[C_EVENTS] += 1;
-    ctr[C_BRANCHES] += tot[4];
-    ctr[C_EXPIRED] += tot[5];
-    ctr[C_LANE_DROPS] += n_keep > R ? n_keep - R : 0;
-    ctr[C_NODE_DROPS] += n_put > P_CAP ? n_put - P_CAP : 0;
-    ctr[C_MATCH_DROPS] += n_match > M_STEP ? n_match - M_STEP : 0;
-    ctr[C_COLLISIONS] += collide;
-  }
-
-  // ---- write the lane state once -------------------------------------------
-  if (is_lane) {
-    const size_t o = (size_t)r * K + k;
-    a.o_active[o] = st_act ? 1 : 0; a.o_src[o] = st_src; a.o_eps[o] = st_eps;
-    a.o_vlen[o] = st_vlen; a.o_seq[o] = st_seq; a.o_node[o] = st_node;
-    a.o_ts[o] = st_ts; a.o_branching[o] = st_br ? 1 : 0;
-    a.o_ignored[o] = st_ig ? 1 : 0; a.o_root[o] = st_root;
-#pragma unroll
-    for (int d = 0; d < D; ++d) a.o_ver[((size_t)r * D + d) * K + k] = ver[d];
-#pragma unroll
-    for (int s = 0; s < A; ++s) {
-      a.o_regs[((size_t)r * A + s) * K + k] = regs[s];
-      a.o_regs_set[((size_t)r * A + s) * K + k] = rset[s] ? 1 : 0;
-    }
-  }
-  if (r == 0) {
-#pragma unroll
-    for (int i = 0; i < N_CTR; ++i) a.ctr_out[i][k] = ctr[i];
   }
 }
 
-// Shared memory of one block: the next-lane table, plus the seq/active
-// arrays of the fold-divergence detector.
-constexpr size_t SMEM_BYTES = sizeof(int) * ((size_t)NREC * R + (HAS_FOLDS ? 2 * R : 0));
-
 // Host entry, bound with ctypes. `p` holds the pointers in Args order
 // (xi, xf, 14 state-in leaves, 8 counters in, 13 state-out leaves,
-// 8 counters out, 5 outputs). Returns the launch's cudaError_t.
+// 8 counters out, 5 outputs, the scratch). Returns the launch's
+// cudaError_t.
 extern "C" int nfa_step_launch(void** p, int T, int K, void* stream) {
   Args a;
   int i = 0;
@@ -591,23 +715,31 @@ extern "C" int nfa_step_launch(void** p, int T, int K, void* stream) {
   for (int c = 0; c < N_CTR; ++c) a.ctr_out[c] = (int*)p[i++];
   a.w_event = (int*)p[i++]; a.w_name = (int*)p[i++]; a.w_pred = (int*)p[i++];
   a.w_match = (int*)p[i++]; a.w_mroot = (int*)p[i++];
+  a.scratch = (int*)p[i++];
   a.T = T;
   a.K = K;
+  const int blocks = (K + WARPS - 1) / WARPS;
 #ifdef NFA_CPU_EMU
-  emu::launch(K, NTHREADS, SMEM_BYTES, [&]() { nfa_step_kernel(a); });
+  emu::launch(blocks, NTHREADS, [&]() { nfa_step_kernel(a); });
   return 0;
 #else
-  cudaError_t err = cudaFuncSetAttribute(
-      nfa_step_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
-  if (err != cudaSuccess) return (int)err;
-  nfa_step_kernel<<<K, NTHREADS, SMEM_BYTES, (cudaStream_t)stream>>>(a);
+  nfa_step_kernel<<<blocks, NTHREADS, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 #endif
 }
 
-// The block's shared-memory bytes (dynamic part), for the wrapper's
-// envelope check.
-extern "C" long long nfa_step_smem_bytes() { return (long long)SMEM_BYTES; }
+// Scratch the wrapper allocates: int32 words per key.
+extern "C" long long nfa_step_scratch_words() { return SCRATCH_WORDS; }
+
+#ifndef NFA_CPU_EMU
+// Occupancy on the current card: resident blocks per SM and threads per
+// block (a warp per key). Returns the cudaError_t of the query.
+extern "C" int nfa_step_occupancy(int* blocks_per_sm, int* threads_per_block) {
+  *threads_per_block = NTHREADS;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, nfa_step_kernel,
+                                                            NTHREADS, 0);
+}
+#endif
 
 #ifdef NFA_CPU_EMU
 // Expression probe of the CPU emulation build, with which the tests hold

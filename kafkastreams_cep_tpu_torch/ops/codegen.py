@@ -236,10 +236,6 @@ def stage_tables(query: CompiledQuery) -> np.ndarray:
     return np.stack([np.asarray(r).astype(np.int64) for r in rows]).astype(np.int32)
 
 
-def threads_per_block(config: EngineConfig) -> int:
-    return max(32, ((config.lanes + 31) // 32) * 32)
-
-
 def query_header(query: CompiledQuery, config: EngineConfig) -> str:
     """The generated "nfa_query.cuh" for one (query, config)."""
     P = query.n_preds
@@ -255,7 +251,6 @@ def query_header(query: CompiledQuery, config: EngineConfig) -> str:
     lines = [
         "// Generated by ops/codegen.py for one compiled query; do not edit.",
         f"constexpr int R = {config.lanes};",
-        f"constexpr int NTHREADS = {threads_per_block(config)};",
         f"constexpr int D = {config.dewey_width(query)};",
         f"constexpr int A = {query.n_aggs};",
         f"constexpr int L = {query.max_depth};",

@@ -4,9 +4,11 @@
 ys)` with the kernel of csrc/nfa_step.cu behind it. It replaces
 `pallas_step.py::build_pallas_batched_advance` of the JAX package. For
 tensors on the card it launches the kernel or raises -- a failed build, a
-shape outside the kernel's envelope or a launch error never falls back.
+query outside the kernel's envelope or a launch error never falls back.
 For tensors on the CPU it runs the plain version (ops/step.py), which is
-what the kernel is held to.
+what the kernel is held to. Each launch allocates the kernel's scratch
+lane tables (`nfa_step_scratch_words()` int32 words per key) with
+`torch.empty`; the kernel allocates nothing.
 
 Build: the query's header (ops/codegen.py) is spliced into the kernel
 source; the result is compiled at first use with
@@ -38,7 +40,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from .codegen import XI_FIXED, field_layout, query_header, threads_per_block
+from .codegen import XI_FIXED, field_layout, query_header, stage_tables
 from .engine import WM_NONE, EngineConfig, node_window_cap
 from .step import COUNTER_FIELDS, build_plain_step
 from .tables import CompiledQuery
@@ -56,17 +58,20 @@ CPU_FLAGS = (
     "-fPIC", "-pthread", "-DNFA_CPU_EMU",
 )
 
-#: Shared memory one block may use on an H100 (dynamic + static).
-SMEM_LIMIT = 227 * 1024
-MAX_LANES = 1024
+#: The kernel's envelope: 64-bit slot masks (3 slots per descent level)
+#: and predicate masks, and the stage tables in static shared memory.
+MAX_SLOTS = 64
+MAX_PREDS = 64
+STATIC_SMEM_LIMIT = 48 * 1024
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
-def kernel_source(query: CompiledQuery, config: EngineConfig) -> str:
+def kernel_source(query: CompiledQuery, config: EngineConfig,
+                  source: Path = KERNEL_SOURCE) -> str:
     """The complete kernel source for one (query, config)."""
-    src = KERNEL_SOURCE.read_text()
+    src = Path(source).read_text()
     return src.replace('#include "nfa_query.cuh"\n', query_header(query, config))
 
 
@@ -86,13 +91,14 @@ def _compiler(target: str) -> Tuple[List[str], Tuple[str, ...]]:
 
 def build_library(
     query: CompiledQuery, config: EngineConfig, target: str = "sm_90a",
-    build_dir: Optional[Path] = None,
+    build_dir: Optional[Path] = None, source: Path = KERNEL_SOURCE,
 ) -> Path:
     """Compile the kernel for one (query, config) and return the .so path.
     Cached by a hash of the generated source and the flags; concurrent
-    builders of the same key are safe (atomic rename)."""
+    builders of the same key are safe (atomic rename). `source` names
+    another kernel file (scripts/time_nfa_step.py times variants)."""
     cmd, flags = _compiler(target)
-    src = kernel_source(query, config)
+    src = kernel_source(query, config, source)
     keyed = src + "\0" + " ".join(flags)
     if target == "cpu":
         keyed += (CSRC / "cpu_emu.h").read_text()
@@ -131,8 +137,8 @@ def load_library(path: Path) -> ctypes.CDLL:
                 ctypes.c_void_p,
             ]
             lib.nfa_step_launch.restype = ctypes.c_int
-            lib.nfa_step_smem_bytes.argtypes = []
-            lib.nfa_step_smem_bytes.restype = ctypes.c_longlong
+            lib.nfa_step_scratch_words.argtypes = []
+            lib.nfa_step_scratch_words.restype = ctypes.c_longlong
             _libs[str(path)] = lib
     return lib
 
@@ -165,10 +171,11 @@ _STATE_IN = (
 _STATE_OUT = _STATE_IN[:-1]
 
 
-def prepare(query: CompiledQuery, config: EngineConfig, state, xs):
+def prepare(query: CompiledQuery, config: EngineConfig, state, xs, scratch_words: int):
     """Check (state, xs) against the kernel's contract, pack xi/xf and
-    allocate every output. Returns (pointer array, T, K, state', ys); the
-    outputs are filled by `call`."""
+    allocate every output and `scratch_words` int32 words of scratch per
+    key. Returns (pointer array, T, K, state', ys, keep); the outputs are
+    filled by `call`, and `keep` holds what must outlive the launch."""
     T, K = xs["valid"].shape
     R = config.lanes
     D = config.dewey_width(query)
@@ -213,11 +220,14 @@ def prepare(query: CompiledQuery, config: EngineConfig, state, xs):
     ptrs += [out[n].data_ptr() for n in _STATE_OUT]
     ptrs += [ctr_out[c].data_ptr() for c in COUNTER_FIELDS]
     ptrs += [ys[k].data_ptr() for k in ("w_event", "w_name", "w_pred", "w_match", "w_mroot")]
+    scratch = torch.empty(K * scratch_words, **i32)
+    ptrs.append(scratch.data_ptr())
     new_state = dict(state)
     new_state.update(out)
     new_state.update(ctr_out)
-    # xi/xf ride along so they outlive the (asynchronous) launch.
-    keep = (xi, xf)
+    # xi/xf and the scratch ride along so they outlive the (asynchronous)
+    # launch.
+    keep = (xi, xf, scratch)
     return (ctypes.c_void_p * len(ptrs))(*ptrs), int(T), int(K), new_state, ys, keep
 
 
@@ -234,9 +244,29 @@ def launch(lib: ctypes.CDLL, query: CompiledQuery, config: EngineConfig, state, 
     """Run the compiled step on (state, xs) with tensors on the library's
     device (the card for sm_90a builds, the CPU for the emulation build).
     Returns (state', ys); does not synchronize."""
-    ptrs, T, K, new_state, ys, _keep = prepare(query, config, state, xs)
+    ptrs, T, K, new_state, ys, _keep = prepare(
+        query, config, state, xs, int(lib.nfa_step_scratch_words()))
     call(lib, ptrs, T, K, xs["valid"].device)
     return new_state, ys
+
+
+def check_envelope(query: CompiledQuery) -> None:
+    """Raise ValueError for a query the kernel cannot take. Lanes, keys
+    and Dewey digits have no limit of their own: a key's lanes live in
+    the scratch, walked 32 at a time."""
+    if 3 * query.max_depth > MAX_SLOTS:
+        raise ValueError(
+            f"descent depth {query.max_depth} needs {3 * query.max_depth} slots per "
+            f"lane; the kernel's slot masks hold {MAX_SLOTS}"
+        )
+    if query.n_preds > MAX_PREDS:
+        raise ValueError(f"{query.n_preds} predicates exceed the kernel's {MAX_PREDS}-bit mask")
+    smem = stage_tables(query).nbytes
+    if smem > STATIC_SMEM_LIMIT:
+        raise ValueError(
+            f"the stage tables of {query.n_stages} stages take {smem} B of shared "
+            f"memory (limit {STATIC_SMEM_LIMIT})"
+        )
 
 
 class NfaStep:
@@ -248,27 +278,16 @@ class NfaStep:
     launches = 0
 
     def __init__(self, query: CompiledQuery, config: EngineConfig) -> None:
-        if config.lanes > MAX_LANES:
-            raise ValueError(
-                f"lanes={config.lanes} exceeds the kernel's {MAX_LANES}-thread block"
-            )
+        check_envelope(query)
         self.query = query
         self.config = config
-        self.threads = threads_per_block(config)
         self._plain = build_plain_step(query, config)
         self._lib: Optional[ctypes.CDLL] = None
 
     def library(self) -> ctypes.CDLL:
-        """Build (or reuse) and load the kernel; checks its shared memory."""
+        """Build (or reuse) and load the kernel."""
         if self._lib is None:
-            lib = load_library(build_library(self.query, self.config))
-            smem = int(lib.nfa_step_smem_bytes())
-            if smem > SMEM_LIMIT - 8 * 1024:
-                raise ValueError(
-                    f"step kernel needs {smem} B of shared memory per block "
-                    f"(limit {SMEM_LIMIT}); reduce lanes or Dewey digits"
-                )
-            self._lib = lib
+            self._lib = load_library(build_library(self.query, self.config))
         return self._lib
 
     def __call__(self, state, xs):

@@ -24,6 +24,12 @@ so the pend append takes its dense path):
     GCs the 4-advance window, with the plain step alone held against the JAX
     batched XLA advance on each batch's inputs (nonzero gc_phase, "wm"
     column): state and ys equal, ys moved to one layout.
+And past one chunk of 32 lanes: the flagship skip_any8 deployment with
+its lanes cut to 96 (K=8 keys, T=64 events, 3 batches, stream seed 7),
+the plain step alone against the JAX batched XLA advance, each fed its
+own output state; some key holds more than 32 live lanes, which sends the
+CUDA kernel's source down its multi-chunk path in
+tests/test_torch_step.py.
 Each test builds its own engines (the JAX compiles dominate), so no
 fixture is rebuilt by several xdist workers.
 """
@@ -43,6 +49,7 @@ from kafkastreams_cep_tpu.ops.tables import compile_query as jax_compile_query  
 from kafkastreams_cep_tpu.parallel import BatchedDeviceNFA as JaxBatched  # noqa: E402
 from kafkastreams_cep_tpu.streams.serde import sequence_to_json as jax_json  # noqa: E402
 from kafkastreams_cep_tpu_torch.carry import state_from_numpy, state_to_numpy  # noqa: E402
+from kafkastreams_cep_tpu_torch.models import skip_any  # noqa: E402
 from kafkastreams_cep_tpu_torch.models.cases import CASES, TS0  # noqa: E402
 from kafkastreams_cep_tpu_torch.ops.step import build_plain_step  # noqa: E402
 
@@ -197,3 +204,32 @@ def test_engine_and_plain_step_match_jax_with_groups_and_watermarks(case):
         _advance_and_drain(b, f"{case} G=4", bx, bp, xs_j, xs_p)
     phases.append(int(np.asarray(bx.state["gc_phase"])[0]))
     assert phases == [0, T, 2 * T, 3 * T, 0], f"gc_phase before each batch and at the end: {phases}"
+
+
+def test_plain_step_matches_jax_past_one_chunk():
+    """skip_any8 at lanes=96: the plain step and the JAX batched XLA
+    advance, batch by batch from the initial state, each on its own
+    engine's packing of the same events, give equal states and ys."""
+    t = skip_any.FLAGSHIP_T
+    cfg = {**skip_any.FLAGSHIP_CONFIG, "lanes": 96}
+    qj = jax_compile_query(J.compile_pattern(skip_any.skip_any8_pattern(J)), None)
+    qp = P.compile_query(P.compile_pattern(skip_any.skip_any8_pattern()), None)
+    rng = random.Random(7)
+    sj = {k: skip_any.skip_any8_stream(rng, t * N_BATCHES, J) for k in KEYS}
+    rng = random.Random(7)
+    sp = {k: skip_any.skip_any8_stream(rng, t * N_BATCHES) for k in KEYS}
+    bx = _jax_engine(qj, cfg, 1)
+    bp = P.BatchedDeviceNFA(qp, keys=KEYS, device="cpu", config=P.EngineConfig(**cfg))
+    plain = build_plain_step(qp, bp.config)
+    js, ps, live = bx.state, bp.state, 0
+    for b in range(N_BATCHES):
+        xs_j = bx.pack({k: v[b * t:(b + 1) * t] for k, v in sj.items()})
+        xs_p = bp.pack({k: v[b * t:(b + 1) * t] for k, v in sp.items()})
+        js, jys = bx._advance(js, xs_j)
+        ps, pys = plain(ps, xs_p)
+        assert not _diffs(js, ps), f"batch {b}: step state {_diffs(js, ps)}"
+        for n in YS:
+            assert np.array_equal(np.transpose(np.asarray(jys[n]), (0, 2, 1)),
+                                  pys[n].numpy()), f"batch {b}: ys {n}"
+        live = max(live, int(ps["active"].sum(0).max()))
+    assert live > 32, f"at most {live} live lanes in a key at a batch end"

@@ -3,12 +3,26 @@
 The kernel (kafkastreams_cep_tpu_torch/csrc/nfa_step.cu) runs only on the
 card; `chip_smoke.py` holds it bitwise to the plain step there. On the
 CPU this file compiles the same source with g++ under csrc/cpu_emu.h
-(OS threads for CUDA threads, barriers for __syncthreads and for each
-warp's shuffles) and holds its outputs bitwise to the plain step on the
-three conformance cases, along a gc_group=4 run with a watermark column
-(so the kernel sees nonzero gc_phase and the wm clock). The plain step is
-itself held to the JAX engine in tests/test_torch_batched.py.
+(OS threads for CUDA threads, a barrier for __syncthreads and one per
+warp for its shuffles, ballots and __syncwarp) and holds its outputs
+bitwise to the plain step, on every leaf:
+
+  * the three conformance cases, along a gc_group=4 run with a watermark
+    column (so the kernel sees nonzero gc_phase and the wm clock);
+  * the cases of models/chunked.py, which reach the kernel's multi-chunk
+    path (a key with more than 32 live lanes, walked 32 at a time with
+    running rank bases): the flagship skip_any8 deployment at lanes=96,
+    the same at lanes=24 (lane overflow), and the stock fold pattern at
+    lanes=64 (the fold detector across chunks); each asserts that it got
+    there;
+  * an entry state whose live lanes are not a prefix (with run ids
+    shared across chunks, so the fold detector fires), and a key whose
+    events are all padding (its state must come back as it came in).
+
+The plain step is itself held to the JAX engine in
+tests/test_torch_batched.py.
 """
+import dataclasses
 import random
 import shutil
 from concurrent.futures import ThreadPoolExecutor
@@ -20,13 +34,14 @@ torch.set_num_threads(1)
 
 import kafkastreams_cep_tpu_torch as P  # noqa: E402
 from kafkastreams_cep_tpu_torch.models.cases import CASES, TS0  # noqa: E402
+from kafkastreams_cep_tpu_torch.models.chunked import (  # noqa: E402
+    CHUNKED, CHUNKED_T, scatter_live_lanes,
+)
 from kafkastreams_cep_tpu_torch.ops import step_kernel as sk  # noqa: E402
 from kafkastreams_cep_tpu_torch.ops.step import build_plain_step  # noqa: E402
 
 K, T, N_BATCHES = 8, 10, 3
 KEYS = [f"k{i}" for i in range(K)]
-
-
 def _query_config(case):
     pattern, fields, stream, cfg = CASES[case]
     query = P.compile_query(P.compile_pattern(pattern()),
@@ -53,8 +68,40 @@ def _trajectory(case, device="cpu"):
     return query, config, pairs
 
 
+def _chunked_query_config(name):
+    pattern, fields, _stream, _seed, cfg = CHUNKED[name]
+    query = P.compile_query(P.compile_pattern(pattern()),
+                            P.EventSchema(fields) if fields else None)
+    return query, P.EngineConfig(**cfg)
+
+
+def _chunked_trajectory(name, device="cpu"):
+    """(query, config, [(state, xs)]) along a plain-step run of K keys x
+    CHUNKED_T events x 3 batches of a models/chunked.py case."""
+    stream, seed = CHUNKED[name][2:4]
+    query, config = _chunked_query_config(name)
+    eng = P.BatchedDeviceNFA(query, keys=KEYS, config=config, device=device,
+                             engine="torch")
+    rng = random.Random(seed)
+    streams = {k: stream(rng, CHUNKED_T * N_BATCHES) for k in KEYS}
+    pairs = []
+    for b in range(N_BATCHES):
+        xs = eng.pack({k: s[b * CHUNKED_T:(b + 1) * CHUNKED_T] for k, s in streams.items()})
+        pairs.append((eng.state, xs))
+        eng.advance_packed(xs)
+    return query, config, pairs
+
+
 def _bad_leaves(a, b):
     return [n for n in a if a[n].dtype != b[n].dtype or not torch.equal(a[n], b[n])]
+
+
+def _assert_kernel_equals_plain(lib, query, config, state, xs, label):
+    s1, y1 = build_plain_step(query, config)(state, xs)
+    s2, y2 = sk.launch(lib, query, config, state, xs)
+    assert not _bad_leaves(s1, s2), f"{label}: state {_bad_leaves(s1, s2)}"
+    assert not _bad_leaves(y1, y2), f"{label}: ys {_bad_leaves(y1, y2)}"
+    return s1
 
 
 @pytest.fixture(scope="module")
@@ -62,10 +109,12 @@ def cpu_libraries():
     """The emulation build of every case's kernel, all compiled at once."""
     if shutil.which("g++") is None:
         pytest.skip("g++ is needed to compile the kernel source for the CPU")
-    with ThreadPoolExecutor(len(CASES)) as ex:
-        futs = {case: ex.submit(sk.build_library, *_query_config(case), target="cpu")
-                for case in CASES}
-        return {case: f.result() for case, f in futs.items()}
+    builds = {case: _query_config(case) for case in CASES}
+    builds.update({name: _chunked_query_config(name) for name in CHUNKED})
+    with ThreadPoolExecutor(len(builds)) as ex:
+        futs = {name: ex.submit(sk.build_library, q, c, target="cpu")
+                for name, (q, c) in builds.items()}
+        return {name: f.result() for name, f in futs.items()}
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -81,6 +130,59 @@ def test_kernel_source_matches_plain_step_on_cpu(case, cpu_libraries):
         assert not _bad_leaves(y1, y2), f"{case} batch {b}: ys {_bad_leaves(y1, y2)}"
 
 
+@pytest.mark.parametrize("name", sorted(CHUNKED))
+def test_kernel_source_matches_plain_step_past_one_chunk(name, cpu_libraries):
+    query, config, pairs = _chunked_trajectory(name)
+    lib = sk.load_library(cpu_libraries[name])
+    outs = [_assert_kernel_equals_plain(lib, query, config, state, xs, f"{name} batch {b}")
+            for b, (state, xs) in enumerate(pairs)]
+    if config.lanes > 32:
+        live = max(int(s["active"].sum(0).max()) for s in outs)
+        assert live > 32, f"{name}: at most {live} live lanes in a key at a batch end"
+    else:
+        assert int(outs[-1]["lane_drops"].sum()) > 0, f"{name}: no lane overflow"
+    if query.folds and any(query.folds):
+        assert config.lanes > 32
+
+
+def test_kernel_source_compacts_an_entry_state_that_is_not_a_prefix(cpu_libraries):
+    """Stock folds at lanes=64, from the state before batch 2, its live
+    lanes scattered. In the key with the most live lanes, the lane of
+    rank i + 32 takes the run id of the lane of rank i: only ids shared
+    across chunks, so the fold detector fires only if it compares across
+    chunks against the event-start table."""
+    query, config, pairs = _chunked_trajectory("stock_lanes64")
+    lib = sk.load_library(cpu_libraries["stock_lanes64"])
+    state, xs = pairs[1]
+    k = int(state["active"].sum(0).argmax())
+    live = torch.nonzero(state["active"][:, k]).flatten()
+    assert len(live) > 32
+    state = {n: v.clone() for n, v in state.items()}
+    for i in range(len(live) - 32):
+        state["seq"][live[i + 32], k] = state["seq"][live[i], k]
+    state = scatter_live_lanes(state, 11)
+    assert not bool(state["active"][: len(live), k].all())  # not a prefix
+    out = _assert_kernel_equals_plain(lib, query, config, state, xs, "scattered entry")
+    assert int(out["seq_collisions"][k]) > int(state["seq_collisions"][k])
+
+
+def test_kernel_source_returns_an_all_padding_key_unchanged(cpu_libraries):
+    """skip_any8 at lanes=96 from a scattered state (arbitrary values in
+    the inactive lanes): a key whose T events are all padding comes back
+    bitwise as it came in, the other keys advance."""
+    query, config, pairs = _chunked_trajectory("skip_any8_lanes96")
+    lib = sk.load_library(cpu_libraries["skip_any8_lanes96"])
+    state, xs = pairs[1]
+    state = scatter_live_lanes(state, 12)
+    xs = dict(xs)
+    xs["valid"] = xs["valid"].clone()
+    xs["valid"][:, 3] = False
+    out = _assert_kernel_equals_plain(lib, query, config, state, xs, "all-padding key")
+    for n in state:
+        assert torch.equal(out[n][..., 3], state[n][..., 3]), n
+    assert int(out["n_events"].sum()) > int(state["n_events"].sum())
+
+
 def test_wrapper_runs_plain_version_for_cpu_tensors():
     query, config, pairs = _trajectory("letters")
     step = sk.NfaStep(query, config)
@@ -93,16 +195,20 @@ def test_wrapper_runs_plain_version_for_cpu_tensors():
 
 
 def test_wrapper_refuses_shapes_outside_the_envelope():
+    """A key's lanes live in the kernel's scratch, so any lane count is
+    taken; a descent deeper than the 64-bit slot masks hold is not."""
     query = P.compile_query(P.compile_pattern(CASES["letters"][0]()), None)
-    with pytest.raises(ValueError, match="lanes"):
-        sk.NfaStep(query, P.EngineConfig(lanes=2048))
+    sk.NfaStep(query, P.EngineConfig(lanes=2048))
+    with pytest.raises(ValueError, match="descent depth"):
+        sk.NfaStep(dataclasses.replace(query, max_depth=22), P.EngineConfig())
 
 
 def test_kernel_matches_plain_step_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card; chip_smoke.py runs this comparison on the H100")
-    for case in sorted(CASES):
-        query, config, pairs = _trajectory(case, device="cuda")
+    runs = [_trajectory(case, device="cuda") for case in sorted(CASES)]
+    runs += [_chunked_trajectory(name, device="cuda") for name in sorted(CHUNKED)]
+    for case, (query, config, pairs) in zip(sorted(CASES) + sorted(CHUNKED), runs):
         plain = build_plain_step(query, config)
         step = sk.NfaStep(query, config)
         for state, xs in pairs:
