@@ -41,7 +41,12 @@
 //     kept lanes land where the plain version's exclusive prefix puts
 //     them. Each thread walks only its own occupied slots, scattering
 //     kept lanes to the other parity's table, which the next event reads
-//     after a __syncwarp. Stage-table lookups are branch-free.
+//     after a __syncwarp. What the descent asks of a stage (its consume
+//     op, proceed kind, flags, whether the predicate of an edge holds) is
+//     a bit of a 64-bit stage mask in registers -- the predicate masks are
+//     built once per event from the stateless predicates, plus each lane's
+//     stateful ones -- and the few integer lookups left (targets, windows,
+//     names) read shared memory without a branch.
 //   * The next event's xi/xf row is loaded into registers before the
 //     current event computes; its columns reach the warp by shuffles, the
 //     stateless predicate bits by ballots.
@@ -108,14 +113,9 @@ __device__ __forceinline__ float jmod_f(float a, float b) {
   return (((t < 0.0f) != (b < 0.0f)) && t != 0.0f) ? t + b : t;
 }
 
-// Stage-table rows in s_tab (filled from c_tab at block start).
-enum {
-  TB_CONSUME_OP, TB_CONSUME_PRED, TB_CONSUME_TARGET, TB_IGNORE_PRED,
-  TB_PROCEED_KIND, TB_PROCEED_PRED, TB_PROCEED_TARGET, TB_WINDOW,
-  TB_NAME_ID, TB_PURE_NAME, TB_IS_BEGIN, TB_IS_FINAL, TB_IS_FWD,
-  TB_FWD_FINAL, TB_PURE_OF_PTGT, TB_ISFIN_OF_CTGT, N_TAB
-};
-enum { OP_NONE = 0, OP_BEGIN = 1, OP_TAKE = 2 };
+// Stage-table rows in s_tab (filled from c_tab at block start); the
+// yes/no facts about stages are the header's M_* stage masks.
+enum { TB_CONSUME_TARGET, TB_PROCEED_TARGET, TB_WINDOW, TB_NAME_ID, TB_PURE_NAME, N_TAB };
 enum { PR_NONE = 0, PR_PROCEED = 1, PR_SKIP = 2 };
 // Counter order (ops/step.py COUNTER_FIELDS).
 enum { C_RUNS, C_EVENTS, C_BRANCHES, C_EXPIRED, C_LANE_DROPS, C_NODE_DROPS,
@@ -128,6 +128,7 @@ enum { F_SRC, F_EPS, F_VLEN, F_SEQ, F_NODE, F_ROOT, F_TS, F_BR, F_IG, F_VER };
 constexpr int NREC = F_VER + D + 2 * A;
 constexpr int S = 3 * L;
 static_assert(S <= 64, "slot masks are 64-bit");
+static_assert(N_ST <= 64, "stage masks are 64-bit");
 constexpr int WARPS = 16;                 // keys per block, one warp each
 constexpr int NTHREADS = 32 * WARPS;      // one block per SM: <= 128 registers
 constexpr int XW = (CI + 31) / 32;        // xi words each thread holds of a row
@@ -183,7 +184,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) nfa_step_kernel(Args a) {
   for (int i = threadIdx.x; i < N_TAB * N_ST; i += NTHREADS)
     s_tab[i / N_ST][i % N_ST] = c_tab[i / N_ST][i % N_ST];
   __shared__ int s_exit_live[WARPS], s_exit_parity[WARPS];
-  __syncthreads();  // each warp runs alone from here to the exit
+  __syncthreads();  // the tables are staged; each warp runs alone until the exit
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -192,10 +193,14 @@ __global__ void __launch_bounds__(NTHREADS, 1) nfa_step_kernel(Args a) {
   const unsigned lanes_below = (1u << lane) - 1u;
 
   // Stage-table lookups without a branch: the index is clamped into the
-  // table, an id outside it reads as 0 (predicate lookups: false).
+  // table, an id outside it reads as 0. `has` tests a stage's bit of one
+  // of the header's stage masks; an id outside the table has none.
   auto tab = [&](int t, int id) -> int {
     const int v = s_tab[t][min(max(id, 0), N_ST - 1)];
     return (unsigned)id < (unsigned)N_ST ? v : 0;
+  };
+  auto has = [](unsigned long long mask, int id) -> bool {
+    return (unsigned)id < (unsigned)N_ST && ((mask >> (id & 63)) & 1ull);
   };
   // Window expiry of an active lane at clock clk.
   auto expired_at = [&](int src, int eps, int ts, int clk) -> bool {
@@ -207,7 +212,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) nfa_step_kernel(Args a) {
     return ts >= 0 && eff_window >= 0 && jsub_i(clk, ts) > eff_window;
 #else
     const int eff_window = eps >= 0 ? -1 : w_src;
-    return tab(TB_IS_BEGIN, src) == 0 && eff_window >= 0 && jsub_i(clk, ts) > eff_window;
+    return !has(M_IS_BEGIN, src) && eff_window >= 0 && jsub_i(clk, ts) > eff_window;
 #endif
   };
 
@@ -307,6 +312,10 @@ __global__ void __launch_bounds__(NTHREADS, 1) nfa_step_kernel(Args a) {
             stateless_bits |= 1ull << p;
         }
       }
+      // The stages whose consume / ignore / proceed predicate holds, for
+      // the stateless predicates (the same for every lane of the key).
+      unsigned long long ev_cons = 0, ev_ign = 0, ev_proc = 0;
+      stages_on(stateless_bits, ev_cons, ev_ign, ev_proc);
 
       const int* cur = table0 + parity * TABLE_WORDS;
       int* nxt = table0 + (parity ^ 1) * TABLE_WORDS;
@@ -356,21 +365,18 @@ __global__ void __launch_bounds__(NTHREADS, 1) nfa_step_kernel(Args a) {
             rset[s] = rec[(F_VER + D + A + s) * R] != 0;
           }
         }
-        uint64_t pbits = stateless_bits;
-        if (is_lane) pbits |= stateful_pred_bits(ev, regs, rset);
-        auto pred = [&](int t_, int id) -> bool {
-          const int pid = s_tab[t_][min(max(id, 0), N_ST - 1)];
-          return (unsigned)id < (unsigned)N_ST && pid >= 0 && ((pbits >> (pid & 63)) & 1ull);
-        };
+        // ... plus the lane's own stateful predicates.
+        unsigned long long cons = ev_cons, ign = ev_ign, proc = ev_proc;
+        if (is_lane) stages_on(stateful_pred_bits(ev, regs, rset), cons, ign, proc);
 
         // ---- window expiry -------------------------------------------------
-        const bool root_begin = tab(TB_IS_BEGIN, st_src) != 0;
+        const bool root_begin = has(M_IS_BEGIN, st_src);
         const bool expired = st_act && expired_at(st_src, st_eps, st_ts, clk);
         const bool act = st_act && !expired;
-        const bool root_fwd = st_eps >= 0 || tab(TB_IS_FWD, st_src) != 0;
+        const bool root_fwd = st_eps >= 0 || has(M_IS_FWD, st_src);
         const int start_ts = root_begin ? ev.ts : st_ts;
-        const bool state_match = (st_eps >= 0 && tab(TB_IS_FINAL, st_eps) != 0) ||
-                                 (st_eps < 0 && tab(TB_FWD_FINAL, st_src) != 0);
+        const bool state_match = (st_eps >= 0 && has(M_IS_FINAL, st_eps)) ||
+                                 (st_eps < 0 && has(M_FWD_FINAL, st_src));
 
         // ---- downward pass: unrolled epsilon descent -----------------------
         int lv_cs[L], lv_vlen[L], lv_ps[L];
@@ -380,18 +386,20 @@ __global__ void __launch_bounds__(NTHREADS, 1) nfa_step_kernel(Args a) {
           int cs = st_src, ceps = st_eps, vlen = st_vlen, ps = -1;
 #pragma unroll
           for (int l = 0; l < L; ++l) {
-            const int c_op = is_eps ? OP_NONE : tab(TB_CONSUME_OP, cs);
-            const bool c_m = alive && !is_eps && c_op != OP_NONE && pred(TB_CONSUME_PRED, cs);
-            const bool take_m = c_m && c_op == OP_TAKE;
-            const bool ig_m = alive && !is_eps && pred(TB_IGNORE_PRED, cs);
-            const int pk = is_eps ? PR_PROCEED : tab(TB_PROCEED_KIND, cs);
+            const bool c_m = alive && !is_eps && has(M_COP_ANY & cons, cs);
+            const bool take_m = c_m && has(M_COP_TAKE, cs);
+            const bool ig_m = alive && !is_eps && has(ign, cs);
+            const int pk = is_eps ? PR_PROCEED
+                           : has(M_PK_PROCEED, cs) ? PR_PROCEED
+                           : has(M_PK_SKIP, cs) ? PR_SKIP : PR_NONE;
             const int ptgt = is_eps ? ceps : tab(TB_PROCEED_TARGET, cs);
-            const bool p_m = alive && pk != PR_NONE && (is_eps || pred(TB_PROCEED_PRED, cs));
+            const bool p_m = alive && pk != PR_NONE && (is_eps || has(proc, cs));
             const bool p_strict = p_m && pk == PR_PROCEED;
             const bool branch_m = (p_strict && take_m) || (ig_m && (c_m || p_strict));
-            int pure_tgt = tab(TB_PURE_OF_PTGT, cs);
-            if (l == 0 && is_eps) pure_tgt = tab(TB_PURE_NAME, ceps);
-            const bool fwd_next = p_m && pure_tgt != tab(TB_PURE_NAME, cs) && !br && !ig;
+            const bool pure_differs = (l == 0 && is_eps)
+                                          ? tab(TB_PURE_NAME, ceps) != tab(TB_PURE_NAME, cs)
+                                          : has(M_PURE_DIFF, cs);
+            const bool fwd_next = p_m && pure_differs && !br && !ig;
             lv_alive[l] = alive; lv_cs[l] = cs; lv_vlen[l] = vlen; lv_ps[l] = ps;
             lv_cm[l] = c_m; lv_take[l] = take_m; lv_igm[l] = ig_m; lv_branch[l] = branch_m;
             if (fwd_next) { vlen += 1; br = false; ig = false; }
@@ -458,8 +466,8 @@ __global__ void __launch_bounds__(NTHREADS, 1) nfa_step_kernel(Args a) {
         int c_put = 0, c_branch = 0;
 #pragma unroll
         for (int l = 0; l < L; ++l) {
-          const bool match_consume = lv_take[l] ? tab(TB_IS_FINAL, lv_cs[l]) != 0
-                                                : tab(TB_ISFIN_OF_CTGT, lv_cs[l]) != 0;
+          const bool match_consume = lv_take[l] ? has(M_IS_FINAL, lv_cs[l])
+                                                : has(M_ISFIN_CTGT, lv_cs[l]);
           if (lv_cm[l] || u_ign[l]) occ |= 1ull << l;
           if (lv_cm[l] ? match_consume : state_match) mat |= 1ull << l;
           c_put += lv_cm[l] ? 1 : 0;
@@ -470,7 +478,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) nfa_step_kernel(Args a) {
           const int l = L - 1 - i;
           const int sc = L + 2 * i, sr = sc + 1;
           if (u_clone[l] || u_copy[l]) occ |= 1ull << sc;
-          if (u_clone[l] ? tab(TB_IS_FINAL, lv_cs[l]) != 0 : state_match) mat |= 1ull << sc;
+          if (u_clone[l] ? has(M_IS_FINAL, lv_cs[l]) : state_match) mat |= 1ull << sc;
           if (u_clone[l]) nsq |= 1ull << sc;
           if (u_fresh[l] || u_root[l]) occ |= 1ull << sr;
           if (state_match) mat |= 1ull << sr;
@@ -537,7 +545,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) nfa_step_kernel(Args a) {
               const bool m = pick(u_clone, l);
               const int ps = pick(lv_ps, l);
               const bool has_ps = ps >= 0;
-              const bool ps_begin = !has_ps || tab(TB_IS_BEGIN, ps) != 0;
+              const bool ps_begin = !has_ps || has(M_IS_BEGIN, ps);
               const int off = (ps_begin && vl >= 2) ? 2 : 1;
               o_src = m ? (has_ps ? ps : cs) : st_src;
               o_eps = m ? cs : st_eps;

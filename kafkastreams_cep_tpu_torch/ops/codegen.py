@@ -8,8 +8,12 @@ module, which writes the header the kernel includes ("nfa_query.cuh"):
   * the sizes (lanes, Dewey digits, registers, descent depth, caps, the
     xi column layout) as compile-time constants, so every per-lane array
     is unrolled into registers;
-  * the stage tables as one `__constant__` array (the kernel copies it to
-    shared memory at block start);
+  * the stage tables the kernel indexes by stage id (targets, windows,
+    names) as one `__constant__` array, which the kernel copies to shared
+    memory at block start, and every yes/no fact about a stage (its
+    consume op, proceed kind, begin/final flags, and which predicate each
+    edge tests) as 64-bit stage masks, bit s for stage s, which the
+    descent tests in registers;
   * the stateful predicates and the fold updates as C, emitted by running
     the query's own closures against `CudaEnv`: its accessors return
     `CExpr` values whose Python operators build C expressions under jnp's
@@ -27,7 +31,7 @@ from ..pattern.expressions import Env
 from .engine import EngineConfig, node_window_cap, window_ms_i32
 from .numerics import result_kind, scalar_kind
 from .step import flat_folds
-from .tables import CompiledQuery
+from .tables import OP_NONE, OP_TAKE, PR_PROCEED, PR_SKIP, CompiledQuery
 
 _C_TYPE = {"b": "bool", "i": "int", "f": "float"}
 
@@ -222,18 +226,37 @@ def field_layout(query: CompiledQuery):
 
 
 def stage_tables(query: CompiledQuery) -> np.ndarray:
-    """The 16 per-stage rows of the kernel's table, in nfa_step.cu's
+    """The per-stage rows the kernel looks up by stage id, in nfa_step.cu's
     TB_* order."""
-    rows = [
-        query.consume_op, query.consume_pred, query.consume_target,
-        query.ignore_pred, query.proceed_kind, query.proceed_pred,
-        query.proceed_target, window_ms_i32(query), query.name_id,
-        query.pure_name_id, query.is_begin, query.is_final, query.is_fwd,
-        query.fwd_final,
-        query.pure_name_id[query.proceed_target.clip(0)],
-        query.is_final[query.consume_target.clip(0)] & (query.consume_target >= 0),
-    ]
+    rows = [query.consume_target, query.proceed_target, window_ms_i32(query),
+            query.name_id, query.pure_name_id]
     return np.stack([np.asarray(r).astype(np.int64) for r in rows]).astype(np.int32)
+
+
+def _mask(flags) -> int:
+    return sum(1 << s for s, f in enumerate(np.asarray(flags)) if f)
+
+
+def stage_masks(query: CompiledQuery) -> Dict[str, int]:
+    """The per-stage yes/no facts as masks over stages (bit s: stage s)."""
+    pure_of_ptgt = query.pure_name_id[query.proceed_target.clip(0)]
+    isfin_of_ctgt = query.is_final[query.consume_target.clip(0)] & (query.consume_target >= 0)
+    return {
+        "M_COP_ANY": _mask(query.consume_op != OP_NONE),
+        "M_COP_TAKE": _mask(query.consume_op == OP_TAKE),
+        "M_PK_PROCEED": _mask(query.proceed_kind == PR_PROCEED),
+        "M_PK_SKIP": _mask(query.proceed_kind == PR_SKIP),
+        "M_IS_BEGIN": _mask(query.is_begin), "M_IS_FINAL": _mask(query.is_final),
+        "M_IS_FWD": _mask(query.is_fwd), "M_FWD_FINAL": _mask(query.fwd_final),
+        "M_ISFIN_CTGT": _mask(isfin_of_ctgt),
+        "M_PURE_DIFF": _mask(pure_of_ptgt != query.pure_name_id),
+    }
+
+
+def predicate_stages(query: CompiledQuery, p: int) -> Dict[str, int]:
+    """The stages whose consume / ignore / proceed edge tests predicate p."""
+    return {"cons": _mask(query.consume_pred == p), "ign": _mask(query.ignore_pred == p),
+            "proc": _mask(query.proceed_pred == p)}
 
 
 def query_header(query: CompiledQuery, config: EngineConfig) -> str:
@@ -272,8 +295,23 @@ def query_header(query: CompiledQuery, config: EngineConfig) -> str:
     ]
     for row in tab:
         lines.append("  {" + ", ".join(str(int(v)) for v in row) + "},")
+    lines.append("};")
+    for name, m in stage_masks(query).items():
+        lines.append(f"constexpr unsigned long long {name} = {m:#x}ull;")
     lines += [
-        "};",
+        "// The stages whose consume / ignore / proceed predicate is among `bits`.",
+        "__device__ __forceinline__ void stages_on(unsigned long long bits,",
+        "    unsigned long long& cons, unsigned long long& ign, unsigned long long& proc) {",
+    ]
+    for p in range(P):
+        sets = [f"{var} |= {m:#x}ull;" for var, m in predicate_stages(query, p).items() if m]
+        if sets:
+            lines.append(f"  if ((bits >> {p}) & 1ull) {{ {' '.join(sets)} }}")
+    lines += [
+        "  (void)bits; (void)cons; (void)ign; (void)proc;",
+        "}",
+    ]
+    lines += [
         "struct Ev {",
         "  int ts;",
         "  int topic;",

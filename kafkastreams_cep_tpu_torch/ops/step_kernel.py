@@ -40,7 +40,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from .codegen import XI_FIXED, field_layout, query_header, stage_tables
+from .codegen import XI_FIXED, field_layout, query_header
 from .engine import WM_NONE, EngineConfig, node_window_cap
 from .step import COUNTER_FIELDS, build_plain_step
 from .tables import CompiledQuery
@@ -58,11 +58,11 @@ CPU_FLAGS = (
     "-fPIC", "-pthread", "-DNFA_CPU_EMU",
 )
 
-#: The kernel's envelope: 64-bit slot masks (3 slots per descent level)
-#: and predicate masks, and the stage tables in static shared memory.
+#: The kernel's envelope: its slot masks (3 slots per descent level),
+#: predicate masks and stage masks are 64-bit.
 MAX_SLOTS = 64
 MAX_PREDS = 64
-STATIC_SMEM_LIMIT = 48 * 1024
+MAX_STAGES = 64
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -261,11 +261,9 @@ def check_envelope(query: CompiledQuery) -> None:
         )
     if query.n_preds > MAX_PREDS:
         raise ValueError(f"{query.n_preds} predicates exceed the kernel's {MAX_PREDS}-bit mask")
-    smem = stage_tables(query).nbytes
-    if smem > STATIC_SMEM_LIMIT:
+    if query.n_stages > MAX_STAGES:
         raise ValueError(
-            f"the stage tables of {query.n_stages} stages take {smem} B of shared "
-            f"memory (limit {STATIC_SMEM_LIMIT})"
+            f"{query.n_stages} stages exceed the kernel's {MAX_STAGES}-bit stage masks"
         )
 
 

@@ -196,11 +196,14 @@ def test_wrapper_runs_plain_version_for_cpu_tensors():
 
 def test_wrapper_refuses_shapes_outside_the_envelope():
     """A key's lanes live in the kernel's scratch, so any lane count is
-    taken; a descent deeper than the 64-bit slot masks hold is not."""
+    taken; a descent deeper than the 64-bit slot masks hold, or more
+    stages than the 64-bit stage masks hold, is not."""
     query = P.compile_query(P.compile_pattern(CASES["letters"][0]()), None)
     sk.NfaStep(query, P.EngineConfig(lanes=2048))
     with pytest.raises(ValueError, match="descent depth"):
         sk.NfaStep(dataclasses.replace(query, max_depth=22), P.EngineConfig())
+    with pytest.raises(ValueError, match="stages"):
+        sk.NfaStep(dataclasses.replace(query, n_stages=65), P.EngineConfig())
 
 
 def test_kernel_matches_plain_step_on_card():
