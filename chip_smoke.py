@@ -3,13 +3,14 @@
 
     python3 chip_smoke.py
 
-Builds the step kernel from csrc/ with nvcc (one build per compiled query,
-all started together), then:
+Builds the step kernel from csrc/ with nvcc (one build per compiled query)
+and the native packer and decoder from native/ with g++, all started
+together, then:
 
   1. prints the card (`nvidia-smi --query-gpu=name,power.limit`);
-  2. builds every kernel and prints the build seconds, ptxas's registers
-     and spills, and the kernel's resident blocks and warps per SM (one
-     warp per key);
+  2. builds every kernel and both native extensions and prints the build
+     seconds, the Python include path, ptxas's registers and spills, and
+     the kernel's resident blocks and warps per SM (one warp per key);
   3. holds the CUDA step bitwise equal to the plain PyTorch step on the
      card, on identical inputs, every state leaf and every w_* output:
      the three conformance cases (K=8, T=10, 3 batches), the multi-chunk
@@ -20,17 +21,30 @@ all started together), then:
      the flagship's live lanes per key and event (the plain step one
      event at a time over those 3 batches); times kernel and plain step
      at the flagship shape on the third batch's state;
-  4. drives the port's main path, `BatchedDeviceNFA(engine="cuda")`, on
-     the flagship skip_any8 deployment (2048 keys x 64 events per batch,
+  4. drives the engine, `BatchedDeviceNFA(engine="cuda")`, on the
+     flagship skip_any8 deployment (2048 keys x 64 events per batch,
      2 warm + 8 timed batches, stream seed 7, each batch packed, advanced
      and drained in turn, as `advance()` does), prints events/s with and
-     without the host packing and the live lanes per key at batch ends,
-     and checks: the kernel's launch count equals the advances, the drop
-     counters are 0, there are matches, and the final state, pool and the
-     first 64 keys' matches equal the same run with engine="torch"; then
-     times the kernel on the last batch's state;
-  5. runs the stock demo golden through engine="cuda" (4 matches);
-  6. prints the kernel line, the card line, and last the ok line.
+     without the host packing, the ms per batch of each phase and the
+     live lanes per key at batch ends, and checks: every pack took the
+     native route, the first three batches' native columns equal the
+     Python pack's bitwise, every drained table's native decode equals
+     the Python walk's, the kernel's launch count equals the advances,
+     the drop counters are 0, there are matches, and the final state,
+     pool and the first 64 keys' matches equal the same run with
+     engine="torch"; then times the kernel on the last batch's state;
+  5. drives the same deployment through the streams API -- a
+     `runtime="cuda"` topology fed record by record through
+     `Topology.process`, 2 warm + 8 timed flushes of 131,072 records,
+     matches to a `.to("matches")` sink -- and prints records/s and the
+     ms per flush of enqueue, pack, advance, drain + decode and emit;
+     checks that the matches per key equal phase 4's, the kernel
+     launched once per flush, the drop counters are 0 and the sink holds
+     one record per match; then again with `sink_format="json"`, whose
+     payloads must equal the objects run's JSON bytes;
+  6. runs the stock demo golden through engine="cuda" and through a
+     `runtime="cuda"` topology (4 matches each);
+  7. prints the kernel line, the card line, and last the ok line.
 
 Any failed phase raises (exit code 1) before the ok line is printed.
 Without a card it exits 2 and prints nothing on stdout.
@@ -38,6 +52,7 @@ Without a card it exits 2 and prints nothing on stdout.
 from __future__ import annotations
 
 import ctypes
+import gc
 import json
 import random
 import subprocess
@@ -85,6 +100,39 @@ def spread(values: torch.Tensor) -> str:
             f"p90 {float(v.quantile(0.9)):.0f}, max {int(v.max())}")
 
 
+class GcClock:
+    """Seconds and passes of the interpreter's cyclic garbage collector
+    while `on` (a gc.callbacks hook). The collector runs inside whatever
+    phase allocates, so its time is part of the phases' walls, not an
+    extra phase."""
+
+    def __init__(self) -> None:
+        self.on = False
+        self.seconds = 0.0
+        self.passes = [0, 0, 0]
+        self._t0 = None
+
+    def __call__(self, phase: str, info: dict) -> None:
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            if self.on:
+                self.seconds += time.perf_counter() - self._t0
+                self.passes[info["generation"]] += 1
+            self._t0 = None
+
+    def __enter__(self) -> "GcClock":
+        gc.callbacks.append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        gc.callbacks.remove(self)
+
+    def summary(self, n: int) -> str:
+        return (f"cyclic GC {self.seconds / n * 1e3:.2f} ms per batch inside those phases "
+                f"(passes by generation {self.passes})")
+
+
 def max_abs_diff(a: dict, b: dict) -> float:
     """Largest |a - b| over every leaf; raises if a leaf is not bitwise equal."""
     bad = [n for n in a if a[n].dtype != b[n].dtype or not torch.equal(a[n], b[n])]
@@ -102,6 +150,7 @@ def main() -> int:
     from kafkastreams_cep_tpu_torch.models import skip_any
     from kafkastreams_cep_tpu_torch.models.cases import CASES, STOCK_FIELDS
     from kafkastreams_cep_tpu_torch.models.chunked import CHUNKED, CHUNKED_T, scatter_live_lanes
+    from kafkastreams_cep_tpu_torch import native
     from kafkastreams_cep_tpu_torch.models.stocks import (
         GOLDEN_EVENTS, GOLDEN_MATCHES, stocks_pattern,
     )
@@ -132,12 +181,22 @@ def main() -> int:
     gold_q = P.compile_query(P.compile_pattern(stocks_pattern()), P.EventSchema(STOCK_FIELDS))
     gold_cfg = P.EngineConfig(lanes=32, nodes=512, matches=64)
     builds["stock_golden"] = (gold_q, gold_cfg, None)
+    def timed_build(fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        return out, time.perf_counter() - t
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(builds)) as ex:
+    with ThreadPoolExecutor(max_workers=len(builds) + 2) as ex:
         futs = {n: ex.submit(sk.build_library, q, c) for n, (q, c, _) in builds.items()}
+        nat_futs = {n: ex.submit(timed_build, native.build_ext, n) for n in ("packer", "decoder")}
         libs = {n: f.result() for n, f in futs.items()}
+        nat_builds = {n: f.result() for n, f in nat_futs.items()}
     build_s = time.perf_counter() - t0
-    log(f"built {len(libs)} kernels in {build_s:.1f}s (nvcc, in parallel)")
+    log(f"built {len(libs)} kernels and the native packer and decoder in {build_s:.1f}s "
+        f"(nvcc and g++, in parallel); g++ seconds: " + ", ".join(
+            f"{n} {sec:.2f} ({path.name})" for n, (path, sec) in nat_builds.items())
+        + f"; Python headers: {native.python_include()}")
     for line in libs["skip_any8"].with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line or "smem" in line:
             log(f"ptxas[skip_any8]: {line.strip()}")
@@ -252,11 +311,28 @@ def main() -> int:
     n_warm, n_timed = 2, 8
     n_batches = n_warm + n_timed
 
-    def flagship_run(engine: str):
+    def flagship_streams(keys):
+        rng = random.Random(7)
+        return {k: skip_any.skip_any8_stream(rng, T * n_batches) for k in keys}
+
+    def seqs_json(out):
+        return {k: [P.sequence_to_json(s) for s in v] for k, v in out.items()}
+
+    def flagship_run(engine: str, check_host: bool = False):
+        """The flagship through `BatchedDeviceNFA`. check_host: every pack
+        must take the native route; batches 1-3's columns are held to a
+        Python-pack engine's (same keys, its own compiled query), every
+        drained table's native decode to the Python walk's, outside the
+        timed phases."""
         eng = P.BatchedDeviceNFA(flag_q, keys=[f"k{i}" for i in range(K)],
                                  config=flag_cfg, device=dev, engine=engine)
-        rng = random.Random(7)
-        streams = {k: skip_any.skip_any8_stream(rng, T * n_batches) for k in eng.keys}
+        streams = flagship_streams(eng.keys)
+        py_pack = None
+        if check_host:
+            py_q = P.compile_query(P.compile_pattern(skip_any.skip_any8_pattern()), None)
+            py_pack = P.BatchedDeviceNFA(py_q, keys=eng.keys, config=flag_cfg, device=dev,
+                                         engine=engine, native=False)
+        decode_checks, excluded = [0], [0.0]
         matches, lanes_peak, nodes_peak, live_ends, last = {}, 0, 0, [], None
         pack_s = adv_s = drain_s = 0.0
         # Per-phase host walls (each phase ends in a synchronize), summed
@@ -279,39 +355,75 @@ def main() -> int:
         eng._append = timed("append", eng._append)
         eng._flush = timed("flush", eng._flush)
         eng._pull_raw_flat = timed("probe+flatten+D2H", eng._pull_raw_flat)
-        eng._decode_flat = timed("decode", eng._decode_flat)
+        decode = timed("decode", eng._decode_flat)
+
+        def decode_and_check(raw):
+            out = decode(raw)
+            if check_host:
+                t = time.perf_counter()
+                clock_on, gc_clock.on = gc_clock.on, False
+                counts = raw["counts"].astype("int32")
+                planes = [raw["table"][i].transpose(2, 0, 1) for i in range(3)]
+                ref = eng._decode_flat_python(counts, *planes)
+                if seqs_json(out) != seqs_json(ref):
+                    raise AssertionError("native decode != Python decode of a drained table")
+                decode_checks[0] += 1
+                gc_clock.on = clock_on
+                excluded[0] += time.perf_counter() - t
+            return out
+
+        eng._decode_flat = decode_and_check
         torch.cuda.synchronize()
+        gc_clock = GcClock()
         sk.NfaStep.launches = 0
-        for b in range(n_batches):
-            timing[0] = b >= n_warm
-            t0 = time.perf_counter()
-            xs = eng.pack({k: s[b * T:(b + 1) * T] for k, s in streams.items()})
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            if b == n_batches - 1:
-                last = (eng.state, xs)
-            eng.advance_packed(xs, decode=False)
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            out = eng.drain()
-            t3 = time.perf_counter()
-            if b >= n_warm:
-                pack_s += t1 - t0
-                adv_s += t2 - t1
-                drain_s += t3 - t2
-            for key, seqs in out.items():
-                matches.setdefault(key, []).extend(P.sequence_to_json(s) for s in seqs)
-            live_ends.append(eng.state["active"].sum(0))
-            lanes_peak = max(lanes_peak, int(live_ends[-1].max()))
-            nodes_peak = max(nodes_peak, int(eng.pool["node_count"].max()))
+        with gc_clock:
+            for b in range(n_batches):
+                gc_clock.on = timing[0] = b >= n_warm
+                batch = {k: s[b * T:(b + 1) * T] for k, s in streams.items()}
+                t0 = time.perf_counter()
+                xs = eng.pack(batch)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                if check_host and eng.pack_route != "native":
+                    raise AssertionError(f"batch {b} packed by the {eng.pack_route} route")
+                if b == n_batches - 1:
+                    last = (eng.state, xs)
+                eng.advance_packed(xs, decode=False)
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+                excluded[0] = 0.0
+                out = eng.drain()
+                t3 = time.perf_counter() - excluded[0]
+                gc_clock.on = False
+                if b >= n_warm:
+                    pack_s += t1 - t0
+                    adv_s += t2 - t1
+                    drain_s += t3 - t2
+                if py_pack is not None and b < 3:
+                    ref_xs = py_pack.pack(batch)
+                    if py_pack.pack_route != "python":
+                        raise AssertionError("the reference pack did not take the Python route")
+                    bad = [n for n in xs if xs[n].dtype != ref_xs[n].dtype
+                           or not torch.equal(xs[n], ref_xs[n])]
+                    if bad or set(xs) != set(ref_xs) or eng._next_gidx != py_pack._next_gidx:
+                        raise AssertionError(f"native pack != Python pack on batch {b}: {bad}")
+                    if b == 2:
+                        py_pack = None
+                for key, seqs in out.items():
+                    matches.setdefault(key, []).extend(P.sequence_to_json(s) for s in seqs)
+                live_ends.append(eng.state["active"].sum(0))
+                lanes_peak = max(lanes_peak, int(live_ends[-1].max()))
+                nodes_peak = max(nodes_peak, int(eng.pool["node_count"].max()))
         launches = sk.NfaStep.launches
+        if check_host and decode_checks[0] != n_batches:
+            raise AssertionError(f"{decode_checks[0]} decode checks for {n_batches} drains")
         return dict(eng=eng, matches=matches, adv_s=adv_s, drain_s=drain_s,
                     pack_s=pack_s, launches=launches, lanes_peak=lanes_peak,
                     nodes_peak=nodes_peak, phases=phases, live_ends=torch.cat(live_ends),
-                    last=last)
+                    last=last, gc=gc_clock)
 
     torch.cuda.reset_peak_memory_stats()
-    run = flagship_run("cuda")
+    run = flagship_run("cuda", check_host=True)
     peak_mem = torch.cuda.max_memory_allocated()
     eng = run["eng"]
     stats = eng.stats
@@ -326,7 +438,10 @@ def main() -> int:
         f"max_memory_allocated {peak_mem} B")
     log("main path breakdown, ms per timed batch: " + ", ".join(
         [f"pack {run['pack_s'] / n_timed * 1e3:.2f}"]
-        + [f"{k} {v / n_timed * 1e3:.2f}" for k, v in run["phases"].items()]))
+        + [f"{k} {v / n_timed * 1e3:.2f}" for k, v in run["phases"].items()])
+        + "; " + run["gc"].summary(n_timed))
+    log(f"main path: every pack native; batches 1-3 native pack == Python pack (every "
+        f"column bitwise); native decode == Python decode on all {n_batches} drained tables")
     log(f"main path: {n_match} matches, stats {stats}, lanes peak "
         f"{run['lanes_peak']}/{flag_cfg.lanes}, node_count peak "
         f"{run['nodes_peak']}/{flag_cfg.nodes}, nfa_step launches {run['launches']}")
@@ -354,9 +469,130 @@ def main() -> int:
     ptrs, T_, K_, _s, _y, _keep = sk.prepare(flag_q, flag_cfg, *run["last"], words)
     last_ms = cuda_ms(lambda: sk.call(lib, ptrs, T_, K_, dev), reps=20)
     log(f"nfa_step at K={K} T={T}, last ({n_batches}th) batch: kernel {last_ms:.4f} ms")
-    del run["last"], _s, _y, _keep
+    del run["last"], _s, _y, _keep, eng
+    engine_matches = run.pop("matches")
+    del run["eng"]
 
-    # -- 5. stock golden through the kernel -----------------------------------
+    # -- 5. the flagship through the runtime="cuda" topology ------------------
+    def topology_run(sink_format: str):
+        """The flagship deployment through `Topology.process`, one record at
+        a time: each batch's 131,072 records in time order across keys,
+        the last one filling the micro-batch and flushing it. Per timed
+        flush: enqueue (the process() calls before the flushing one), the
+        processor's lane map and batch (its flush minus the engine), pack,
+        advance (the engine's advance without its drain), drain + decode,
+        and emit (the flushing process() call minus the flush: gate and
+        sink)."""
+        sink_log = P.RecordLog()
+        builder = P.ComplexStreamsBuilder(log=sink_log)
+        out = builder.stream("letters").query(
+            "skip_any8", skip_any.skip_any8_pattern(), runtime="cuda",
+            config=P.EngineConfig(**skip_any.FLAGSHIP_CONFIG), batch_size=K * T,
+            initial_keys=K, sink_format=sink_format,
+        ).to("matches")
+        topo = builder.build()
+        proc = out.node.processor
+        teng = proc.engine
+        walls = {"enqueue": 0.0, "lanes+batch": 0.0, "pack": 0.0, "advance": 0.0,
+                 "drain+decode": 0.0, "emit": 0.0}
+        inner = {"flush": 0.0, "pack": 0.0, "advance_packed": 0.0, "drain": 0.0}
+
+        def timed(name, fn):
+            def run_(*args, **kw):
+                t = time.perf_counter()
+                result = fn(*args, **kw)
+                torch.cuda.synchronize()
+                inner[name] += time.perf_counter() - t
+                return result
+            return run_
+
+        proc.flush = timed("flush", proc.flush)
+        teng.pack = timed("pack", teng.pack)
+        teng.advance_packed = timed("advance_packed", teng.advance_packed)
+        teng.drain = timed("drain", teng.drain)
+        keys = [f"k{i}" for i in range(K)]
+        streams = flagship_streams(keys)
+        process = topo.process
+        routes = set()
+        timed_s = 0.0
+        torch.cuda.synchronize()
+        gc_clock = GcClock()
+        sk.NfaStep.launches = 0
+        with gc_clock:
+            for b in range(n_batches):
+                order = [(k, streams[k][b * T + t]) for t in range(T) for k in keys]
+                for name in inner:
+                    inner[name] = 0.0
+                gc_clock.on = b >= n_warm
+                t0 = time.perf_counter()
+                for key, e in order[:-1]:
+                    process("letters", key, e.value, timestamp=e.timestamp, offset=e.offset)
+                t1 = time.perf_counter()
+                key, e = order[-1]
+                process("letters", key, e.value, timestamp=e.timestamp, offset=e.offset)
+                t2 = time.perf_counter()
+                gc_clock.on = False
+                routes.add(teng.pack_route)
+                if b >= n_warm:
+                    timed_s += t2 - t0
+                    walls["enqueue"] += t1 - t0
+                    walls["lanes+batch"] += (inner["flush"] - inner["pack"]
+                                             - inner["advance_packed"])
+                    walls["pack"] += inner["pack"]
+                    walls["advance"] += inner["advance_packed"] - inner["drain"]
+                    walls["drain+decode"] += inner["drain"]
+                    walls["emit"] += (t2 - t1) - inner["flush"]
+        launches = sk.NfaStep.launches
+        return dict(out=out, log=sink_log, proc=proc, walls=walls, timed_s=timed_s,
+                    launches=launches, routes=routes, gc=gc_clock)
+
+    def check_topology(res, label):
+        out, proc = res["out"], res["proc"]
+        n_records = n_timed * K * T
+        log(f"topology[{label}]: {n_records / res['timed_s']:.0f} records/s end to end over "
+            f"{n_timed} timed flushes of {K * T} records; ms per flush: " + ", ".join(
+                f"{k} {v / n_timed * 1e3:.2f}" for k, v in res["walls"].items())
+            + "; " + res["gc"].summary(n_timed))
+        if res["routes"] != {"native"}:
+            raise AssertionError(f"topology packs took the routes {res['routes']}")
+        if proc._flushes != n_batches or res["launches"] != n_batches:
+            raise AssertionError(f"{res['launches']} nfa_step launches for {proc._flushes} "
+                                 f"flushes ({n_batches} expected)")
+        tstats = proc.stats
+        drops = {k: tstats[k] for k in DROP_COUNTER_KEYS}
+        if any(drops.values()):
+            raise AssertionError(f"topology drop counters are not 0: {drops}")
+        n_sink = res["log"].end_offset("matches")
+        if n_sink != len(out.records):
+            raise AssertionError(f"sink holds {n_sink} records for {len(out.records)} matches")
+        log(f"topology[{label}]: {len(out.records)} matches, {n_sink} sink records, "
+            f"{res['launches']} nfa_step launches for {proc._flushes} flushes, drops {drops}")
+
+    topo_obj = topology_run("objects")
+    check_topology(topo_obj, "objects")
+    by_key = {}
+    for r in topo_obj["out"].records:
+        by_key.setdefault(r.key, []).append(P.sequence_to_json(r.value))
+    if by_key != engine_matches:
+        bad = [k for k in set(by_key) | set(engine_matches)
+               if by_key.get(k) != engine_matches.get(k)]
+        raise AssertionError(f"topology matches differ from the engine run on {len(bad)} keys")
+    topo_launches = topo_obj["launches"]
+    obj_rows = [(r.key, P.sequence_to_json(r.value).encode("utf-8"))
+                for r in topo_obj["out"].records]
+    del topo_obj, by_key, engine_matches
+    topo_json = topology_run("json")
+    check_topology(topo_json, "json")
+    json_rows = [(r.key, r.value.payload) for r in topo_json["out"].records]
+    if not all(isinstance(r.value, P.SinkMatch) for r in topo_json["out"].records):
+        raise AssertionError("the json topology emitted objects")
+    if json_rows != obj_rows:
+        raise AssertionError("json sink payloads differ from the objects run's JSON bytes")
+    log(f"topology: matches per key == the engine run's; {len(json_rows)} json payloads == "
+        "the objects run's sequence_to_json bytes")
+    del topo_json, obj_rows, json_rows
+
+    # -- 6. stock golden through the kernel -----------------------------------
     gold = P.BatchedDeviceNFA(gold_q, keys=["s1", "s2"], config=gold_cfg, device=dev,
                               engine="cuda")
     got = {"s1": [], "s2": []}
@@ -369,14 +605,26 @@ def main() -> int:
         if got[key] != GOLDEN_MATCHES:
             raise AssertionError(f"stock golden on {key}: {got[key]}")
     log("stock golden through engine='cuda': 4 matches on each of 2 keys")
+    builder = P.ComplexStreamsBuilder()
+    gold_out = builder.stream("stock-events").query(
+        "Stocks", stocks_pattern(), P.Queried(schema=P.EventSchema(STOCK_FIELDS)),
+        runtime="cuda", batch_size=3, config=gold_cfg)
+    gold_topo = builder.build()
+    for i, e in enumerate(GOLDEN_EVENTS):
+        gold_topo.process("stock-events", "K1", e, timestamp=i)
+    gold_topo.flush()
+    got = [P.sequence_to_json(r.value) for r in gold_out.records]
+    if got != GOLDEN_MATCHES:
+        raise AssertionError(f"stock golden through runtime='cuda': {got}")
+    log("stock golden through a runtime='cuda' topology (batch_size 3): 4 matches")
 
-    # -- 6. the kernel line, the card line, the ok line -----------------------
+    # -- 7. the kernel line, the card line, the ok line -----------------------
     kernels = [{
         "name": "nfa_step",
         "route": "cuda",
         "source": "kafkastreams_cep_tpu_torch/csrc/nfa_step.cu",
         "replaces": "kafkastreams_cep_tpu/ops/pallas_step.py:965",
-        "launches": run["launches"],
+        "launches": topo_launches,
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

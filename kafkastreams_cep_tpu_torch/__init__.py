@@ -6,10 +6,15 @@ package's, copied; the device engine is rewritten: engine state as plain
 dicts of K-last tensors (ops/engine.py), a plain PyTorch step
 (ops/step.py) and the fused step as a CUDA kernel written for sm_90a
 (csrc/nfa_step.cu, bound through ops/step_kernel.py), driven by the
-multi-key `BatchedDeviceNFA` (parallel/batched.py).
+multi-key `BatchedDeviceNFA` (parallel/batched.py), with the host's pack
+and decode in C++ (native/). Users reach it through the streams API:
+`ComplexStreamsBuilder().stream(...).query(..., runtime="cuda")`
+(streams/builder.py), whose matches pass an exactly-once emission gate
+into a sink.
 
 The package imports torch and numpy only -- never jax, and nothing of the
-JAX package. Kernels build at first use, never at import.
+JAX package. Kernels and native extensions build at first use, never at
+import.
 """
 
 from .core.dewey import DeweyVersion
@@ -24,13 +29,16 @@ from .pattern.compiler import InvalidPatternException, compile_pattern
 from .pattern.expressions import agg, const, field, key, timestamp, topic_is, value
 from .pattern.pattern import Pattern, Selected, Strategy
 from .pattern.stages import EdgeOperation, Stage, Stages, StateType
-from .streams.serde import sequence_to_dict, sequence_to_json
+from .streams.builder import ComplexStreamsBuilder
+from .streams.log import RecordLog
+from .streams.serde import Queried, SinkMatch, sequence_to_dict, sequence_to_json
 
 __all__ = [
-    "BatchedDeviceNFA", "CompiledQuery", "DeweyVersion", "EdgeOperation",
-    "EngineConfig", "Event", "EventSchema", "InvalidPatternException",
-    "Pattern", "QueryBuilder", "Selected", "Sequence", "SequenceBuilder",
-    "Stage", "Staged", "Stages", "StateType", "Strategy", "agg",
+    "BatchedDeviceNFA", "CompiledQuery", "ComplexStreamsBuilder", "DeweyVersion",
+    "EdgeOperation", "EngineConfig", "Event", "EventSchema",
+    "InvalidPatternException", "Pattern", "QueryBuilder", "Queried", "RecordLog",
+    "Selected", "Sequence", "SequenceBuilder", "SinkMatch", "Stage", "Staged",
+    "Stages", "StateType", "Strategy", "agg",
     "compile_pattern", "compile_query", "const", "field", "key",
     "sequence_to_dict", "sequence_to_json", "timestamp", "topic_is", "value",
 ]

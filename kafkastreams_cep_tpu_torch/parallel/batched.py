@@ -2,18 +2,27 @@
 
 The port's counterpart of the JAX package's `parallel/batched.py`, cut to
 the core loop of the main path: pack per-key event lists into [T, K]
-columns, advance every key through the step (the CUDA kernel on the card),
-append each advance's matches to the pending ring, fold the node window
-back with the group-flush GC, and drain by walking every pending chain on
-the device into one dense table that is copied to the host once and
-decoded into `Sequence`s.
+columns (the native packer, native/packer.cc), advance every key through
+the step (the CUDA kernel on the card), append each advance's matches to
+the pending ring, fold the node window back with the group-flush GC, and
+drain by walking every pending chain on the device into one dense table
+that is copied to the host once and decoded by the native decoder
+(native/decoder.cc) into `Sequence`s or, with `sink_format="json"`,
+straight into JSON sink bytes (`SinkMatch`). The key axis grows with
+`add_keys`.
+
+`native=False` packs and decodes in Python instead: the reference the
+tests hold the native code to. With `native=True` a schema whose fields
+are not all int32/float32 packs in Python too (the packer writes only
+4-byte columns); `pack_route` says which route the last pack took.
 
 Left for later slices (see ROADMAP.md): the capacity autosizer,
 `auto_drain` and `on_overflow` policies, snapshot/restore/resize, exact
-replay, the native packer and decoder, bytes sinks and provenance,
-metrics, and the mesh. The parity tests build the JAX engine with those
-options off (`auto_drain=False`, `exact_replay=False`,
-`provenance_sample=0`, `drain_mode="flat"`, `sink_format="objects"`).
+replay, Arrow sinks, provenance sampling, metrics, the decode worker
+thread and the mesh. Those of the JAX engine's options raise here when
+set; the parity tests build the JAX engine with them off
+(`auto_drain=False`, `exact_replay=False`, `provenance_sample=0`,
+`drain_mode="flat"`).
 
 The device is explicit: `device=None` means "cuda", and a missing card
 raises instead of running on the CPU. `engine="cuda"` (the default on the
@@ -29,7 +38,7 @@ import numpy as np
 import torch
 
 from ..core.event import Event
-from ..core.sequence import Sequence
+from ..core.sequence import Sequence, Staged
 from ..ops.engine import (
     STATE_COUNTER_KEYS,
     WM_NONE,
@@ -47,6 +56,7 @@ from ..ops.runtime import materialize_sequence, rebase_watermarks
 from ..ops.schema import EventSchema
 from ..ops.tables import CompiledQuery, compile_query
 from ..pattern.stages import Stages
+from ..streams.serde import SinkMatch, json_fragment, sink_match_from_sequence
 from .key_shard import (
     ENGINES,
     build_batched_advance,
@@ -58,6 +68,8 @@ from .key_shard import (
 #: Rebase margin: keys first seen after the base is fixed may start up to
 #: this much earlier and still rebase non-negative.
 TS_REBASE_MARGIN_MS = 1 << 20
+
+SINK_FORMATS = ("objects", "json")
 
 
 def resolve_device(device: Any = None) -> torch.device:
@@ -83,7 +95,33 @@ class BatchedDeviceNFA:
         device: Any = None,
         engine: Optional[str] = None,
         events_prune_threshold: int = 1 << 16,
+        native: bool = True,
+        sink_format: str = "objects",
+        query_name: Optional[str] = None,
+        drain_mode: str = "flat",
+        auto_drain: bool = False,
+        exact_replay: bool = False,
+        provenance_sample: float = 0.0,
+        mesh: Any = None,
     ) -> None:
+        unported = {
+            "drain_mode": drain_mode != "flat",
+            "auto_drain": bool(auto_drain),
+            "exact_replay": bool(exact_replay),
+            "provenance_sample": provenance_sample > 0,
+            "mesh": mesh is not None,
+        }
+        for name, on in unported.items():
+            if on:
+                raise ValueError(
+                    f"{name} is not ported (ROADMAP.md queue A); the port runs "
+                    "the flat drain with auto_drain, exact_replay, provenance "
+                    "sampling and the mesh off"
+                )
+        if sink_format == "arrow":
+            raise ValueError("sink_format='arrow' is not ported (ROADMAP.md item 5e)")
+        if sink_format not in SINK_FORMATS:
+            raise ValueError(f"unknown sink_format {sink_format!r} (expected one of {SINK_FORMATS})")
         if isinstance(stages_or_query, CompiledQuery):
             self.query = stages_or_query
         else:
@@ -103,6 +141,14 @@ class BatchedDeviceNFA:
         if engine not in ENGINES:
             raise ValueError(f"unknown engine {engine!r} (expected one of {ENGINES})")
         self.engine = engine
+        self.native = bool(native)
+        self.sink_format = sink_format
+        #: The owning query's name (set by the streams layer).
+        self.query_name = query_name
+        #: "native" or "python": the route the last `pack` took.
+        self.pack_route: Optional[str] = None
+        self._packer = None
+        self._decoder = None
         self.keys: List[Any] = list(keys)
         if not self.keys:
             raise ValueError("BatchedDeviceNFA needs at least one key")
@@ -126,6 +172,26 @@ class BatchedDeviceNFA:
         self._ts_base: Optional[int] = None
 
     # ------------------------------------------------------------------ API
+    def add_keys(self, new_keys: Seq[Any]) -> None:
+        """Grow the key axis: fresh engine state and pool for each new key,
+        concatenated on the trailing key axis. The group window is flushed
+        first: it carries the old key extent. The kernel takes K at each
+        launch, so nothing is rebuilt; callers grow geometrically all the
+        same (streams/device_processor.py doubles)."""
+        new_keys = list(new_keys)
+        for k in new_keys:
+            if k in self.key_index:
+                raise KeyError(f"key {k!r} already assigned")
+        self._flush_group()
+        n = len(new_keys)
+        fresh_state = init_batched_state(self.query, self.config, n, self.device)
+        fresh_pool = init_batched_pool(self.query, self.config, n, self.device)
+        self.state = {k: torch.cat([v, fresh_state[k]], dim=-1) for k, v in self.state.items()}
+        self.pool = {k: torch.cat([v, fresh_pool[k]], dim=-1) for k, v in self.pool.items()}
+        self.keys.extend(new_keys)
+        self.K = len(self.keys)
+        self.key_index = {k: i for i, k in enumerate(self.keys)}
+
     @property
     def stats(self) -> Dict[str, int]:
         """Cross-key counter totals (one reduction + one host copy)."""
@@ -156,7 +222,7 @@ class BatchedDeviceNFA:
         for key, evs in events_by_key.items():
             idx = self.key_index.get(key)
             if idx is None:
-                raise KeyError(f"unknown key {key!r} (fixed at construction)")
+                raise KeyError(f"unknown key {key!r} (add it with add_keys)")
             lists[idx] = evs
             T = max(T, len(evs))
             if evs:
@@ -180,6 +246,92 @@ class BatchedDeviceNFA:
         cols["topic"] = np.zeros((T, K), np.int32)
         valid = np.zeros((T, K), bool)
         gidx = np.full((T, K), -1, np.int32)
+        try:
+            if self._native_pack_ok():
+                self.pack_route = "native"
+                self._pack_native(lists, cols, valid, gidx)
+            else:
+                self.pack_route = "python"
+                self._pack_python(lists, cols, valid, gidx)
+            if int(cols["ts"].min()) < 0:
+                raise ValueError(
+                    f"event timestamp rebases negative (margin "
+                    f"{TS_REBASE_MARGIN_MS} ms): an event arrived more than the "
+                    "margin earlier than the first batch's earliest event"
+                )
+        except BaseException:
+            # Roll the registry, the id counter and the base back, so a
+            # caller that skips the bad batch (or isolates its records)
+            # leaks nothing; every registry id at or past gidx_before
+            # belongs to this pack.
+            g = gidx_before
+            while self._events.pop(g, None) is not None:
+                g += 1
+            self._next_gidx = gidx_before
+            self._ts_base = ts_base_before
+            raise
+        dev = self.device
+        xs = {k: torch.from_numpy(v).to(dev) for k, v in cols.items()}
+        xs["spred"] = eval_stateless_preds(self.query, xs)
+        xs["gidx"] = torch.from_numpy(gidx).to(dev)
+        xs["valid"] = torch.from_numpy(valid).to(dev)
+        if watermarks is not None:
+            wm_col = np.full((T, K), WM_NONE, np.int32)
+            if np.isscalar(watermarks):
+                for k, evs in enumerate(lists):
+                    if evs:
+                        wm_col[: len(evs), k] = rebase_watermarks(
+                            watermarks, len(evs), self._ts_base
+                        )
+            else:
+                for key, wms in watermarks.items():
+                    idx = self.key_index.get(key)
+                    if idx is None:
+                        raise KeyError(f"unknown key {key!r} (add it with add_keys)")
+                    n = len(lists[idx])
+                    if n:
+                        wm_col[:n, idx] = rebase_watermarks(wms, n, self._ts_base)
+            xs["wm"] = torch.from_numpy(wm_col).to(dev)
+        self._pack_hwms.append(self._next_gidx - 1)
+        return xs
+
+    def _native_pack_ok(self) -> bool:
+        """The native route: asked for, and every field a 4-byte int32 or
+        float32 column (the packer writes nothing else)."""
+        return self.native and all(
+            np.dtype(dt) in (np.dtype(np.int32), np.dtype(np.float32))
+            for dt in self.query.schema.fields.values()
+        )
+
+    def _pack_native(self, lists, cols, valid, gidx) -> None:
+        """One C call packs every (key, event, field): extraction, string
+        tokens, topic ids, ts rebase, validity, gidx and the registry."""
+        if self._packer is None:
+            from ..native import load_packer
+
+            self._packer = load_packer()
+        schema = self.query.schema
+        names = tuple(schema.fields.keys())
+        self._next_gidx = self._packer.pack_batch(
+            [list(evs) for evs in lists],
+            names,
+            tuple(np.dtype(dt) == np.float32 for dt in schema.fields.values()),
+            schema._vocab,
+            schema._rev_vocab,
+            schema._topic_vocab,
+            int(self._ts_base),
+            tuple(cols[f"f:{n}"] for n in names),
+            cols["ts"],
+            cols["topic"],
+            valid,
+            gidx,
+            int(self._next_gidx),
+            self._events,
+        )
+
+    def _pack_python(self, lists, cols, valid, gidx) -> None:
+        """The Python pack: the reference for `_pack_native`."""
+        schema = self.query.schema
         for k, evs in enumerate(lists):
             if not evs:
                 continue
@@ -198,40 +350,6 @@ class BatchedDeviceNFA:
             for g, e in zip(ids.tolist(), evs):
                 self._events[g] = e
             valid[:n, k] = True
-        if int(cols["ts"].min()) < 0:
-            for g in range(gidx_before, self._next_gidx):
-                self._events.pop(g, None)
-            self._next_gidx = gidx_before
-            self._ts_base = ts_base_before
-            raise ValueError(
-                f"event timestamp rebases negative (margin "
-                f"{TS_REBASE_MARGIN_MS} ms): an event arrived more than the "
-                "margin earlier than the first batch's earliest event"
-            )
-        dev = self.device
-        xs = {k: torch.from_numpy(v).to(dev) for k, v in cols.items()}
-        xs["spred"] = eval_stateless_preds(self.query, xs)
-        xs["gidx"] = torch.from_numpy(gidx).to(dev)
-        xs["valid"] = torch.from_numpy(valid).to(dev)
-        if watermarks is not None:
-            wm_col = np.full((T, K), WM_NONE, np.int32)
-            if np.isscalar(watermarks):
-                for k, evs in enumerate(lists):
-                    if evs:
-                        wm_col[: len(evs), k] = rebase_watermarks(
-                            watermarks, len(evs), self._ts_base
-                        )
-            else:
-                for key, wms in watermarks.items():
-                    idx = self.key_index.get(key)
-                    if idx is None:
-                        raise KeyError(f"unknown key {key!r} (fixed at construction)")
-                    n = len(lists[idx])
-                    if n:
-                        wm_col[:n, idx] = rebase_watermarks(wms, n, self._ts_base)
-            xs["wm"] = torch.from_numpy(wm_col).to(dev)
-        self._pack_hwms.append(self._next_gidx - 1)
-        return xs
 
     def advance(
         self,
@@ -258,9 +376,10 @@ class BatchedDeviceNFA:
             self._flush_group()
         return self.drain() if decode else {}
 
-    def drain(self) -> Dict[Any, List[Sequence]]:
-        """Decode and clear all pending matches (a host sync point)."""
-        out: Dict[Any, List[Sequence]] = {}
+    def drain(self) -> Dict[Any, List[Any]]:
+        """Decode and clear all pending matches (a host sync point):
+        `Sequence`s, or `SinkMatch`es with sink_format="json"."""
+        out: Dict[Any, List[Any]] = {}
         raw = self._pull_raw_flat(self._window_pool_view())
         if raw is not None:
             out = self._decode_flat(raw)
@@ -332,22 +451,43 @@ class BatchedDeviceNFA:
         self._ring_cleared()
         return {"counts": counts, "table": table}
 
-    def _decode_flat(self, raw: Dict[str, Any]) -> Dict[Any, List[Sequence]]:
-        """Walk the flat [3, Mb, Cb, K] table: hops are newest-first, hops
-        with gidx < 0 (a GC-dropped put) are skipped while the chain goes
-        on, and an all-dead chain decodes to nothing."""
+    def _decode_flat(self, raw: Dict[str, Any]) -> Dict[Any, List[Any]]:
+        """Decode the flat [3, Mb, Cb, K] table into per-key `Sequence`s
+        (`SinkMatch`es with sink_format="json"): hops are newest-first,
+        hops with gidx < 0 (a GC-dropped put) are skipped while the chain
+        goes on, and an all-dead chain decodes to nothing."""
         table = raw["table"]
-        gidx = np.moveaxis(table[0], -1, 0)
-        name = np.moveaxis(table[1], -1, 0)
-        live = np.moveaxis(table[2], -1, 0)
-        counts = raw["counts"]
+        counts = np.ascontiguousarray(raw["counts"], np.int32)
+        # [3, Mb, Cb, K] -> per-plane [K, Mb, Cb] strided views (no copy).
+        gidx, name, live = (np.moveaxis(table[i], -1, 0) for i in range(3))
+        if not self.native:
+            seqs = self._decode_flat_python(counts, gidx, name, live)
+            if self.sink_format == "json":
+                return {k: [sink_match_from_sequence(s, "json") for s in v]
+                        for k, v in seqs.items()}
+            return seqs
+        if self._decoder is None:
+            from ..native import load_decoder
+
+            self._decoder = load_decoder()
+        args = (counts, gidx, name, live, self.query.name_of_id, self._events,
+                Staged, Sequence)
+        if self.sink_format == "json":
+            per_key = self._decoder.decode_matches_json(*args, json_fragment)
+            return {self.keys[k]: [SinkMatch("json", *item) for item in items]
+                    for k, items in enumerate(per_key) if items}
+        per_key = self._decoder.decode_matches_flat(*args)
+        return {self.keys[k]: seqs for k, seqs in enumerate(per_key) if seqs}
+
+    def _decode_flat_python(self, counts, gidx, name, live) -> Dict[Any, List[Sequence]]:
+        """The Python walk over the flat table: the reference for the
+        native decoder."""
         K, Mb, _ = gidx.shape
         out: Dict[Any, List[Sequence]] = {}
-        for k in np.flatnonzero(counts[: min(K, len(self.keys))]).tolist():
+        for k in np.flatnonzero(counts[:K]).tolist():
             n = min(int(counts[k]), Mb)
-            # Python lists per key: the hop loop below is the drain's
-            # hottest host loop, and list reads cost far less than numpy
-            # scalar indexing.
+            # Python lists per key: list reads cost far less than numpy
+            # scalar indexing in the hop loop.
             g_rows, n_rows, l_rows = (a[k, :n].tolist() for a in (gidx, name, live))
             seqs: List[Sequence] = []
             for j in range(n):
