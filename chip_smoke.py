@@ -479,10 +479,10 @@ def main() -> int:
         a time: each batch's 131,072 records in time order across keys,
         the last one filling the micro-batch and flushing it. Per timed
         flush: enqueue (the process() calls before the flushing one), the
-        processor's lane map and batch (its flush minus the engine), pack,
-        advance (the engine's advance without its drain), drain + decode,
-        and emit (the flushing process() call minus the flush: gate and
-        sink)."""
+        processor's lane map and batch (its flush minus the engine), pack
+        (host pack and upload), advance (the engine's advance without its
+        drain), drain + decode, and emit (the flushing process() call minus
+        the flush: gate and sink)."""
         sink_log = P.RecordLog()
         builder = P.ComplexStreamsBuilder(log=sink_log)
         out = builder.stream("letters").query(
@@ -507,7 +507,8 @@ def main() -> int:
             return run_
 
         proc.flush = timed("flush", proc.flush)
-        teng.pack = timed("pack", teng.pack)
+        teng.pack_host = timed("pack", teng.pack_host)
+        teng.upload = timed("pack", teng.upload)
         teng.advance_packed = timed("advance_packed", teng.advance_packed)
         teng.drain = timed("drain", teng.drain)
         keys = [f"k{i}" for i in range(K)]

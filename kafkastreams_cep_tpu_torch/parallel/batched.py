@@ -19,10 +19,11 @@ are not all int32/float32 packs in Python too (the packer writes only
 Left for later slices (see ROADMAP.md): the capacity autosizer,
 `auto_drain` and `on_overflow` policies, snapshot/restore/resize, exact
 replay, Arrow sinks, provenance sampling, metrics, the decode worker
-thread and the mesh. Those of the JAX engine's options raise here when
-set; the parity tests build the JAX engine with them off
-(`auto_drain=False`, `exact_replay=False`, `provenance_sample=0`,
-`drain_mode="flat"`).
+thread and the mesh. The JAX engine's options for them are not
+parameters here, so passing one raises TypeError (`sink_format="arrow"`
+and `on_overflow` other than "drop" raise ValueError); the parity tests
+build the JAX engine with them off (`auto_drain=False`,
+`exact_replay=False`, `provenance_sample=0`, `drain_mode="flat"`).
 
 The device is explicit: `device=None` means "cuda", and a missing card
 raises instead of running on the CPU. `engine="cuda"` (the default on the
@@ -97,27 +98,7 @@ class BatchedDeviceNFA:
         events_prune_threshold: int = 1 << 16,
         native: bool = True,
         sink_format: str = "objects",
-        query_name: Optional[str] = None,
-        drain_mode: str = "flat",
-        auto_drain: bool = False,
-        exact_replay: bool = False,
-        provenance_sample: float = 0.0,
-        mesh: Any = None,
     ) -> None:
-        unported = {
-            "drain_mode": drain_mode != "flat",
-            "auto_drain": bool(auto_drain),
-            "exact_replay": bool(exact_replay),
-            "provenance_sample": provenance_sample > 0,
-            "mesh": mesh is not None,
-        }
-        for name, on in unported.items():
-            if on:
-                raise ValueError(
-                    f"{name} is not ported (ROADMAP.md queue A); the port runs "
-                    "the flat drain with auto_drain, exact_replay, provenance "
-                    "sampling and the mesh off"
-                )
         if sink_format == "arrow":
             raise ValueError("sink_format='arrow' is not ported (ROADMAP.md item 5e)")
         if sink_format not in SINK_FORMATS:
@@ -143,8 +124,6 @@ class BatchedDeviceNFA:
         self.engine = engine
         self.native = bool(native)
         self.sink_format = sink_format
-        #: The owning query's name (set by the streams layer).
-        self.query_name = query_name
         #: "native" or "python": the route the last `pack` took.
         self.pack_route: Optional[str] = None
         self._packer = None
@@ -209,12 +188,23 @@ class BatchedDeviceNFA:
         events_by_key: Mapping[Any, Seq[Event]],
         watermarks: Optional[Any] = None,
     ) -> Dict[str, torch.Tensor]:
-        """Pack per-key event lists into time-major [T, K] device columns.
+        """Pack per-key event lists into time-major [T, K] device columns:
+        `upload(pack_host(...))`."""
+        return self.upload(self.pack_host(events_by_key, watermarks))
+
+    def pack_host(
+        self,
+        events_by_key: Mapping[Any, Seq[Event]],
+        watermarks: Optional[Any] = None,
+    ) -> Dict[str, np.ndarray]:
+        """The host half of `pack`: [T, K] numpy columns, each event
+        registered under its global id.
 
         Ragged keys pad at the tail with valid=False steps; keys absent
         from the mapping are all padding. `watermarks` (a scalar or a
         per-key mapping) threads an event-time "wm" column into the step;
-        omitted, expiry runs on the event timestamps.
+        omitted, expiry runs on the event timestamps. A record the schema
+        cannot pack raises here, and the engine is left as it was.
         """
         lists: List[Seq[Event]] = [() for _ in range(self.K)]
         T = 0
@@ -259,6 +249,8 @@ class BatchedDeviceNFA:
                     f"{TS_REBASE_MARGIN_MS} ms): an event arrived more than the "
                     "margin earlier than the first batch's earliest event"
                 )
+            if watermarks is not None:
+                cols["wm"] = self._wm_column(lists, watermarks, T)
         except BaseException:
             # Roll the registry, the id counter and the base back, so a
             # caller that skips the bad batch (or isolates its records)
@@ -270,30 +262,35 @@ class BatchedDeviceNFA:
             self._next_gidx = gidx_before
             self._ts_base = ts_base_before
             raise
-        dev = self.device
-        xs = {k: torch.from_numpy(v).to(dev) for k, v in cols.items()}
-        xs["spred"] = eval_stateless_preds(self.query, xs)
-        xs["gidx"] = torch.from_numpy(gidx).to(dev)
-        xs["valid"] = torch.from_numpy(valid).to(dev)
-        if watermarks is not None:
-            wm_col = np.full((T, K), WM_NONE, np.int32)
-            if np.isscalar(watermarks):
-                for k, evs in enumerate(lists):
-                    if evs:
-                        wm_col[: len(evs), k] = rebase_watermarks(
-                            watermarks, len(evs), self._ts_base
-                        )
-            else:
-                for key, wms in watermarks.items():
-                    idx = self.key_index.get(key)
-                    if idx is None:
-                        raise KeyError(f"unknown key {key!r} (add it with add_keys)")
-                    n = len(lists[idx])
-                    if n:
-                        wm_col[:n, idx] = rebase_watermarks(wms, n, self._ts_base)
-            xs["wm"] = torch.from_numpy(wm_col).to(dev)
+        cols["gidx"] = gidx
+        cols["valid"] = valid
         self._pack_hwms.append(self._next_gidx - 1)
+        return cols
+
+    def upload(self, cols: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """Copy `pack_host`'s columns to the device and evaluate the
+        stateless predicates there."""
+        xs = {k: torch.from_numpy(v).to(self.device) for k, v in cols.items()}
+        xs["spred"] = eval_stateless_preds(self.query, xs)
         return xs
+
+    def _wm_column(self, lists, watermarks, T: int) -> np.ndarray:
+        wm_col = np.full((T, self.K), WM_NONE, np.int32)
+        if np.isscalar(watermarks):
+            for k, evs in enumerate(lists):
+                if evs:
+                    wm_col[: len(evs), k] = rebase_watermarks(
+                        watermarks, len(evs), self._ts_base
+                    )
+        else:
+            for key, wms in watermarks.items():
+                idx = self.key_index.get(key)
+                if idx is None:
+                    raise KeyError(f"unknown key {key!r} (add it with add_keys)")
+                n = len(lists[idx])
+                if n:
+                    wm_col[:n, idx] = rebase_watermarks(wms, n, self._ts_base)
+        return wm_col
 
     def _native_pack_ok(self) -> bool:
         """The native route: asked for, and every field a 4-byte int32 or

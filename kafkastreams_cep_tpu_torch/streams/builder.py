@@ -197,6 +197,15 @@ class Topology:
             outputs.extend(self._emit_device(node, out, node.processor.flush()))
         return outputs
 
+    def take_poisoned(self) -> List[tuple]:
+        """Drain every query's quarantined records: [(query, key, event,
+        exception)] for each record whose value its schema could not pack."""
+        return [
+            (node.name, key, event, exc)
+            for _stream, node, _out in self.queries
+            for key, event, exc in node.processor.take_poisoned()
+        ]
+
     def _emit_device(self, node: QueryNode, out: OutputStream, results) -> List[Record]:
         """Route [(key, Sequence | SinkMatch)] results downstream.
 

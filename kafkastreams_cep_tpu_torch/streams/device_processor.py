@@ -22,7 +22,7 @@ import warnings
 from typing import Any, Dict, Generic, List, Optional, Tuple, TypeVar
 
 from ..core.event import Event
-from ..core.sequence import Sequence
+from ..native import NativeBuildError
 from ..obs.registry import MetricsRegistry
 from ..ops.engine import EngineConfig
 from ..ops.schema import EventSchema
@@ -31,7 +31,6 @@ from ..parallel.batched import BatchedDeviceNFA
 from ..pattern.compiler import compile_pattern
 from ..pattern.pattern import Pattern
 from ..state.naming import normalize_query_name
-from .errors import CEPOverflowError, TransientFault
 
 K = TypeVar("K")
 V = TypeVar("V")
@@ -73,7 +72,6 @@ class DeviceCEPProcessor(Generic[K, V]):
         self.config = config if config is not None else EngineConfig()
         self.batch_size = max(1, batch_size)
         self._capacity = max(1, initial_keys)
-        engine_opts.setdefault("query_name", self.query_name)
         self.engine = BatchedDeviceNFA(
             self.query,
             keys=[_Lane(i) for i in range(self._capacity)],
@@ -101,7 +99,7 @@ class DeviceCEPProcessor(Generic[K, V]):
         # (CEPProcessor.java:152-160).
         self._hwm: Dict[Tuple[Any, str], int] = {}
         #: Records quarantined by the flush-time isolation pass (poison
-        #: that only surfaces at pack/predicate-eval time); handed out by
+        #: that only surfaces when the batch is packed); handed out by
         #: `take_poisoned()`.
         self._poisoned: List[Tuple[Any, Event, Exception]] = []
 
@@ -150,16 +148,20 @@ class DeviceCEPProcessor(Generic[K, V]):
         batch = {self._lane_for(key): events for key, events in self._pending.items()}
         self._pending = {}
         self._pending_count = 0
+        # Only the host pack is guarded: a record the schema cannot pack
+        # raises there, before the engine changes. A failed native build
+        # and any error of the upload, the step or the drain propagate.
         try:
-            advanced = self.engine.advance(batch)
-        except (CEPOverflowError, TransientFault):
+            cols = self.engine.pack_host(batch)
+        except NativeBuildError:
             raise
         except Exception:
-            # Poison surfaced at pack/predicate-eval time: the batched
-            # pack is all-or-nothing, so isolate record by record -- the
-            # healthy remainder advances, the poison lands in
+            # The batched pack is all-or-nothing, so isolate record by
+            # record: the healthy remainder advances, the poison lands in
             # `self._poisoned`.
             advanced = self._advance_isolating(batch)
+        else:
+            advanced = self.engine.advance_packed(self.engine.upload(cols))
         out: List[Tuple[K, Any]] = []
         for lane, seqs in advanced.items():
             out.extend((lane.key, s) for s in seqs)
@@ -182,19 +184,20 @@ class DeviceCEPProcessor(Generic[K, V]):
 
     # ------------------------------------------------------------ internals
     def _advance_isolating(self, batch: Dict["_Lane", List[Event]]) -> Dict["_Lane", List[Any]]:
-        """Record-at-a-time pass after a batch advance raised: each record
-        advances alone (per-lane order preserved); records that still
-        raise are quarantined instead of wedging the pump."""
+        """Record-at-a-time pass after a batch pack raised: each record
+        advances alone (per-lane order preserved); records whose pack
+        still raises are quarantined instead of wedging the pump."""
         out: Dict[_Lane, List[Any]] = {}
         for lane, events in batch.items():
             for ev in events:
                 try:
-                    res = self.engine.advance({lane: [ev]})
-                except (CEPOverflowError, TransientFault):
+                    cols = self.engine.pack_host({lane: [ev]})
+                except NativeBuildError:
                     raise
                 except Exception as exc:
                     self._poisoned.append((lane.key, ev, exc))
                     continue
+                res = self.engine.advance_packed(self.engine.upload(cols))
                 for l, seqs in res.items():
                     if seqs:
                         out.setdefault(l, []).extend(seqs)

@@ -209,7 +209,7 @@ def test_json_sink_bytes_equal_jax_serialization_and_identity(workload):
     for label, kw in (("objects", {}), ("json", {"sink_format": "json"}),
                       ("json_python", {"sink_format": "json", "native": False})):
         _qj, qp = _queries(workload)
-        eng = _port_engine(qp, query_name="skip8", **kw)
+        eng = _port_engine(qp, **kw)
         sp = _streams(workload)
         runs[label] = [eng.advance(_batch(sp, b)) for b in range(2)]
     n = 0

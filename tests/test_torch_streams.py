@@ -19,7 +19,10 @@ EngineConfig so the JAX side compiles once per key extent:
     (the JAX package pins its json bytes and digests to its objects
     run's);
   * options the port lacks raise; every sink key carries a distinct
-    emission digest.
+    emission digest;
+  * a record the schema cannot pack is quarantined alone, while a failed
+    native build or a failure after the step raises out of the topology
+    and re-runs nothing.
 """
 import random
 
@@ -132,16 +135,26 @@ def test_letters_topology_equals_jax_record_by_record():
         assert p_sink == j_sink, sink_format
 
 
+def _opt_id(case):
+    opt = case[0]
+    return next(iter(opt)) + "=" + str(next(iter(opt.values())))[:12]
+
+
+# Options of the JAX engine the port has no parameter for raise TypeError
+# from the signature; values the port cannot honour raise ValueError.
 @pytest.mark.parametrize("opt", [
-    {"runtime": "host"}, {"runtime": "tpu"}, {"sink_format": "arrow"},
-    {"provenance_sample": 0.5}, {"auto_drain": True}, {"exact_replay": True},
-    {"drain_mode": "pool"}, {"mesh": object()},
-    {"config": P.EngineConfig(reorder_capacity=4)},
-    {"config": P.EngineConfig(on_overflow="raise")},
-], ids=lambda o: next(iter(o)) + "=" + str(next(iter(o.values())))[:12])
+    ({"runtime": "host"}, ValueError), ({"runtime": "tpu"}, ValueError),
+    ({"sink_format": "arrow"}, ValueError),
+    ({"provenance_sample": 0.5}, TypeError), ({"auto_drain": True}, TypeError),
+    ({"exact_replay": True}, TypeError), ({"drain_mode": "pool"}, TypeError),
+    ({"mesh": object()}, TypeError),
+    ({"config": P.EngineConfig(reorder_capacity=4)}, ValueError),
+    ({"config": P.EngineConfig(on_overflow="raise")}, ValueError),
+], ids=_opt_id)
 def test_unported_options_raise(opt):
+    opt, exc = opt
     opts = {"runtime": "cuda", "device": "cpu", **opt}
-    with pytest.raises(ValueError):
+    with pytest.raises(exc):
         P.ComplexStreamsBuilder().stream("letters").query("q", letters_pattern(), **opts)
 
 
@@ -168,3 +181,78 @@ def test_sink_keys_carry_the_gate_digest_and_dedupe_replays():
     assert len({d for _k, d in digests}) == len(digests)
     assert np.all([d is not None for _k, d in digests])
     assert out.node.gate._m_deduped.value == 0
+
+
+def _letters_topology(**opts):
+    builder = P.ComplexStreamsBuilder(log=P.RecordLog())
+    out = builder.stream("letters").query(
+        "Letters", letters_pattern(), runtime="cuda", device="cpu",
+        config=P.EngineConfig(**CFG), batch_size=16, initial_keys=2, **opts)
+    return builder.build(), out
+
+
+@pytest.mark.parametrize("native_pack", [True, False], ids=["native", "python"])
+def test_poison_record_is_quarantined_and_the_rest_advances(native_pack):
+    """A value the schema cannot pack is quarantined alone (reachable
+    through `Topology.take_poisoned`); every other record of its batch
+    advances, so each key's matches equal a run without that record (the
+    isolation pass advances record by record, so the order across keys
+    differs)."""
+    records = _letters_records()
+    slot = 37
+    key, _letter, ts, offset = records[slot]
+    topo, _out = _letters_topology(native=native_pack)
+    outs = []
+    for i, (k, letter, t, o) in enumerate(records):
+        value = ["unpackable"] if i == slot else letter
+        outs += topo.process("letters", k, value, timestamp=t, offset=o)
+    outs += topo.flush()
+    ref_topo, _ref = _letters_topology(native=native_pack)
+    ref = _drive(ref_topo, records[:slot] + records[slot + 1:])
+    per_key = lambda rows: sorted(rows, key=lambda r: (r[0], r[5]))  # noqa: E731
+    assert per_key(_rows(outs, P.sequence_to_json)) == per_key(_rows(ref, P.sequence_to_json))
+    assert len(ref) > 0
+    (poisoned,) = topo.take_poisoned()
+    assert poisoned[:2] == ("letters", key)
+    assert (poisoned[2].value, poisoned[2].offset) == (["unpackable"], offset)
+    assert topo.take_poisoned() == []
+
+
+def test_failed_native_build_raises_through_the_topology(monkeypatch):
+    """A broken native build is not poison: `Topology.process` raises it
+    at the first flush and quarantines nothing."""
+    from kafkastreams_cep_tpu_torch import native
+
+    def broken(name, cxx=None, build_dir=None):
+        raise native.NativeBuildError(f"building the native {name} failed: test")
+
+    monkeypatch.setattr(native, "build_ext", broken)
+    monkeypatch.setattr(native, "_mods", {})
+    topo, out = _letters_topology()
+    records = _letters_records()
+    with pytest.raises(native.NativeBuildError):
+        for key, letter, ts, offset in records[:16]:
+            topo.process("letters", key, letter, timestamp=ts, offset=offset)
+    assert topo.take_poisoned() == [] and out.records == []
+    assert out.node.processor.engine._next_gidx == 0
+
+
+def test_decode_failure_raises_and_advances_nothing_twice():
+    """An error after the step (here the decoder's) propagates out of
+    `Topology.flush`: the batch is not re-run record by record, so each
+    record was packed once and nothing is quarantined."""
+    topo, out = _letters_topology()
+    engine = out.node.processor.engine
+
+    class BrokenDecoder:
+        def decode_matches_flat(self, *args):
+            raise RuntimeError("decoder failed")
+
+    engine._decoder = BrokenDecoder()
+    records = _letters_records()[:15]
+    for key, letter, ts, offset in records:
+        topo.process("letters", key, letter, timestamp=ts, offset=offset)
+    with pytest.raises(RuntimeError, match="decoder failed"):
+        topo.flush()
+    assert engine._next_gidx == len(records)
+    assert topo.take_poisoned() == [] and out.records == []
