@@ -3,13 +3,13 @@
 
     python3 chip_smoke.py
 
-Builds the step kernel from csrc/ with nvcc (one build per compiled query)
-and the native packer and decoder from native/ with g++, all started
-together, then:
+Builds the step kernel from csrc/ with nvcc (one build per compiled query
+and capacity, the flagship's grown shape included) and the native packer,
+decoder and CRC-32C from native/ with g++, all started together, then:
 
   1. prints the card (`nvidia-smi --query-gpu=name,power.limit`);
-  2. builds every kernel and both native extensions and prints the build
-     seconds, the Python include path, ptxas's registers and spills, and
+  2. builds every kernel and the three native extensions and prints the
+     build seconds, the Python include path, ptxas's registers and spills, and
      the kernel's resident blocks and warps per SM (one warp per key);
   3. holds the CUDA step bitwise equal to the plain PyTorch step on the
      card, on identical inputs, every state leaf and every w_* output:
@@ -42,12 +42,45 @@ together, then:
      launched once per flush, the drop counters are 0 and the sink holds
      one record per match; then again with `sink_format="json"`, whose
      payloads must equal the objects run's JSON bytes;
-  6. runs the stock demo golden through engine="cuda" and through a
-     `runtime="cuda"` topology (4 matches each);
-  7. prints the kernel line, the card line, and last the ok line.
+  6. runs the stock demo golden through engine="cuda" (4 matches on each
+     of 2 keys);
+  7. and through a `runtime="cuda"` topology (4 matches);
+  8. checkpoint: runs the flagship engine through batches 1-5, snapshots
+     it, restores the snapshot into a fresh engine on the card and runs
+     batches 6-10 on both; checks that final state, pool and every key's
+     matches are bitwise equal (and equal to phase 4's); prints the
+     snapshot's bytes, its ms split into flush + D2H, encode and CRC,
+     and the restore ms;
+  9. resize: after batch 5 grows the engine to lanes 640, nodes 16384
+     (a kernel built for that shape), holds the kernel bitwise to the
+     plain step at the grown shape on batch 6's inputs and times both,
+     runs batches 6-7, shrinks back to the flagship capacity and runs
+     8-10; checks that matches, state and pool equal phase 8's
+     uninterrupted run and that a shrink below the live lanes raises
+     `ShapeRestoreError` and leaves the engine as it was;
+ 10. overflow: the 10 batches deferred (`advance_packed(decode=False)`)
+     with one drain at the end, three times: `auto_drain` on (drops 0,
+     matches per key equal phase 4's; prints the ring-full drains and
+     events/s over the 8 timed batches), `on_overflow="block"` with
+     auto_drain off (drops 0, same matches; prints the backpressure
+     count) and `on_overflow="raise"` with a ring below the busiest key's
+     deferred matches (`CEPOverflowError`, carrying the drained matches);
+     then counts the host synchronisations over 8 deferred advances with
+     `torch.cuda.set_sync_debug_mode("warn")`, occupancy probe on and off;
+ 11. crash recovery: a `runtime="cuda"` topology on a file-backed
+     `RecordLog` commits with `flush_stores()` after flushes 3 and 6,
+     "crashes" inside flush 8 (builder, topology and engine dropped, the
+     log closed), is built afresh on the same log, `restore_stores()`,
+     replays the input from the committed offset and finishes; checks
+     that the sink holds every match of phase 5's uninterrupted run
+     exactly once, in order; prints the bytes and ms per commit and the
+     time to recover (log reload, `restore_stores`, replay to the crash);
+ 12. prints the kernel line, the card line, and last the ok line.
 
-Any failed phase raises (exit code 1) before the ok line is printed.
-Without a card it exits 2 and prints nothing on stdout.
+Each phase that drives the main path zeroes the kernel's launch count
+just before and reads it just after, and fails if the kernel was not
+launched. Any failed phase raises (exit code 1) before the ok line is
+printed. Without a card it exits 2 and prints nothing on stdout.
 """
 from __future__ import annotations
 
@@ -57,8 +90,11 @@ import json
 import random
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
+from dataclasses import replace
 from pathlib import Path
 
 import torch
@@ -133,6 +169,31 @@ class GcClock:
                 f"(passes by generation {self.passes})")
 
 
+def bytes_moved(state: dict, s_out: dict, ys: dict, keep: tuple) -> int:
+    """Bytes one nfa_step launch must move: xi/xf and the state read once,
+    the state (but gc_phase) and the ys written once."""
+    xi, xf, _scratch = keep
+    moved = xi.numel() * 4 + (xf.numel() * 4 if xf is not None else 0)
+    moved += sum(state[n].numel() * state[n].element_size() for n in s_out if n in state)
+    moved += sum(s_out[n].numel() * s_out[n].element_size() for n in s_out if n != "gc_phase")
+    moved += sum(v.numel() * 4 for v in ys.values())
+    return moved
+
+
+def count_syncs(fn) -> int:
+    """Host synchronisations the CUDA runtime reports while fn runs."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # The first switch to "warn" also emits a one-time notice that the
+    # mode is a prototype: count only the reported operations.
+    return sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+
+
 def max_abs_diff(a: dict, b: dict) -> float:
     """Largest |a - b| over every leaf; raises if a leaf is not bitwise equal."""
     bad = [n for n in a if a[n].dtype != b[n].dtype or not torch.equal(a[n], b[n])]
@@ -178,6 +239,8 @@ def main() -> int:
     flag_q = P.compile_query(P.compile_pattern(skip_any.skip_any8_pattern()), None)
     flag_cfg = P.EngineConfig(**skip_any.FLAGSHIP_CONFIG)
     builds["skip_any8"] = (flag_q, flag_cfg, None)
+    grown_cfg = replace(flag_cfg, lanes=640, nodes=16384)
+    builds["skip_any8_grown"] = (flag_q, grown_cfg, None)
     gold_q = P.compile_query(P.compile_pattern(stocks_pattern()), P.EventSchema(STOCK_FIELDS))
     gold_cfg = P.EngineConfig(lanes=32, nodes=512, matches=64)
     builds["stock_golden"] = (gold_q, gold_cfg, None)
@@ -187,14 +250,19 @@ def main() -> int:
         return out, time.perf_counter() - t
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(builds) + 2) as ex:
-        futs = {n: ex.submit(sk.build_library, q, c) for n, (q, c, _) in builds.items()}
-        nat_futs = {n: ex.submit(timed_build, native.build_ext, n) for n in ("packer", "decoder")}
-        libs = {n: f.result() for n, f in futs.items()}
+    natives = ("packer", "decoder", "crc32c")
+    with ThreadPoolExecutor(max_workers=len(builds) + len(natives)) as ex:
+        futs = {n: ex.submit(timed_build, sk.build_library, q, c)
+                for n, (q, c, _) in builds.items()}
+        nat_futs = {n: ex.submit(timed_build, native.build_ext, n) for n in natives}
+        kernel_builds = {n: f.result() for n, f in futs.items()}
         nat_builds = {n: f.result() for n, f in nat_futs.items()}
+    libs = {n: path for n, (path, _sec) in kernel_builds.items()}
     build_s = time.perf_counter() - t0
-    log(f"built {len(libs)} kernels and the native packer and decoder in {build_s:.1f}s "
-        f"(nvcc and g++, in parallel); g++ seconds: " + ", ".join(
+    log(f"built {len(libs)} kernels and the native packer, decoder and CRC-32C in "
+        f"{build_s:.1f}s (nvcc and g++, in parallel); nvcc seconds of the flagship "
+        f"{kernel_builds['skip_any8'][1]:.1f} and of its grown shape (lanes 640, nodes "
+        f"16384) {kernel_builds['skip_any8_grown'][1]:.1f}; g++ seconds: " + ", ".join(
             f"{n} {sec:.2f} ({path.name})" for n, (path, sec) in nat_builds.items())
         + f"; Python headers: {native.python_include()}")
     for line in libs["skip_any8"].with_suffix(".log").read_text().splitlines():
@@ -295,17 +363,13 @@ def main() -> int:
     ptrs, T_, K_, s_out, ys, _keep = sk.prepare(flag_q, flag_cfg, state, xs, words)
     kernel_ms = cuda_ms(lambda: sk.call(lib, ptrs, T_, K_, dev), reps=20)
     plain_ms = cuda_ms(lambda: plain(state, xs), reps=2)
-    xi, xf, scratch = _keep
-    moved = xi.numel() * 4 + (xf.numel() * 4 if xf is not None else 0)
-    moved += sum(state[n].numel() * state[n].element_size() for n in s_out if n in state)
-    moved += sum(s_out[n].numel() * s_out[n].element_size() for n in s_out
-                 if n != "gc_phase")
-    moved += sum(v.numel() * 4 for v in ys.values())
+    scratch = _keep[2]
+    moved = bytes_moved(state, s_out, ys, _keep)
     bound_ms = moved / HBM_BYTES_PER_S * 1e3
     log(f"nfa_step at K={K} T={T}, third batch: kernel {kernel_ms:.4f} ms, plain "
         f"{plain_ms:.3f} ms, bytes moved {moved} -> bound {bound_ms:.4f} ms "
         f"({bound_ms / kernel_ms:.1%} of it); scratch {scratch.numel() * 4} B")
-    del flag_pairs, state, xs, s_out, ys, _keep, xi, xf, scratch, per_event
+    del flag_pairs, state, xs, s_out, ys, _keep, scratch, per_event
 
     # -- 4. the main path: BatchedDeviceNFA(engine="cuda") at K=2048, T=64 ----
     n_warm, n_timed = 2, 8
@@ -470,6 +534,7 @@ def main() -> int:
     last_ms = cuda_ms(lambda: sk.call(lib, ptrs, T_, K_, dev), reps=20)
     log(f"nfa_step at K={K} T={T}, last ({n_batches}th) batch: kernel {last_ms:.4f} ms")
     del run["last"], _s, _y, _keep, eng
+    # Phase 4's matches: the reference of phases 8-10.
     engine_matches = run.pop("matches")
     del run["eng"]
 
@@ -581,7 +646,9 @@ def main() -> int:
     topo_launches = topo_obj["launches"]
     obj_rows = [(r.key, P.sequence_to_json(r.value).encode("utf-8"))
                 for r in topo_obj["out"].records]
-    del topo_obj, by_key, engine_matches
+    # Phase 5's sink: the reference of phase 11.
+    obj_sink = [(r.key, r.value) for r in topo_obj["log"].read("matches")]
+    del topo_obj, by_key
     topo_json = topology_run("json")
     check_topology(topo_json, "json")
     json_rows = [(r.key, r.value.payload) for r in topo_json["out"].records]
@@ -606,6 +673,8 @@ def main() -> int:
         if got[key] != GOLDEN_MATCHES:
             raise AssertionError(f"stock golden on {key}: {got[key]}")
     log("stock golden through engine='cuda': 4 matches on each of 2 keys")
+
+    # -- 7. stock golden through a runtime="cuda" topology --------------------
     builder = P.ComplexStreamsBuilder()
     gold_out = builder.stream("stock-events").query(
         "Stocks", stocks_pattern(), P.Queried(schema=P.EventSchema(STOCK_FIELDS)),
@@ -619,7 +688,317 @@ def main() -> int:
         raise AssertionError(f"stock golden through runtime='cuda': {got}")
     log("stock golden through a runtime='cuda' topology (batch_size 3): 4 matches")
 
-    # -- 7. the kernel line, the card line, the ok line -----------------------
+    keys = [f"k{i}" for i in range(K)]
+    streams = flagship_streams(keys)
+
+    def batch_of(b):
+        return {k: s[b * T:(b + 1) * T] for k, s in streams.items()}
+
+    def new_engine(cfg=flag_cfg, **kw):
+        return P.BatchedDeviceNFA(flag_q, keys=keys, config=cfg, device=dev, engine="cuda", **kw)
+
+    def run_batches(eng, lo, hi, out):
+        """Batches lo..hi-1, each packed, advanced and drained in turn;
+        the matches as JSON into out per key."""
+        for b in range(lo, hi):
+            eng.advance_packed(eng.pack(batch_of(b)), decode=False)
+            for key, seqs in eng.drain().items():
+                out.setdefault(key, []).extend(P.sequence_to_json(s) for s in seqs)
+
+    def same_engine(label, a, b):
+        for what in ("state", "pool"):
+            ta, tb = getattr(a, what), getattr(b, what)
+            bad = [n for n in ta if not torch.equal(ta[n], tb[n])]
+            if bad or set(ta) != set(tb):
+                raise AssertionError(f"{label}: {what} differs in {bad}")
+
+    def no_drops(label, eng):
+        drops = {k: eng.stats[k] for k in DROP_COUNTER_KEYS}
+        if any(drops.values()):
+            raise AssertionError(f"{label}: drop counters are not 0: {drops}")
+
+    def launched(label, n):
+        if n <= 0:
+            raise AssertionError(f"{label}: nfa_step was not launched")
+        return n
+
+    # -- 8. checkpoint: snapshot after batch 5, restore, batches 6-10 ---------
+    from kafkastreams_cep_tpu_torch.state import serde
+
+    sk.NfaStep.launches = 0
+    unint, m_unint = new_engine(), {}
+    run_batches(unint, 0, 5, m_unint)
+    crc_s = [0.0]
+    crc_native = serde.crc32c
+
+    def timed_crc(data, crc=0):
+        t = time.perf_counter()
+        out = crc_native(data, crc)
+        crc_s[0] += time.perf_counter() - t
+        return out
+
+    serde.crc32c = timed_crc
+    try:
+        t0 = time.perf_counter()
+        arrays = unint._snapshot_arrays()
+        t1 = time.perf_counter()
+        blob = unint._encode_snapshot(arrays)
+        t2 = time.perf_counter()
+        snap_crc_s, crc_s[0] = crc_s[0], 0.0
+        restored = P.BatchedDeviceNFA.restore(flag_q, blob, config=flag_cfg, device=dev,
+                                              engine="cuda")
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        restore_crc_s = crc_s[0]
+    finally:
+        serde.crc32c = crc_native
+    del arrays
+    m_rest = {k: list(v) for k, v in m_unint.items()}
+    run_batches(unint, 5, n_batches, m_unint)
+    run_batches(restored, 5, n_batches, m_rest)
+    ckpt_launches = launched("checkpoint", sk.NfaStep.launches)
+    same_engine("restored engine vs uninterrupted", restored, unint)
+    if m_rest != m_unint:
+        raise AssertionError("the restored engine's matches differ from the uninterrupted run's")
+    if m_unint != engine_matches:
+        raise AssertionError("phase 8's matches differ from phase 4's")
+    no_drops("checkpoint", restored)
+    snapshot_bytes = len(blob)
+    snapshot_ms = (t2 - t0) * 1e3
+    restore_ms = (t3 - t2) * 1e3
+    log(f"checkpoint: snapshot {snapshot_bytes} B in {snapshot_ms:.1f} ms (flush + D2H "
+        f"{(t1 - t0) * 1e3:.1f}, encode {(t2 - t1 - snap_crc_s) * 1e3:.1f}, CRC-32C "
+        f"{snap_crc_s * 1e3:.1f}); restore {restore_ms:.1f} ms (of which CRC-32C "
+        f"{restore_crc_s * 1e3:.1f}); CRC-32C hardware {serde._crc_mod.hardware()}; "
+        f"restored == uninterrupted after batches 6-10: state, pool and all {K} keys' "
+        f"matches bitwise ({sum(map(len, m_rest.values()))}, == phase 4's); "
+        f"nfa_step launches {ckpt_launches}")
+    del restored, m_rest, blob
+
+    # -- 9. resize: grow after batch 5, shrink back after batch 7 -------------
+    sk.NfaStep.launches = 0
+    rs, m_rs = new_engine(), {}
+    run_batches(rs, 0, 5, m_rs)
+    t0 = time.perf_counter()
+    if not rs.resize(grown_cfg):
+        raise AssertionError("resize to the grown shape did nothing")
+    torch.cuda.synchronize()
+    grow_ms = (time.perf_counter() - t0) * 1e3
+    xs5 = rs.pack(batch_of(5))
+    grown_lib = sk.load_library(libs["skip_any8_grown"])
+    plain_g = build_plain_step(flag_q, grown_cfg)
+    s1, y1 = plain_g(rs.state, xs5)
+    s2, y2 = sk.launch(grown_lib, flag_q, grown_cfg, rs.state, xs5)
+    torch.cuda.synchronize()
+    grown_err = max(max_abs_diff(s1, s2), max_abs_diff(y1, y2))
+    del s1, y1, s2, y2
+    ptrs, T_, K_, s_out, ys, keep = sk.prepare(flag_q, grown_cfg, rs.state, xs5,
+                                               int(grown_lib.nfa_step_scratch_words()))
+    grown_ms = cuda_ms(lambda: sk.call(grown_lib, ptrs, T_, K_, dev), reps=20)
+    grown_plain_ms = cuda_ms(lambda: plain_g(rs.state, xs5), reps=1)
+    grown_moved = bytes_moved(rs.state, s_out, ys, keep)
+    grown_bound_ms = grown_moved / HBM_BYTES_PER_S * 1e3
+    del ptrs, s_out, ys, keep, plain_g
+    before = sk.NfaStep.launches
+    rs.advance_packed(xs5, decode=False)
+    for key, seqs in rs.drain().items():
+        m_rs.setdefault(key, []).extend(P.sequence_to_json(s) for s in seqs)
+    run_batches(rs, 6, 7, m_rs)
+    grown_launches = sk.NfaStep.launches - before
+    lanes_grown = int(rs.state["active"].sum(0).max())
+    t0 = time.perf_counter()
+    if not rs.resize(flag_cfg):
+        raise AssertionError("the shrink back did nothing")
+    torch.cuda.synchronize()
+    shrink_ms = (time.perf_counter() - t0) * 1e3
+    run_batches(rs, 7, n_batches, m_rs)
+    resize_launches = launched("resize", sk.NfaStep.launches)
+    try:
+        rs.resize(replace(flag_cfg, lanes=8))
+    except serde.ShapeRestoreError as exc:
+        refused = str(exc)
+    else:
+        raise AssertionError("a shrink to 8 lanes below the live lanes was not refused")
+    if rs.config != flag_cfg or rs.state["active"].shape[0] != flag_cfg.lanes:
+        raise AssertionError("the refused shrink changed the engine")
+    if m_rs != m_unint:
+        raise AssertionError("the resized run's matches differ from the uninterrupted run's")
+    same_engine("resized engine vs uninterrupted", rs, unint)
+    no_drops("resize", rs)
+    log(f"resize: grow to lanes 640, nodes 16384 in {grow_ms:.1f} ms, shrink back in "
+        f"{shrink_ms:.1f} ms (kernel built for the grown shape in "
+        f"{kernel_builds['skip_any8_grown'][1]:.1f}s, with the other builds); "
+        f"up to {lanes_grown} live lanes at the grown shape; matches, state and pool == "
+        f"the uninterrupted run; shrink to 8 lanes refused ({refused[:90]}...); nfa_step "
+        f"launches {resize_launches}, {grown_launches} at the grown shape")
+    log(f"nfa_step at the grown shape (lanes 640, nodes 16384), batch 6's inputs: kernel == "
+        f"plain bitwise, kernel {grown_ms:.4f} ms, plain {grown_plain_ms:.3f} ms, bytes moved "
+        f"{grown_moved} -> bound {grown_bound_ms:.4f} ms ({grown_bound_ms / grown_ms:.1%} of it)")
+    del rs, m_rs, unint, m_unint, xs5
+
+    # -- 10. overflow policies on deferred decode -----------------------------
+    def deferred_run(eng):
+        """All batches deferred, one drain at the end; seconds of the timed
+        batches (pack + advance + engine-initiated drains) and the drain."""
+        t0 = None
+        for b in range(n_batches):
+            if b == n_warm:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            eng.advance_packed(eng.pack(batch_of(b)), decode=False)
+        out = eng.drain()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        return {k: [P.sequence_to_json(s) for s in v] for k, v in out.items()}, secs
+
+    sk.NfaStep.launches = 0
+    ad = new_engine()
+    m_ad, ad_s = deferred_run(ad)
+    ad_launches = launched("auto_drain", sk.NfaStep.launches)
+    ring_full = int(ad.metrics.get("cep_auto_drains_total").labels(trigger="ring_full").value)
+    no_drops("auto_drain", ad)
+    if m_ad != engine_matches:
+        raise AssertionError("auto_drain: matches differ from phase 4's")
+    if ring_full == 0:
+        raise AssertionError("auto_drain: no ring-full drain on a ring of one page")
+    ad_eps = n_timed * T * K / ad_s
+    del ad, m_ad
+    sk.NfaStep.launches = 0
+    blk = new_engine(replace(flag_cfg, on_overflow="block"), auto_drain=False)
+    m_blk, _blk_s = deferred_run(blk)
+    blk_launches = launched("block", sk.NfaStep.launches)
+    backpressure = int(blk.metrics.get("cep_overflow_backpressure_total").value)
+    no_drops("block", blk)
+    if m_blk != engine_matches:
+        raise AssertionError("block: matches differ from phase 4's")
+    if backpressure == 0:
+        raise AssertionError("block: no backpressure on a ring of one page")
+    del blk, m_blk
+    from kafkastreams_cep_tpu_torch.streams.errors import CEPOverflowError
+
+    busiest = max(map(len, engine_matches.values()))
+    small_ring = 16
+    sk.NfaStep.launches = 0
+    rz = new_engine(replace(flag_cfg, on_overflow="raise", matches=small_ring))
+    try:
+        deferred_run(rz)
+    except CEPOverflowError as exc:
+        raised = exc
+    else:
+        raise AssertionError("raise: no CEPOverflowError on an overflowing ring")
+    rz_launches = launched("raise", sk.NfaStep.launches)
+    n_raised = sum(map(len, raised.matches.values()))
+    if n_raised == 0:
+        raise AssertionError("raise: the CEPOverflowError carries no drained matches")
+    rz_drops = rz.stats["match_drops"]
+    del rz, raised
+
+    def sync_count(auto_drain: bool) -> int:
+        """Host syncs over 8 deferred advances of pre-packed batches, on a
+        ring of 4 pages (the probe runs, no drain is due)."""
+        eng = new_engine(replace(flag_cfg, matches=4 * flag_cfg.matches), auto_drain=auto_drain)
+        xs_list = [eng.pack(batch_of(b)) for b in range(n_timed)]
+        torch.cuda.synchronize()
+
+        def advances():
+            for xs in xs_list:
+                eng.advance_packed(xs, decode=False)
+
+        n = count_syncs(advances)
+        if auto_drain == (eng._pos_obs is None and not eng._pos_probes):
+            raise AssertionError(f"occupancy probe ran: {not auto_drain}, asked: {auto_drain}")
+        eng.drain()
+        no_drops(f"sync count (auto_drain={auto_drain})", eng)
+        return n
+
+    syncs_probe, syncs_off = sync_count(True), sync_count(False)
+    log(f"overflow, auto_drain on: drops 0, matches == phase 4's, {ring_full} ring-full "
+        f"drains, {ad_eps:.0f} events/s over the {n_timed} timed deferred batches and the "
+        f"drain (pack included; phase 4 drains every batch); nfa_step launches {ad_launches}")
+    log(f"overflow, on_overflow='block', auto_drain off: drops 0, matches == phase 4's, "
+        f"backpressure {backpressure}; nfa_step launches {blk_launches}")
+    log(f"overflow, on_overflow='raise', matches {small_ring} (busiest key: {busiest} matches "
+        f"over the run): CEPOverflowError at the drain with {n_raised} drained matches, "
+        f"match_drops {rz_drops}; nfa_step launches {rz_launches}")
+    log(f"host syncs over {n_timed} deferred advances (set_sync_debug_mode): "
+        f"{syncs_probe} with the occupancy probe, {syncs_off} without")
+
+    # -- 11. crash recovery through the topology ------------------------------
+    per_flush = K * T
+    order = [(k, streams[k][b * T + t]) for b in range(n_batches) for t in range(T)
+             for k in keys]
+    crash_at = 7 * per_flush + per_flush // 2
+    ds_topic = "app-skip_any8-streamscep-devicestate-changelog"
+
+    def topo_on(log_):
+        builder = P.ComplexStreamsBuilder(log=log_)
+        out = builder.stream("letters").query(
+            "skip_any8", skip_any.skip_any8_pattern(), runtime="cuda", config=flag_cfg,
+            batch_size=per_flush, initial_keys=K,
+        ).to("matches")
+        return builder, builder.build(), out
+
+    def feed(topo, recs):
+        process = topo.process
+        for key, e in recs:
+            process("letters", key, e.value, timestamp=e.timestamp, offset=e.offset)
+
+    sk.NfaStep.launches = 0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_log_") as tmp:
+        rlog = P.RecordLog(tmp)
+        builder, topo, _out = topo_on(rlog)
+        committed, commit_ms, commit_bytes = 0, [], []
+        for n_done in (3 * per_flush, 6 * per_flush):
+            feed(topo, order[committed:n_done])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            topo.flush_stores()
+            rlog.flush()
+            commit_ms.append((time.perf_counter() - t0) * 1e3)
+            commit_bytes.append(len(rlog.read(ds_topic)[-1].value))
+            committed = n_done
+        feed(topo, order[committed:crash_at])
+        rlog.close()
+        del builder, topo, _out, rlog
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rlog = P.RecordLog(tmp)
+        t1 = time.perf_counter()
+        builder, topo, out = topo_on(rlog)
+        n_restored = topo.restore_stores()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        feed(topo, order[committed:crash_at])
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        feed(topo, order[crash_at:])
+        topo.flush()
+        crash_launches = launched("crash recovery", sk.NfaStep.launches)
+        no_drops("crash recovery", out.node.processor)
+        sink = [(r.key, r.value) for r in rlog.read("matches")]
+        rlog.close()
+        del builder, topo, out, rlog
+    from kafkastreams_cep_tpu_torch.streams.emission import decode_sink_key
+
+    digests = [decode_sink_key(k)[1] for k, _v in sink]
+    if len(set(digests)) != len(digests):
+        raise AssertionError("the recovered sink holds a match twice")
+    if sink != obj_sink:
+        raise AssertionError(f"the recovered sink ({len(sink)} records) differs from phase "
+                             f"5's uninterrupted sink ({len(obj_sink)})")
+    log(f"crash recovery: commits after flushes 3 and 6 of {per_flush} records: "
+        f"{commit_bytes} B of processor snapshot, flush_stores {commit_ms[0]:.1f} / "
+        f"{commit_ms[1]:.1f} ms (log fsync included); crash at record {crash_at}; recovery: "
+        f"log reload {(t1 - t0) * 1e3:.1f} ms, restore_stores {(t2 - t1) * 1e3:.1f} ms "
+        f"({n_restored} changelog records), replay of {crash_at - committed} records to the "
+        f"crash point {(t3 - t2) * 1e3:.1f} ms; time to recover {(t3 - t0) * 1e3:.1f} ms; "
+        f"sink == phase 5's: {len(sink)} matches, each once; nfa_step launches "
+        f"{crash_launches}")
+    del obj_sink, sink, engine_matches, order
+
+    # -- 12. the kernel line, the card line, the ok line ----------------------
+    log(f"chip_smoke ran {time.perf_counter() - T_START:.1f}s")
     kernels = [{
         "name": "nfa_step",
         "route": "cuda",
@@ -632,6 +1011,11 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": "bytes",
         "library_ms": None,
+        "grown": {
+            "lanes": grown_cfg.lanes, "nodes": grown_cfg.nodes, "launches": grown_launches,
+            "max_abs_err": grown_err, "ms": grown_ms, "plain_ms": grown_plain_ms,
+            "bound_ms": grown_bound_ms, "bound_by": "bytes",
+        },
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,12 +1,16 @@
-"""The host's native layer: the micro-batch packer and the match decoder.
+"""The host's native layer: the micro-batch packer, the match decoder and
+the checkpoint checksum.
 
-Two CPython extensions, copied from the JAX package's native layer:
-`packer.cc` packs per-key Event lists into [T, K] columns in one C call
-per batch (field extraction, string tokens, topic ids, timestamp rebase,
-validity, global event ids and the event registry); `decoder.cc` turns
-the drain's chain-flatten table into `Sequence` objects
+Three CPython extensions. Two are copied from the JAX package's native
+layer: `packer.cc` packs per-key Event lists into [T, K] columns in one C
+call per batch (field extraction, string tokens, topic ids, timestamp
+rebase, validity, global event ids and the event registry); `decoder.cc`
+turns the drain's chain-flatten table into `Sequence` objects
 (`decode_matches_flat`) or straight into JSON sink bytes
-(`decode_matches_json`) in one C call per drain.
+(`decode_matches_json`) in one C call per drain. The third, `crc32c.cc`,
+is the CRC-32C that seals checkpoint frames (state/serde.py), with the
+SSE4.2 `crc32` instruction on x86-64 -- where the JAX package uses the
+optional `google_crc32c` package.
 
 Each is compiled at first use with
 
@@ -15,9 +19,11 @@ Each is compiled at first use with
 into native/_build/ (listed in .gitignore), keyed by a hash of the
 source, the flags and the interpreter, and imported from there. A
 missing compiler or header, a failed build or a failed import raises
-`NativeBuildError`: nothing falls back to the Python pack or decode. The
-Python versions stay in parallel/batched.py as the reference the tests
-hold these to, and run only when a caller asks for them (`native=False`).
+`NativeBuildError`: nothing falls back to the Python pack, decode or
+checksum. The Python pack and decode stay in parallel/batched.py as the
+reference the tests hold these to, and run only when a caller asks for
+them (`native=False`); the Python checksum (`serde.crc32c_python`) is
+the tests' reference only.
 """
 from __future__ import annotations
 
@@ -113,3 +119,7 @@ def load_packer() -> ModuleType:
 
 def load_decoder() -> ModuleType:
     return load_ext("decoder")
+
+
+def load_crc32c() -> ModuleType:
+    return load_ext("crc32c")

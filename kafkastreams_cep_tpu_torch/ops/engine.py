@@ -72,9 +72,10 @@ class EngineConfig:
     package's `EngineConfig` (same names, defaults and checks).
 
     The port's driver honours the capacity fields, `strict_windows`,
-    `pin_interval` and `gc_group`; `on_overflow` other than "drop" and
-    the event-time gate (`reorder_capacity > 0`) belong to later slices
-    and are refused by `BatchedDeviceNFA`.
+    `pin_interval`, `gc_group` and the overflow policy (`on_overflow`,
+    `block_retries`, `block_backoff_s`); the event-time gate
+    (`reorder_capacity > 0`) belongs to a later slice and is refused by
+    `BatchedDeviceNFA`.
     """
 
     lanes: int = 64          # max simultaneous runs per key (run-lane pool)

@@ -1,29 +1,44 @@
 """Multi-key batched driver: thousands of per-key NFAs advanced on one card.
 
-The port's counterpart of the JAX package's `parallel/batched.py`, cut to
-the core loop of the main path: pack per-key event lists into [T, K]
-columns (the native packer, native/packer.cc), advance every key through
-the step (the CUDA kernel on the card), append each advance's matches to
-the pending ring, fold the node window back with the group-flush GC, and
-drain by walking every pending chain on the device into one dense table
-that is copied to the host once and decoded by the native decoder
-(native/decoder.cc) into `Sequence`s or, with `sink_format="json"`,
-straight into JSON sink bytes (`SinkMatch`). The key axis grows with
-`add_keys`.
+The port's counterpart of the JAX package's `parallel/batched.py`: pack
+per-key event lists into [T, K] columns (the native packer,
+native/packer.cc), advance every key through the step (the CUDA kernel on
+the card), append each advance's matches to the pending ring, fold the
+node window back with the group-flush GC, and drain by walking every
+pending chain on the device into one dense table that is copied to the
+host once and decoded by the native decoder (native/decoder.cc) into
+`Sequence`s or, with `sink_format="json"`, straight into JSON sink bytes
+(`SinkMatch`). The key axis grows with `add_keys`.
+
+Capacity contract (the JAX engine's): with `auto_drain=True` (the
+default) a guard before every advance pulls the pending-match ring off
+the device whenever that advance's worst case could overflow it (or
+undrained pins squeeze the node region), so deferred decode
+(`advance_packed(decode=False)`) loses nothing; the guard reads an
+asynchronous probe of the ring cursor and never synchronizes the
+advance. `EngineConfig.on_overflow` is "drop" (drops counted, and loud in
+`cep_overflow_dropped_total`), "raise" (`CEPOverflowError` at the next
+drain, carrying the drained matches) or "block" (a forced drain before
+any advance that could overflow). The port decodes an auto-drained table
+on the calling thread and hands it out ahead of the next `drain()`'s own
+matches, so every key's matches keep their order.
+
+Durability: `snapshot()` / `restore()` write and read the JAX engine's
+CRC-sealed frame byte for byte (state/serde.py), across capacities (a
+graft) and across the JAX Pallas engine's key padding; `resize()`
+re-shapes the capacity in place and builds the kernel for the new shape
+first, so a failed build leaves the engine as it was.
 
 `native=False` packs and decodes in Python instead: the reference the
 tests hold the native code to. With `native=True` a schema whose fields
 are not all int32/float32 packs in Python too (the packer writes only
 4-byte columns); `pack_route` says which route the last pack took.
 
-Left for later slices (see ROADMAP.md): the capacity autosizer,
-`auto_drain` and `on_overflow` policies, snapshot/restore/resize, exact
-replay, Arrow sinks, provenance sampling, metrics, the decode worker
-thread and the mesh. The JAX engine's options for them are not
-parameters here, so passing one raises TypeError (`sink_format="arrow"`
-and `on_overflow` other than "drop" raise ValueError); the parity tests
-build the JAX engine with them off (`auto_drain=False`,
-`exact_replay=False`, `provenance_sample=0`, `drain_mode="flat"`).
+Left for later slices (see ROADMAP.md): the capacity autosizer, exact
+replay, Arrow sinks, provenance sampling, the engine's other metrics,
+the decode worker thread and the mesh. The JAX engine's options for them
+are not parameters here, so passing one raises TypeError
+(`sink_format="arrow"` raises ValueError).
 
 The device is explicit: `device=None` means "cuda", and a missing card
 raises instead of running on the CPU. `engine="cuda"` (the default on the
@@ -32,6 +47,7 @@ which is also what CPU tensors get.
 """
 from __future__ import annotations
 
+import time
 from collections import deque
 from typing import Any, Dict, List, Mapping, Optional, Sequence as Seq, Tuple
 
@@ -40,7 +56,9 @@ import torch
 
 from ..core.event import Event
 from ..core.sequence import Sequence, Staged
+from ..obs.registry import MetricsRegistry
 from ..ops.engine import (
+    DROP_COUNTER_KEYS,
     STATE_COUNTER_KEYS,
     WM_NONE,
     EngineConfig,
@@ -57,6 +75,8 @@ from ..ops.runtime import materialize_sequence, rebase_watermarks
 from ..ops.schema import EventSchema
 from ..ops.tables import CompiledQuery, compile_query
 from ..pattern.stages import Stages
+from ..state import serde
+from ..streams.errors import CEPOverflowError
 from ..streams.serde import SinkMatch, json_fragment, sink_match_from_sequence
 from .key_shard import (
     ENGINES,
@@ -98,6 +118,8 @@ class BatchedDeviceNFA:
         events_prune_threshold: int = 1 << 16,
         native: bool = True,
         sink_format: str = "objects",
+        auto_drain: bool = True,
+        registry: Optional[MetricsRegistry] = None,
     ) -> None:
         if sink_format == "arrow":
             raise ValueError("sink_format='arrow' is not ported (ROADMAP.md item 5e)")
@@ -109,11 +131,6 @@ class BatchedDeviceNFA:
             assert isinstance(stages_or_query, Stages)
             self.query = compile_query(stages_or_query, schema)
         self.config = config if config is not None else EngineConfig()
-        if self.config.on_overflow != "drop":
-            raise ValueError(
-                "on_overflow 'raise'/'block' is not ported yet; drops are "
-                "counted in lane_drops/node_drops/match_drops"
-            )
         if self.config.reorder_capacity > 0:
             raise ValueError("the event-time reorder gate is not ported yet")
         self.device = resolve_device(device)
@@ -149,6 +166,56 @@ class BatchedDeviceNFA:
         self._processed_gidx = -1
         self._pack_hwms: deque = deque()
         self._ts_base: Optional[int] = None
+        #: Advances so far (rides the snapshot).
+        self._batches = 0
+        #: In-place capacity re-shapes performed (`resize`).
+        self.resizes = 0
+        #: Capacity guard against silent match loss: a non-decoding
+        #: advance appends at most T * matches_per_step ids per key, so
+        #: draining whenever the worst-case running total could exceed the
+        #: ring keeps overflow impossible. `_pend_accum` is that running
+        #: total since the last drain; the async probes below replace it
+        #: with the observed cursor plus the caps since the observation.
+        self.auto_drain = bool(auto_drain)
+        self._pend_accum = 0
+        #: (drain epoch, accum at dispatch, [pos, fill, lanes] host
+        #: tensor, CUDA event or None) per dispatched probe; a ring clear
+        #: bumps the epoch and so retires probes in flight.
+        self._pos_probes: deque = deque()
+        self._pos_obs: Optional[Tuple[int, int, int]] = None
+        self._drain_epoch = 0
+        #: Freshest probed max live-run count per key (None before any
+        #: probe lands).
+        self.lane_obs: Optional[int] = None
+        #: Set after a region-pressure drain that pulled nothing; cleared
+        #: when a probe next observes a real match.
+        self._region_backoff = False
+        #: Decoded matches of engine-initiated drains (auto-drain,
+        #: backpressure), FIFO, handed out ahead of the next `drain()`'s.
+        self._auto_out: List[Dict[Any, List[Any]]] = []
+        #: Drop-counter totals already reported: the overflow policy acts
+        #: on deltas (a restored engine carries historic totals).
+        self._drop_base: Dict[str, int] = {k: 0 for k in DROP_COUNTER_KEYS}
+        #: The engine's counters, under the JAX engine's names. Private
+        #: unless the caller passes `registry=` to aggregate.
+        self.metrics = registry if registry is not None else MetricsRegistry()
+        self._m_auto_drains = self.metrics.counter(
+            "cep_auto_drains_total",
+            "Engine-initiated ring pulls by trigger "
+            "(ring_full | region_pressure | micro_drain)",
+            labels=("trigger",),
+        )
+        self._m_backpressure = self.metrics.counter(
+            "cep_overflow_backpressure_total",
+            "Blocked admissions under on_overflow='block' (forced early "
+            "drain + group flush before the advance)",
+        )
+        self._m_dropped = self.metrics.counter(
+            "cep_overflow_dropped_total",
+            "Engine drop-counter deltas observed at drain boundaries "
+            "(silent capacity loss made loud; see EngineConfig.on_overflow)",
+            labels=("counter",),
+        )
 
     # ------------------------------------------------------------------ API
     def add_keys(self, new_keys: Seq[Any]) -> None:
@@ -360,9 +427,36 @@ class BatchedDeviceNFA:
         self, xs: Dict[str, torch.Tensor], decode: bool = True
     ) -> Dict[Any, List[Sequence]]:
         """Advance with pre-packed columns. With decode=False no host sync
-        happens; matches wait in the ring until `drain()`. Size
-        `EngineConfig.matches` for the interval (overflow shows in
-        `stats["match_drops"]`)."""
+        happens on the advance itself; matches wait in the ring until
+        `drain()` (or an auto-drain pulls them, see the module doc)."""
+        T = int(xs["valid"].shape[0])
+        step_cap = T * self.config.matches_per_step
+        if self.config.on_overflow == "block":
+            self._block_admission(step_cap)
+        # The guard applies when a whole per-advance page fits the ring
+        # (step_cap <= matches); past that the compact append places what
+        # fits and counts the rest in match_drops (loud).
+        if self.auto_drain and step_cap <= self.config.matches:
+            occ, fill, probed_pos = self._occupancy_bound()
+            # Region pressure only counts when a drain can reclaim
+            # something: gate on the freshest probed true cursor, never on
+            # the worst-case bound (nonzero after every advance).
+            region_pressure = (
+                probed_pos is not None
+                and probed_pos > 0
+                and not self._region_backoff
+                and fill > (3 * self.config.nodes) // 4
+            )
+            ring_full = occ + step_cap > self.config.matches
+            if ring_full or region_pressure:
+                trigger = "ring_full" if ring_full else "region_pressure"
+                self._m_auto_drains.labels(trigger=trigger).inc()
+                if not self._pull_and_decode() and region_pressure and not ring_full:
+                    self._region_backoff = True
+                if region_pressure:
+                    # Only the mark/sweep reclaims region space.
+                    self._flush_group()
+                self._pend_accum = 0
         if self._pack_hwms:
             self._processed_gidx = max(self._processed_gidx, self._pack_hwms.popleft())
         self.state, ys = self._advance(self.state, xs)
@@ -371,24 +465,285 @@ class BatchedDeviceNFA:
         self._group_roots.append(page_roots)
         if len(self._group_ys) >= self.gc_group:
             self._flush_group()
+        self._batches += 1
+        self._pend_accum += step_cap
+        if self.auto_drain and step_cap <= self.config.matches:
+            self._dispatch_pos_probe()
         return self.drain() if decode else {}
 
     def drain(self) -> Dict[Any, List[Any]]:
         """Decode and clear all pending matches (a host sync point):
-        `Sequence`s, or `SinkMatch`es with sink_format="json"."""
+        `Sequence`s, or `SinkMatch`es with sink_format="json". Matches of
+        earlier engine-initiated drains come first in every key's list.
+        Ends with the overflow-policy check (`_check_drop_counters`)."""
         out: Dict[Any, List[Any]] = {}
+        pending, self._auto_out = self._auto_out, []
+        self._pend_accum = 0
         raw = self._pull_raw_flat(self._window_pool_view())
         if raw is not None:
-            out = self._decode_flat(raw)
+            pending.append(self._decode_flat(raw))
+        for decoded in pending:
+            for k, v in decoded.items():
+                out.setdefault(k, []).extend(v)
         if not self._group_ys:
             self._prune_events()
+        self._check_drop_counters(drained=out)
         return out
 
+    # --------------------------------------------------------- checkpointing
+    #: Config fields whose change re-shapes the engine (and its kernel).
+    _SHAPE_FIELDS = (
+        "lanes", "nodes", "matches", "matches_per_step", "nodes_per_step",
+    )
+
+    def snapshot(self) -> bytes:
+        """The engine as one CRC-sealed frame, byte for byte the JAX
+        engine's: the pickled key list, the state and pool array trees,
+        the event registry, the next event id, the timestamp base and the
+        advance count. Flushes the GC group first (the window lives
+        outside the pool), so gc_phase is 0 in every snapshot."""
+        return self._encode_snapshot(self._snapshot_arrays())
+
+    def _snapshot_arrays(self) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+        """Flush the group and copy state and pool to the host."""
+        self._flush_group()
+        return ({k: v.cpu().numpy() for k, v in self.state.items()},
+                {k: v.cpu().numpy() for k, v in self.pool.items()})
+
+    def _encode_snapshot(self, arrays) -> bytes:
+        state_np, pool_np = arrays
+        w = serde._Writer()
+        w._buf.write(serde.MAGIC)
+        w.blob(serde.dumps(self.keys))
+        w.blob(serde.encode_array_tree(state_np))
+        w.blob(serde.encode_array_tree(pool_np))
+        w.blob(serde.encode_event_registry(self._events))
+        w.i64(self._next_gidx)
+        w.i64(self._ts_base if self._ts_base is not None else -1)
+        w.i64(self._batches)
+        return serde.seal_frame(w.getvalue())
+
+    @classmethod
+    def restore(
+        cls,
+        stages_or_query: Any,
+        data: bytes,
+        schema: Optional[EventSchema] = None,
+        config: Optional[EngineConfig] = None,
+        **opts: Any,
+    ) -> "BatchedDeviceNFA":
+        """A new engine from a `snapshot()` of either package's engine.
+
+        A snapshot taken at other capacities grafts into `config`'s shape,
+        or raises `ShapeRestoreError` when its live state does not fit. A
+        JAX Pallas engine pads its key axis to a multiple of 8: padding
+        columns must hold the init state and are dropped (a column that
+        does not raises `CheckpointError`). The restored engine holds
+        exactly one state column per key."""
+        r = serde._Reader(serde.open_frame(data))
+        serde.read_magic(r)
+        keys = serde.loads(r.blob())
+        tree = serde.decode_array_tree(r.blob())
+        pool_tree = serde.decode_array_tree(r.blob())
+        serde.upgrade_checkpoint_trees(tree, pool_tree)
+        bat = cls(stages_or_query, keys=keys, schema=schema, config=config, **opts)
+        k_snap = int(tree["active"].shape[-1])
+        if k_snap < bat.K:
+            raise serde.CheckpointError(
+                f"snapshot holds {k_snap} key columns for {bat.K} keys")
+        init_s = {k: v.numpy() for k, v in
+                  init_batched_state(bat.query, bat.config, k_snap).items()}
+        init_p = {k: v.numpy() for k, v in
+                  init_batched_pool(bat.query, bat.config, k_snap).items()}
+        mismatch = any(
+            name in src and tuple(src[name].shape[:-1]) != tuple(ref.shape[:-1])
+            for src, tgt in ((tree, init_s), (pool_tree, init_p))
+            for name, ref in tgt.items()
+        )
+        if mismatch:
+            serde.check_restore_capacity(
+                tree, pool_tree, lanes=bat.config.lanes, nodes=bat.config.nodes,
+                matches=bat.config.matches, where="BatchedDeviceNFA.restore",
+            )
+            tree = serde.graft_array_tree(tree, {k: v.copy() for k, v in init_s.items()})
+            pool_tree = serde.graft_array_tree(pool_tree, {k: v.copy() for k, v in init_p.items()})
+        if k_snap > bat.K:
+            for src, ref in ((tree, init_s), (pool_tree, init_p)):
+                for name in ref:
+                    if not np.array_equal(src[name][..., bat.K:], ref[name][..., bat.K:]):
+                        raise serde.CheckpointError(
+                            f"key padding column of {name!r} holds live state")
+        bat.state = {k: torch.from_numpy(np.ascontiguousarray(tree[k][..., :bat.K])).to(bat.device)
+                     for k in init_s}
+        bat.pool = {k: torch.from_numpy(np.ascontiguousarray(pool_tree[k][..., :bat.K])).to(bat.device)
+                    for k in init_p}
+        bat._events = serde.decode_event_registry(r.blob())
+        bat._next_gidx = r.i64()
+        bat._processed_gidx = bat._next_gidx - 1  # no pre-packed xs survive
+        ts_base = r.i64()
+        # -1 is the frame's "no base yet"; any other value, negative too,
+        # is the base (the JAX engine reads every negative value as none
+        # and re-bases the next batch: equal matches, other lane times).
+        bat._ts_base = None if ts_base == -1 else ts_base
+        bat._batches = r.i64()
+        r.expect_end()
+        # The restored ring may hold undrained matches: seed the capacity
+        # guard with its cursor, and re-baseline the drop counters (the
+        # policy acts on deltas, not on historic totals).
+        bat._pend_accum = int(bat.pool["pend_pos"].max())
+        bat._drop_base = {k: int(bat.state[k].sum()) for k in DROP_COUNTER_KEYS}
+        return bat
+
+    def resize(self, config: EngineConfig) -> bool:
+        """Re-shape the capacity caps in place: flush, check that the live
+        state fits (`ShapeRestoreError` if not), build the step for the
+        new shape (the CUDA kernel's lanes and node region are compile-time
+        constants: a new nvcc build), then graft state and pool into
+        freshly initialised trees of the new shape. The key axis, the
+        stream position and the ring's contents are kept; a shrink back
+        is bitwise what never having grown gives. A refused shrink or a
+        failed build leaves the engine at its old shape and state.
+        Returns True when a re-shape happened."""
+        if all(getattr(config, f) == getattr(self.config, f) for f in self._SHAPE_FIELDS):
+            self.config = config
+            return False
+        self._flush_group()
+        state_np, pool_np = ({k: v.cpu().numpy() for k, v in tree.items()}
+                             for tree in (self.state, self.pool))
+        serde.check_restore_capacity(
+            state_np, pool_np, lanes=config.lanes, nodes=config.nodes,
+            matches=config.matches, where="resize",
+        )
+        advance = build_batched_advance(self.query, config, self.engine)
+        if self.engine == "cuda" and self.device.type == "cuda":
+            advance.library()  # the nvcc build: raises before anything changes
+        tgt_s = {k: v.numpy().copy() for k, v in
+                 init_batched_state(self.query, config, self.K).items()}
+        tgt_p = {k: v.numpy().copy() for k, v in
+                 init_batched_pool(self.query, config, self.K).items()}
+        serde.graft_array_tree(state_np, tgt_s)
+        serde.graft_array_tree(pool_np, tgt_p)
+        self.state = {k: torch.from_numpy(v).to(self.device) for k, v in tgt_s.items()}
+        self.pool = {k: torch.from_numpy(v).to(self.device) for k, v in tgt_p.items()}
+        self.config = config
+        self._advance = advance
+        self._append = build_append_post(config)
+        self._flush = build_flush_post(self.query, config)
+        # Probes in flight read the old arrays; the worst-case accumulator
+        # stays valid (the ring was grafted, not drained).
+        self._drain_epoch += 1
+        self._pos_obs = None
+        self.lane_obs = None
+        self.resizes += 1
+        return True
+
     # ------------------------------------------------------------ internals
+    def _check_drop_counters(self, drained: Optional[Dict] = None) -> None:
+        """Drain-boundary overflow-policy check: pull the three drop
+        counters (the drain is already a sync point), make any delta loud
+        in `cep_overflow_dropped_total{counter}`, and escalate under
+        on_overflow "raise" (always) or "block" (a drop under
+        backpressure broke the loss-free promise)."""
+        vals = torch.stack([self.state[k].sum() for k in DROP_COUNTER_KEYS]).tolist()
+        overflow: Dict[str, int] = {}
+        for name, v in zip(DROP_COUNTER_KEYS, vals):
+            delta = int(v) - self._drop_base[name]
+            if delta > 0:
+                overflow[name] = delta
+                self._drop_base[name] = int(v)
+                self._m_dropped.labels(counter=name).inc(delta)
+        if overflow and self.config.on_overflow in ("raise", "block"):
+            # The ring was already pulled and cleared: the drained matches
+            # ride the exception.
+            exc = CEPOverflowError(
+                f"engine capacity overflow since the last drain: {overflow} "
+                f"(policy {self.config.on_overflow!r}; size EngineConfig "
+                "lanes/nodes/matches or use on_overflow='block')"
+            )
+            exc.matches = drained if drained is not None else {}
+            raise exc
+
+    def _block_admission(self, step_cap: int) -> None:
+        """on_overflow="block": hold the advance until its worst case fits.
+        Each forced round drains the ring (decoded into the FIFO) and
+        flushes the group, bounded by `block_retries` with linear backoff;
+        a residual drop escalates at the next drain. When a page exceeds
+        the ring (step_cap > matches) admission needs an empty ring."""
+        cfg = self.config
+        for attempt in range(cfg.block_retries + 1):
+            occ, fill, _ = self._occupancy_bound()
+            if step_cap <= cfg.matches:
+                need = occ + step_cap > cfg.matches or fill > (3 * cfg.nodes) // 4
+            else:
+                need = occ > 0
+            if not need or attempt == cfg.block_retries:
+                return
+            self._m_backpressure.inc()
+            self._pull_and_decode()
+            self._flush_group()
+            if cfg.block_backoff_s > 0:
+                time.sleep(cfg.block_backoff_s * (attempt + 1))
+
+    def _pull_and_decode(self) -> bool:
+        """An engine-initiated drain: pull the ring and queue its decoded
+        matches for the next `drain()`. Returns whether anything was
+        pending."""
+        raw = self._pull_raw_flat(self._window_pool_view())
+        if raw is None:
+            return False
+        self._auto_out.append(self._decode_flat(raw))
+        return True
+
+    def _dispatch_pos_probe(self) -> None:
+        """Start an asynchronous copy of [max ring cursor, max region fill,
+        max live lanes per key] to the host: a pinned buffer and an event
+        on the card (no synchronization), the result itself on the CPU."""
+        arr = torch.stack([
+            self.pool["pend_pos"].max().to(torch.int64),
+            self.pool["node_count"].max().to(torch.int64),
+            self.state["active"].sum(0).max(),
+        ])
+        event = None
+        if arr.device.type == "cuda":
+            host = torch.empty(3, dtype=torch.int64, pin_memory=True)
+            host.copy_(arr, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            arr = host
+        self._pos_probes.append((self._drain_epoch, self._pend_accum, arr, event))
+
+    def _occupancy_bound(self) -> Tuple[int, int, Optional[int]]:
+        """(worst-case ring occupancy, freshest observed region fill,
+        freshest probed true cursor -- None while no probe has landed).
+
+        Occupancy is the freshest landed cursor probe plus the per-advance
+        caps since it (the pure worst-case accumulator while none has
+        landed). A probe whose event has not completed is left for later:
+        reading it would synchronize."""
+        while self._pos_probes:
+            epoch, acc, host, event = self._pos_probes[0]
+            if event is not None and not event.query():
+                break
+            self._pos_probes.popleft()
+            if epoch == self._drain_epoch:
+                pos, fill, lanes = host.tolist()
+                self._pos_obs = (acc, pos, fill)
+                self.lane_obs = lanes
+                if pos > 0:
+                    self._region_backoff = False  # a real match re-arms it
+        if self._pos_obs is not None:
+            acc, pos, fill = self._pos_obs
+            return pos + (self._pend_accum - acc), fill, pos
+        return self._pend_accum, 0, None
+
     def _ring_cleared(self) -> None:
-        """The ring was just drained: blank the group's accumulated page
-        roots, whose matches were all pulled (re-pinning them at the
-        flush would retain garbage)."""
+        """The ring was just drained: retire probes in flight (new epoch),
+        reset the worst-case accumulator, and blank the group's
+        accumulated page roots, whose matches were all pulled (re-pinning
+        them at the flush would retain garbage)."""
+        self._drain_epoch += 1
+        self._pos_obs = None
+        self._pend_accum = 0
         if self._group_roots:
             self._group_roots = [torch.full_like(r, -1) for r in self._group_roots]
 

@@ -1,7 +1,8 @@
 """Generic key-value state stores and delegating wrappers.
 
 A copy of the JAX package's `state/store.py`, cut to what the emission
-gate's watermark store needs. Re-design of the reference store-adapter
+gate's watermark store needs, plus `restore_store` (the JAX package's
+`state/builders.py`), which replays a store's changelog. Re-design of the reference store-adapter
 layer (reference: core/.../cep/state/internal/WrappedStateStore.java:25-75
 and the Kafka Streams store stack its builders assemble:
 AbstractStoreBuilder.java:52-71): a dict-backed `InMemoryKeyValueStore` at
@@ -204,3 +205,20 @@ class ChangeLoggingKeyValueStore(WrappedStateStore):
             else:
                 self.inner.put(key, self.value_serde[1](value_bytes))
         return n
+
+
+def restore_store(typed_store: Any) -> int:
+    """Replay a typed store's changelog (if its KV stack has one) into the
+    bottom store; returns records applied. The restore bypasses the
+    logging layer so replay does not re-append. A store with its own
+    restore protocol (the device runtime's checkpoint store) runs it."""
+    restore_cl = getattr(typed_store, "restore_from_changelog", None)
+    if restore_cl is not None:
+        return restore_cl()
+    kv = getattr(typed_store, "_kv", None)
+    n = 0
+    while kv is not None:
+        if isinstance(kv, ChangeLoggingKeyValueStore):
+            n += kv.restore()
+        kv = kv.inner if isinstance(kv, WrappedStateStore) else None
+    return n

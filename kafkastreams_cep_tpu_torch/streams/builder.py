@@ -11,20 +11,34 @@ and, through `.to(topic)`, a sink topic of the builder's `RecordLog`.
 
 `runtime="cuda"` is the only runtime: the JAX package's "host", "tpu" and
 "auto" raise. `device=`, `engine=`, `config=`, `batch_size=`,
-`initial_keys=`, `sink_format=` and `native=` pass through to the
-processor and its engine. Left out (ROADMAP.md): ingest stamps and match
-latency, the tracer and `explain`, `flush_stores`/`restore_stores` of the
-device state, and the event-time gate's `tick_event_time`.
+`initial_keys=`, `sink_format=`, `native=` and `auto_drain=` pass
+through to the processor and its engine.
+
+Crash consistency, with a builder `log`: each query's
+`DeviceStateStore` appends the processor's snapshot to
+`<app_id>-<query>-streamscep-devicestate-changelog` and its emission
+watermark to its own changelog at `Topology.flush_stores()` (the commit);
+after a crash a topology built afresh on the same log runs
+`restore_stores()` and replays the input from the committed offsets, and
+the emission gate dedupes what the sink already holds.
+
+Left out (ROADMAP.md): ingest stamps and match latency, the tracer and
+`explain`, and the event-time gate's `tick_event_time`.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, List, Optional, Sequence as Seq, Union
 
 from ..pattern.pattern import Pattern
-from ..state.naming import changelog_topic, emitted_store, normalize_query_name
+from ..state.naming import (
+    changelog_topic,
+    device_state_store,
+    emitted_store,
+    normalize_query_name,
+)
 from ..state.nfa_store import EmissionStore
-from ..state.store import ChangeLoggingKeyValueStore, InMemoryKeyValueStore
-from .device_processor import DeviceCEPProcessor
+from ..state.store import ChangeLoggingKeyValueStore, InMemoryKeyValueStore, restore_store
+from .device_processor import DeviceCEPProcessor, DeviceStateStore
 from .emission import EmissionGate, encode_sink_key
 from .serde import Queried, SinkMatch, sequence_to_json
 
@@ -71,6 +85,9 @@ class QueryNode:
         self.downstream: List[Callable] = []
         self.sink_topics: List[str] = []
         registry = device_opts.pop("registry", None)
+        self.registry = registry
+        #: The processor's options, kept so that a restore rebuilds it.
+        self.device_opts = dict(device_opts)
         # Exactly-once emission gate (streams/emission.py): its watermark
         # store rides the changelog when the builder has a log.
         emit_name = emitted_store(self.name)
@@ -88,6 +105,14 @@ class QueryNode:
             registry=registry,
             **device_opts,
         )
+        # The checkpoint changelog (a snapshot at every commit) and the
+        # emission watermark, both driven by flush/restore_stores.
+        self.stores: Dict[str, Any] = {emit_name: self.emission_store}
+        if log is not None:
+            ds_name = device_state_store(self.name)
+            self.stores[ds_name] = DeviceStateStore(
+                self, log, changelog_topic(app_id, ds_name), registry=registry,
+            )
 
 
 class CEPStream:
@@ -205,6 +230,33 @@ class Topology:
             for _stream, node, _out in self.queries
             for key, event, exc in node.processor.take_poisoned()
         ]
+
+    def flush_stores(self) -> None:
+        """The commit: flush every query's stores (the device state store
+        appends a processor snapshot to its changelog), then roll the
+        emission watermark forward LAST. A crash between the two leaves
+        new state with an old watermark -- recovery's sink-tail scan
+        over-covers and the gate dedupes harmlessly; the reverse order
+        would let replay regenerate matches the scan no longer sees."""
+        for _stream, node, _out in self.queries:
+            for store in node.stores.values():
+                store.flush()
+            node.gate.commit(self.log, node.sink_topics)
+            node.emission_store.flush()
+
+    def restore_stores(self) -> int:
+        """Replay each store's changelog into it (the device state store
+        restores its processor from the newest valid snapshot), then
+        recover each emission gate from its watermark and the sink tail.
+        Returns the changelog records read."""
+        n = sum(
+            restore_store(store)
+            for _stream, node, _out in self.queries
+            for store in node.stores.values()
+        )
+        for _stream, node, _out in self.queries:
+            node.gate.recover(self.log, node.sink_topics)
+        return n
 
     def _emit_device(self, node: QueryNode, out: OutputStream, results) -> List[Record]:
         """Route [(key, Sequence | SinkMatch)] results downstream.

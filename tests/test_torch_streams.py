@@ -145,11 +145,10 @@ def _opt_id(case):
 @pytest.mark.parametrize("opt", [
     ({"runtime": "host"}, ValueError), ({"runtime": "tpu"}, ValueError),
     ({"sink_format": "arrow"}, ValueError),
-    ({"provenance_sample": 0.5}, TypeError), ({"auto_drain": True}, TypeError),
+    ({"provenance_sample": 0.5}, TypeError),
     ({"exact_replay": True}, TypeError), ({"drain_mode": "pool"}, TypeError),
     ({"mesh": object()}, TypeError),
     ({"config": P.EngineConfig(reorder_capacity=4)}, ValueError),
-    ({"config": P.EngineConfig(on_overflow="raise")}, ValueError),
 ], ids=_opt_id)
 def test_unported_options_raise(opt):
     opt, exc = opt
