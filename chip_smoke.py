@@ -4,13 +4,16 @@
     python3 chip_smoke.py
 
 Builds the step kernel from csrc/ with nvcc (one build per compiled query
-and capacity, the flagship's grown shape included) and the native packer,
-decoder and CRC-32C from native/ with g++, all started together, then:
+and capacity, the flagship's grown shape and the fold query of phase 13
+included), the GC mark kernel (csrc/gc_mark.cu, one build) and the native
+packer, decoder and CRC-32C from native/ with g++, all started together,
+then:
 
   1. prints the card (`nvidia-smi --query-gpu=name,power.limit`);
   2. builds every kernel and the three native extensions and prints the
-     build seconds, the Python include path, ptxas's registers and spills, and
-     the kernel's resident blocks and warps per SM (one warp per key);
+     build seconds, the Python include path, ptxas's registers and spills
+     (step and mark), and the step kernel's resident blocks and warps per
+     SM (one warp per key);
   3. holds the CUDA step bitwise equal to the plain PyTorch step on the
      card, on identical inputs, every state leaf and every w_* output:
      the three conformance cases (K=8, T=10, 3 batches), the multi-chunk
@@ -30,16 +33,18 @@ decoder and CRC-32C from native/ with g++, all started together, then:
      native route, the first three batches' native columns equal the
      Python pack's bitwise, every drained table's native decode equals
      the Python walk's, the kernel's launch count equals the advances,
-     the drop counters are 0, there are matches, and the final state,
-     pool and the first 64 keys' matches equal the same run with
-     engine="torch"; then times the kernel on the last batch's state;
+     the GC mark kernel's launch count equals the flushes' walks, the drop
+     counters are 0, there are matches, and the final state, pool and the
+     first 64 keys' matches equal the same run with engine="torch"; then
+     times the kernel on the last batch's state;
   5. drives the same deployment through the streams API -- a
      `runtime="cuda"` topology fed record by record through
      `Topology.process`, 2 warm + 8 timed flushes of 131,072 records,
      matches to a `.to("matches")` sink -- and prints records/s and the
      ms per flush of enqueue, pack, advance, drain + decode and emit;
-     checks that the matches per key equal phase 4's, the kernel
-     launched once per flush, the drop counters are 0 and the sink holds
+     checks that the matches per key equal phase 4's, the step kernel and
+     the GC mark kernel launched once per flush, the drop counters are 0
+     and the sink holds
      one record per match; then again with `sink_format="json"`, whose
      payloads must equal the objects run's JSON bytes;
   6. runs the stock demo golden through engine="cuda" (4 matches on each
@@ -66,7 +71,8 @@ decoder and CRC-32C from native/ with g++, all started together, then:
      count) and `on_overflow="raise"` with a ring below the busiest key's
      deferred matches (`CEPOverflowError`, carrying the drained matches);
      then counts the host synchronisations over 8 deferred advances with
-     `torch.cuda.set_sync_debug_mode("warn")`, occupancy probe on and off;
+     `torch.cuda.set_sync_debug_mode("warn")`, occupancy probe on and off,
+     and fails unless both are 0;
  11. crash recovery: a `runtime="cuda"` topology on a file-backed
      `RecordLog` commits with `flush_stores()` after flushes 3 and 6,
      "crashes" inside flush 8 (builder, topology and engine dropped, the
@@ -75,10 +81,30 @@ decoder and CRC-32C from native/ with g++, all started together, then:
      that the sink holds every match of phase 5's uninterrupted run
      exactly once, in order; prints the bytes and ms per commit and the
      time to recover (log reload, `restore_stores`, replay to the crash);
- 12. prints the kernel line, the card line, and last the ok line.
+ 12. the GC mark: captures the flagship's group flushes after batches 3
+     and 10 (`pin_interval`, the lane walk) and after batch 3 of the same
+     deployment with `pin_interval=False` (the page walk and the lane
+     walk), holds the kernel bitwise to the plain walk `_walk` on every
+     captured mark, and prints ms per launch (CUDA events), its byte bound
+     (the seed and result marks, the frontier, and one pred read per newly
+     marked node) and the group flush's ms with the kernel and with the
+     plain walk on the same state;
+ 13. exact replay at K = 2048: a branchy fold query of
+     tests/test_torch_replay.py's kind (models/cases.py `branchy_case`,
+     seed 65: its keys fold-collide and each needs at most a few hundred
+     runs, where seed 72's busiest key needs 4,910, past any lane count
+     the engine would hold for 2048 keys) over 2048 keys, 20 events each,
+     in 4 drained batches of 5 through
+     `BatchedDeviceNFA(engine="cuda")` at its defaults: prints the
+     collisions, replays and replay ms per drain, and holds the matches of
+     every replayed key and of 64 sampled other keys equal to the host
+     oracle (nfa/) run per key; then the same 4 batches pre-packed and
+     advanced deferred: 0 host syncs over the 4 advances, and after one
+     drain the same matches;
+ 14. prints the kernel line, the card line, and last the ok line.
 
-Each phase that drives the main path zeroes the kernel's launch count
-just before and reads it just after, and fails if the kernel was not
+Each phase that drives the main path zeroes the kernels' launch counts
+just before and reads them just after, and fails if a kernel was not
 launched. Any failed phase raises (exit code 1) before the ok line is
 printed. Without a card it exits 2 and prints nothing on stdout.
 """
@@ -209,12 +235,14 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     import kafkastreams_cep_tpu_torch as P
     from kafkastreams_cep_tpu_torch.models import skip_any
-    from kafkastreams_cep_tpu_torch.models.cases import CASES, STOCK_FIELDS
+    from kafkastreams_cep_tpu_torch.models.cases import CASES, STOCK_FIELDS, branchy_case
     from kafkastreams_cep_tpu_torch.models.chunked import CHUNKED, CHUNKED_T, scatter_live_lanes
     from kafkastreams_cep_tpu_torch import native
     from kafkastreams_cep_tpu_torch.models.stocks import (
         GOLDEN_EVENTS, GOLDEN_MATCHES, stocks_pattern,
     )
+    from kafkastreams_cep_tpu_torch.ops import engine as engine_mod
+    from kafkastreams_cep_tpu_torch.ops import gc_kernel as gk
     from kafkastreams_cep_tpu_torch.ops import step_kernel as sk
     from kafkastreams_cep_tpu_torch.ops.engine import DROP_COUNTER_KEYS
     from kafkastreams_cep_tpu_torch.ops.step import build_plain_step
@@ -244,6 +272,12 @@ def main() -> int:
     gold_q = P.compile_query(P.compile_pattern(stocks_pattern()), P.EventSchema(STOCK_FIELDS))
     gold_cfg = P.EngineConfig(lanes=32, nodes=512, matches=64)
     builds["stock_golden"] = (gold_q, gold_cfg, None)
+    # Phase 13's fold query: tests/test_torch_replay.py's kind at K = 2048.
+    fold_keys = [f"k{i}" for i in range(skip_any.FLAGSHIP_KEYS)]
+    fold_pattern, fold_streams = branchy_case(65, fold_keys)
+    fold_q = P.compile_query(P.compile_pattern(fold_pattern), None)
+    fold_cfg = P.EngineConfig(lanes=256, nodes=4096, matches=2048, matches_per_step=256)
+    builds["branchy_fold"] = (fold_q, fold_cfg, None)
     def timed_build(fn, *args):
         t = time.perf_counter()
         out = fn(*args)
@@ -255,19 +289,24 @@ def main() -> int:
         futs = {n: ex.submit(timed_build, sk.build_library, q, c)
                 for n, (q, c, _) in builds.items()}
         nat_futs = {n: ex.submit(timed_build, native.build_ext, n) for n in natives}
+        gc_fut = ex.submit(timed_build, gk.build_library)
         kernel_builds = {n: f.result() for n, f in futs.items()}
         nat_builds = {n: f.result() for n, f in nat_futs.items()}
+        gc_path, gc_build_s = gc_fut.result()
     libs = {n: path for n, (path, _sec) in kernel_builds.items()}
     build_s = time.perf_counter() - t0
-    log(f"built {len(libs)} kernels and the native packer, decoder and CRC-32C in "
-        f"{build_s:.1f}s (nvcc and g++, in parallel); nvcc seconds of the flagship "
-        f"{kernel_builds['skip_any8'][1]:.1f} and of its grown shape (lanes 640, nodes "
-        f"16384) {kernel_builds['skip_any8_grown'][1]:.1f}; g++ seconds: " + ", ".join(
+    log(f"built {len(libs)} step kernels, the GC mark kernel and the native packer, "
+        f"decoder and CRC-32C in {build_s:.1f}s (nvcc and g++, in parallel); nvcc seconds "
+        f"of the flagship {kernel_builds['skip_any8'][1]:.1f}, of its grown shape (lanes "
+        f"640, nodes 16384) {kernel_builds['skip_any8_grown'][1]:.1f} and of gc_mark "
+        f"{gc_build_s:.1f}; g++ seconds: " + ", ".join(
             f"{n} {sec:.2f} ({path.name})" for n, (path, sec) in nat_builds.items())
         + f"; Python headers: {native.python_include()}")
-    for line in libs["skip_any8"].with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"ptxas[skip_any8]: {line.strip()}")
+    for name, path in (("skip_any8", libs["skip_any8"]), ("gc_mark", gc_path)):
+        for line in path.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                log(f"ptxas[{name}]: {line.strip()}")
+    gc_lib = gk.load_library(gc_path)
     flag_lib = sk.load_library(libs["skip_any8"])
     blocks, threads = ctypes.c_int(), ctypes.c_int()
     err = flag_lib.nfa_step_occupancy(ctypes.byref(blocks), ctypes.byref(threads))
@@ -439,7 +478,7 @@ def main() -> int:
         eng._decode_flat = decode_and_check
         torch.cuda.synchronize()
         gc_clock = GcClock()
-        sk.NfaStep.launches = 0
+        sk.NfaStep.launches = gk.GcMark.launches = 0
         with gc_clock:
             for b in range(n_batches):
                 gc_clock.on = timing[0] = b >= n_warm
@@ -478,11 +517,12 @@ def main() -> int:
                 live_ends.append(eng.state["active"].sum(0))
                 lanes_peak = max(lanes_peak, int(live_ends[-1].max()))
                 nodes_peak = max(nodes_peak, int(eng.pool["node_count"].max()))
-        launches = sk.NfaStep.launches
+        launches, gc_launches = sk.NfaStep.launches, gk.GcMark.launches
         if check_host and decode_checks[0] != n_batches:
             raise AssertionError(f"{decode_checks[0]} decode checks for {n_batches} drains")
         return dict(eng=eng, matches=matches, adv_s=adv_s, drain_s=drain_s,
-                    pack_s=pack_s, launches=launches, lanes_peak=lanes_peak,
+                    pack_s=pack_s, launches=launches, gc_launches=gc_launches,
+                    lanes_peak=lanes_peak,
                     nodes_peak=nodes_peak, phases=phases, live_ends=torch.cat(live_ends),
                     last=last, gc=gc_clock)
 
@@ -508,10 +548,15 @@ def main() -> int:
         f"column bitwise); native decode == Python decode on all {n_batches} drained tables")
     log(f"main path: {n_match} matches, stats {stats}, lanes peak "
         f"{run['lanes_peak']}/{flag_cfg.lanes}, node_count peak "
-        f"{run['nodes_peak']}/{flag_cfg.nodes}, nfa_step launches {run['launches']}")
+        f"{run['nodes_peak']}/{flag_cfg.nodes}, nfa_step launches {run['launches']}, "
+        f"gc_mark launches {run['gc_launches']} ({run['eng'].flushes} group flushes)")
     log(f"main path: live lanes per key at the {n_batches} batch ends: {spread(run['live_ends'])}")
     if run["launches"] != n_batches:
         raise AssertionError(f"nfa_step launched {run['launches']} times for {n_batches} advances")
+    # pin_interval: one walk (the lane walk) per group flush.
+    if run["gc_launches"] != run["eng"].flushes or run["gc_launches"] == 0:
+        raise AssertionError(f"gc_mark launched {run['gc_launches']} times for "
+                             f"{run['eng'].flushes} flushes")
     drops = {k: stats[k] for k in DROP_COUNTER_KEYS}
     if any(drops.values()):
         raise AssertionError(f"drop counters are not 0: {drops}")
@@ -583,7 +628,7 @@ def main() -> int:
         timed_s = 0.0
         torch.cuda.synchronize()
         gc_clock = GcClock()
-        sk.NfaStep.launches = 0
+        sk.NfaStep.launches = gk.GcMark.launches = 0
         with gc_clock:
             for b in range(n_batches):
                 order = [(k, streams[k][b * T + t]) for t in range(T) for k in keys]
@@ -608,9 +653,9 @@ def main() -> int:
                     walls["advance"] += inner["advance_packed"] - inner["drain"]
                     walls["drain+decode"] += inner["drain"]
                     walls["emit"] += (t2 - t1) - inner["flush"]
-        launches = sk.NfaStep.launches
+        launches, gc_launches = sk.NfaStep.launches, gk.GcMark.launches
         return dict(out=out, log=sink_log, proc=proc, walls=walls, timed_s=timed_s,
-                    launches=launches, routes=routes, gc=gc_clock)
+                    launches=launches, gc_launches=gc_launches, routes=routes, gc=gc_clock)
 
     def check_topology(res, label):
         out, proc = res["out"], res["proc"]
@@ -624,6 +669,9 @@ def main() -> int:
         if proc._flushes != n_batches or res["launches"] != n_batches:
             raise AssertionError(f"{res['launches']} nfa_step launches for {proc._flushes} "
                                  f"flushes ({n_batches} expected)")
+        if res["gc_launches"] != proc.engine.flushes or res["gc_launches"] == 0:
+            raise AssertionError(f"{res['gc_launches']} gc_mark launches for "
+                                 f"{proc.engine.flushes} group flushes")
         tstats = proc.stats
         drops = {k: tstats[k] for k in DROP_COUNTER_KEYS}
         if any(drops.values()):
@@ -632,7 +680,8 @@ def main() -> int:
         if n_sink != len(out.records):
             raise AssertionError(f"sink holds {n_sink} records for {len(out.records)} matches")
         log(f"topology[{label}]: {len(out.records)} matches, {n_sink} sink records, "
-            f"{res['launches']} nfa_step launches for {proc._flushes} flushes, drops {drops}")
+            f"{res['launches']} nfa_step launches for {proc._flushes} flushes, "
+            f"{res['gc_launches']} gc_mark launches, drops {drops}")
 
     topo_obj = topology_run("objects")
     check_topology(topo_obj, "objects")
@@ -644,6 +693,7 @@ def main() -> int:
                if by_key.get(k) != engine_matches.get(k)]
         raise AssertionError(f"topology matches differ from the engine run on {len(bad)} keys")
     topo_launches = topo_obj["launches"]
+    topo_gc_launches = topo_obj["gc_launches"]
     obj_rows = [(r.key, P.sequence_to_json(r.value).encode("utf-8"))
                 for r in topo_obj["out"].records]
     # Phase 5's sink: the reference of phase 11.
@@ -895,8 +945,11 @@ def main() -> int:
 
     def sync_count(auto_drain: bool) -> int:
         """Host syncs over 8 deferred advances of pre-packed batches, on a
-        ring of 4 pages (the probe runs, no drain is due)."""
-        eng = new_engine(replace(flag_cfg, matches=4 * flag_cfg.matches), auto_drain=auto_drain)
+        ring of 8 pages: the probe runs, and no drain is due even by the
+        guard's worst-case bound (the host runs ahead of the card, so a
+        probe need not have landed by the next advance)."""
+        eng = new_engine(replace(flag_cfg, matches=n_timed * flag_cfg.matches),
+                         auto_drain=auto_drain)
         xs_list = [eng.pack(batch_of(b)) for b in range(n_timed)]
         torch.cuda.synchronize()
 
@@ -912,6 +965,9 @@ def main() -> int:
         return n
 
     syncs_probe, syncs_off = sync_count(True), sync_count(False)
+    if syncs_probe or syncs_off:
+        raise AssertionError(f"deferred advances synchronised the host: {syncs_probe} times "
+                             f"with the occupancy probe, {syncs_off} without")
     log(f"overflow, auto_drain on: drops 0, matches == phase 4's, {ring_full} ring-full "
         f"drains, {ad_eps:.0f} events/s over the {n_timed} timed deferred batches and the "
         f"drain (pack included; phase 4 drains every batch); nfa_step launches {ad_launches}")
@@ -997,7 +1053,174 @@ def main() -> int:
         f"{crash_launches}")
     del obj_sink, sink, engine_matches, order
 
-    # -- 12. the kernel line, the card line, the ok line ----------------------
+    # -- 12. the GC mark kernel against the plain walk ------------------------
+    def capture_flushes(cfg, at, n):
+        """The inputs of the group flushes numbered in `at` (1-based) of an
+        engine run of n drained batches; the run itself goes on as usual."""
+        eng = new_engine(cfg)
+        flush, count, captured = eng._flush, [0], {}
+
+        def capture(state, pool, ys, roots):
+            count[0] += 1
+            if count[0] in at:
+                captured[count[0]] = (state, pool, ys, roots)
+            return flush(state, pool, ys, roots)
+
+        eng._flush = capture
+        run_batches(eng, 0, n, {})
+        return flush, captured
+
+    def marks_of(flush, inputs):
+        """The (seed, frontier, pred) of every mark one flush asks for."""
+        calls, real = [], engine_mod.gc_mark
+
+        def record(m, f, p):
+            calls.append((m, f.contiguous(), p))
+            return real(m, f, p)
+
+        engine_mod.gc_mark = record
+        try:
+            flush(*inputs)
+        finally:
+            engine_mod.gc_mark = real
+        return calls
+
+    def plain_walk_flush(flush, inputs):
+        engine_mod.gc_mark = gk._walk
+        try:
+            return flush(*inputs)
+        finally:
+            engine_mod.gc_mark = gk.gc_mark
+
+    mark_rows, flush_rows, gc_err = [], [], 0.0
+    page_cfg = replace(flag_cfg, pin_interval=False)
+    for label, cfg, at, n in (("pin_interval", flag_cfg, (3, 10), n_batches),
+                              ("pin_interval=False", page_cfg, (3,), 3)):
+        flush, captured = capture_flushes(cfg, at, n)
+        for b in at:
+            inputs = captured[b]
+            walks = marks_of(flush, inputs)
+            names = ["lane"] if cfg.pin_interval else ["page", "lane"]
+            for name, (m, f, pr) in zip(names, walks):
+                got = gk.launch(gc_lib, m, f, pr)
+                want = gk._walk(m, f, pr)
+                torch.cuda.synchronize()
+                gc_err = max(gc_err, float((got.int() - want.int()).abs().max()))
+                if not torch.equal(got, want):
+                    bad = int((got != want).sum())
+                    raise AssertionError(f"gc_mark != _walk on {label} batch {b} {name} walk: "
+                                         f"{bad} marks differ")
+                BW, Kk = pr.shape
+                newly = int((got[:BW] & ~m[:BW]).sum())
+                moved = 2 * m.numel() + f.numel() * 4 + newly * 4
+                ms = cuda_ms(lambda: gk.launch(gc_lib, m, f, pr), reps=20)
+                p_ms = cuda_ms(lambda: gk._walk(m, f, pr), reps=2)
+                mark_rows.append(dict(label=label, batch=b, walk=name, BW=BW, F=f.shape[0],
+                                      newly=newly, ms=ms, plain_ms=p_ms, bytes=moved,
+                                      bound_ms=moved / HBM_BYTES_PER_S * 1e3))
+                log(f"gc_mark == _walk bitwise ({label}, flush {b}, {name} walk, BW={BW}, "
+                    f"F={f.shape[0]}, K={Kk}, {newly} newly marked): kernel {ms:.4f} ms, "
+                    f"plain {p_ms:.3f} ms, bytes {moved} -> bound "
+                    f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms "
+                    f"({moved / HBM_BYTES_PER_S * 1e3 / ms:.1%} of it)")
+            k_flush = cuda_ms(lambda: flush(*inputs), reps=5)
+            p_flush = cuda_ms(lambda: plain_walk_flush(flush, inputs), reps=2)
+            a = flush(*inputs)
+            b_ = plain_walk_flush(flush, inputs)
+            torch.cuda.synchronize()
+            for tree_a, tree_b in zip(a, b_):
+                if any(not torch.equal(tree_a[n], tree_b[n]) for n in tree_a):
+                    raise AssertionError(f"the flush with gc_mark != with _walk ({label}, {b})")
+            flush_rows.append(dict(label=label, batch=b, ms=k_flush, plain_ms=p_flush))
+            log(f"group flush ({label}, flush {b}): {k_flush:.3f} ms with gc_mark, "
+                f"{p_flush:.3f} ms with the plain walk; state and pool equal")
+        del captured, flush
+    gc_main = mark_rows[0]
+
+    # -- 13. exact replay on a fold query at K = 2048 -------------------------
+    from kafkastreams_cep_tpu_torch.nfa import NFA
+    from kafkastreams_cep_tpu_torch.state.aggregates import AggregatesStore
+    from kafkastreams_cep_tpu_torch.state.buffer import SharedVersionedBuffer
+
+    fold_stages = P.compile_pattern(fold_pattern)
+    per, n_fold = 5, 4
+
+    def fold_batch(b):
+        return {k: s[b * per:(b + 1) * per] for k, s in fold_streams.items()}
+
+    def fold_engine(cfg=fold_cfg):
+        return P.BatchedDeviceNFA(fold_q, keys=fold_keys, config=cfg, device=dev,
+                                  engine="cuda")
+
+    fe = fold_engine()
+    if not fe.exact_replay:
+        raise AssertionError("exact replay is not armed on the fold query")
+    replay_s, hot_keys = [], set()
+    boundary, replay_keys = fe._replay_boundary, fe._replay_keys
+
+    def timed_boundary(out):
+        t = time.perf_counter()
+        res = boundary(out)
+        replay_s.append(time.perf_counter() - t)
+        return res
+
+    def seen_keys(hot, out):
+        hot_keys.update(fe.keys[k] for k in hot.tolist())
+        return replay_keys(hot, out)
+
+    fe._replay_boundary, fe._replay_keys = timed_boundary, seen_keys
+    sk.NfaStep.launches = gk.GcMark.launches = 0
+    fold_got = {}
+    t0 = time.perf_counter()
+    for b in range(n_fold):
+        for key, seqs in fe.advance(fold_batch(b)).items():
+            fold_got.setdefault(key, []).extend(P.sequence_to_json(s) for s in seqs)
+    torch.cuda.synchronize()
+    fold_s = time.perf_counter() - t0
+    fold_launches = launched("fold replay", sk.NfaStep.launches)
+    fold_gc_launches = launched("fold replay (gc_mark)", gk.GcMark.launches)
+    collisions = fe.stats["seq_collisions"]
+    if fe.replays == 0:
+        raise AssertionError("the fold query replayed nothing at K = 2048")
+    no_drops("fold replay", fe)
+    rng = random.Random(65)
+    others = [k for k in fold_keys if k not in hot_keys]
+    checked = sorted(hot_keys) + rng.sample(others, min(64, len(others)))
+    for key in checked:
+        oracle = NFA.build(fold_stages, AggregatesStore(), SharedVersionedBuffer())
+        want = [P.sequence_to_json(s) for e in fold_streams[key] for s in oracle.match_pattern(e)]
+        if fold_got.get(key, []) != want:
+            raise AssertionError(f"fold replay: key {key} has {len(fold_got.get(key, []))} "
+                                 f"matches, the oracle {len(want)}")
+    n_fold_matches = sum(map(len, fold_got.values()))
+    log(f"fold replay (K={len(fold_keys)}, 4 drained batches of {per} events): "
+        f"{collisions} collisions, {fe.replays} replays of {len(hot_keys)} keys, replay ms "
+        f"per drain {[round(x * 1e3, 2) for x in replay_s]}, {fold_s * 1e3:.1f} ms for the 4 "
+        f"batches; {n_fold_matches} matches; the {len(hot_keys)} replayed keys and "
+        f"{len(checked) - len(hot_keys)} sampled others == the host oracle; nfa_step "
+        f"launches {fold_launches}, gc_mark launches {fold_gc_launches}")
+    del fe
+    # A ring for all 4 batches' worst case, so no ring-full drain is due.
+    fd = fold_engine(replace(fold_cfg, matches=n_fold * per * fold_cfg.matches_per_step))
+    xs_list = [fd.pack(fold_batch(b)) for b in range(n_fold)]
+    torch.cuda.synchronize()
+
+    def fold_advances():
+        for xs in xs_list:
+            fd.advance_packed(xs, decode=False)
+
+    fold_syncs = count_syncs(fold_advances)
+    deferred = {k: [P.sequence_to_json(s) for s in v] for k, v in fd.drain().items()}
+    if fold_syncs:
+        raise AssertionError(f"{fold_syncs} host syncs over {n_fold} deferred advances of "
+                             "the replay-armed fold query")
+    if {k: v for k, v in deferred.items() if v} != {k: v for k, v in fold_got.items() if v}:
+        raise AssertionError("the deferred fold run's matches differ from the drained run's")
+    log(f"fold replay, deferred: 0 host syncs over {n_fold} advances (replay armed); one "
+        f"drain, {fd.replays} replays, matches == the drained run's")
+    del fd, xs_list
+
+    # -- 14. the kernel line, the card line, the ok line ----------------------
     log(f"chip_smoke ran {time.perf_counter() - T_START:.1f}s")
     kernels = [{
         "name": "nfa_step",
@@ -1016,6 +1239,20 @@ def main() -> int:
             "max_abs_err": grown_err, "ms": grown_ms, "plain_ms": grown_plain_ms,
             "bound_ms": grown_bound_ms, "bound_by": "bytes",
         },
+    }, {
+        "name": "gc_mark",
+        "route": "cuda",
+        "source": "kafkastreams_cep_tpu_torch/csrc/gc_mark.cu",
+        "replaces": "kafkastreams_cep_tpu/ops/engine.py:1118-1134 (XLA while_loop, no Pallas)",
+        "launches": topo_gc_launches,
+        "max_abs_err": gc_err,
+        "ms": gc_main["ms"],
+        "plain_ms": gc_main["plain_ms"],
+        "bound_ms": gc_main["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "marks": mark_rows,
+        "flushes": flush_rows,
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

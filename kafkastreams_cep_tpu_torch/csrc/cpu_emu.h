@@ -1,8 +1,9 @@
 // Runs a CUDA kernel source on the CPU, for testing without a card.
 //
-// nfa_step.cu compiles with g++ when NFA_CPU_EMU is defined: every CUDA
-// thread of a block becomes an OS thread, __syncthreads() a block-wide
-// std::barrier. Each warp intrinsic the kernel uses (__shfl_sync,
+// nfa_step.cu and gc_mark.cu compile with g++ when NFA_CPU_EMU is defined:
+// every CUDA thread of a block becomes an OS thread, __syncthreads() a
+// block-wide std::barrier, atomicOr a std::atomic_ref fetch_or, and a
+// launch's dynamic shared memory a per-block buffer (emu::dynamic_smem()). Each warp intrinsic the kernel uses (__shfl_sync,
 // __shfl_up_sync, __ballot_sync, __any_sync, __syncwarp) meets at its
 // warp's own barrier, so it needs all 32 lanes of the warp, as the
 // kernel's full-mask calls do on the card; a call with a partial mask
@@ -13,6 +14,7 @@
 #pragma once
 
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cstdio>
 #include <cstdlib>
@@ -24,6 +26,7 @@
 
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
 #define __constant__
 #define __shared__ static
@@ -36,17 +39,23 @@ struct Idx {
 };
 
 struct Block {
-  explicit Block(int nthreads) : bar(nthreads), xchg(nthreads) {
+  Block(int nthreads, size_t smem_bytes)
+      : bar(nthreads), xchg(nthreads), smem((smem_bytes + 7) / 8) {
     for (int w = 0; w < nthreads / 32; ++w) warp_bar.emplace_back(new std::barrier<>(32));
   }
   std::barrier<> bar;                                    // __syncthreads
   std::vector<std::unique_ptr<std::barrier<>>> warp_bar;  // one per warp
   std::vector<int> xchg;                                 // one slot per thread
+  std::vector<unsigned long long> smem;                  // dynamic shared memory
 };
 
 inline thread_local Block* blk = nullptr;
 
-inline void launch(int grid, int nthreads, const std::function<void()>& body);
+inline void launch(int grid, int nthreads, const std::function<void()>& body,
+                   size_t smem_bytes = 0);
+
+// The launch's dynamic shared memory (`extern __shared__` on the card).
+inline void* dynamic_smem() { return blk->smem.data(); }
 
 }  // namespace emu
 
@@ -111,6 +120,10 @@ inline void __syncwarp(unsigned mask = 0xffffffffu) {
 using std::max;
 using std::min;
 
+inline unsigned atomicOr(unsigned* address, unsigned val) {
+  return std::atomic_ref<unsigned>(*address).fetch_or(val);
+}
+
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffsll(long long x) { return __builtin_ffsll(x); }
 inline int __popcll(unsigned long long x) { return __builtin_popcountll(x); }
@@ -127,9 +140,10 @@ inline float __int_as_float(int i) {
   return f;
 }
 
-inline void emu::launch(int grid, int nthreads, const std::function<void()>& body) {
+inline void emu::launch(int grid, int nthreads, const std::function<void()>& body,
+                       size_t smem_bytes) {
   for (int g = 0; g < grid; ++g) {
-    Block block(nthreads);
+    Block block(nthreads, smem_bytes);
     std::vector<std::thread> threads;
     threads.reserve(nthreads);
     for (int t = 0; t < nthreads; ++t) {

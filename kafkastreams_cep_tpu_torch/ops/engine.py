@@ -15,8 +15,9 @@ What lives here:
     them along the trailing key axis;
   * `eval_stateless_preds`, the [T, K, P] stateless predicate masks;
   * the per-advance pend append, the group-flush GC (precise frontier
-    walk and `pin_interval`), the ring remap and the drain passes
-    (`drain_probe`, `build_chain_flatten`, `drain_pend`).
+    walk and `pin_interval`; the mark itself is ops/gc_kernel.py), the
+    ring remap and the drain passes (`drain_probe`, `build_chain_flatten`,
+    `drain_pend`).
 
 The per-event transition itself is ops/step.py (plain version) and
 ops/step_kernel.py (the CUDA kernel). Everything here is written for the
@@ -37,6 +38,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
+from .gc_kernel import gc_mark
 from .tables import CompiledQuery, TorchEnv
 from .numerics import as_mask
 
@@ -337,24 +339,6 @@ def build_pend_append(config: EngineConfig):
 
 
 # ---------------------------------------------------------------------- GC
-def _walk(marked: Tensor, frontier: Tensor, pred: Tensor, BW: int) -> Tensor:
-    """Mark everything reachable from `frontier` ([F, K] node ids) along
-    `pred` ([BW, K]), stopping at nodes already marked. `marked` is
-    [BW + 1, K] with a trash row at BW for dead cursors. The live check
-    syncs every 8 hops: the extra hops of a finished walk are no-ops."""
-    fr = frontier
-    while True:
-        for _ in range(8):
-            live = fr >= 0
-            cidx = torch.where(live, fr, torch.full_like(fr, BW)).long()
-            already = torch.gather(marked, 0, cidx) & live
-            marked = marked.scatter(0, cidx, torch.ones_like(already))
-            nxt = torch.gather(pred, 0, cidx.clamp(max=BW - 1))
-            fr = torch.where(live & ~already, nxt, torch.full_like(nxt, -1))
-        if not bool((fr >= 0).any()):
-            return marked
-
-
 def build_gc(query: CompiledQuery, config: EngineConfig):
     """The post-advance GC for K-last batched state: pin-seeded mark +
     stable sweep compaction of (region ++ accumulated window) into B
@@ -365,7 +349,9 @@ def build_gc(query: CompiledQuery, config: EngineConfig):
     the appended match pages [TM, K]. Marking runs in two phases as in the
     JAX engine: the pend-reachable closure (old pins + this group's pages,
     or the id interval [pend_min, end) under `pin_interval`) becomes the
-    new `pinned`; live-lane chains are kept but not pinned.
+    new `pinned`; live-lane chains are kept but not pinned. Both walks are
+    `gc_mark` (ops/gc_kernel.py): the CUDA kernel on the card, which walks
+    to the fixed point without a host read.
     """
     B = config.nodes
 
@@ -390,8 +376,8 @@ def build_gc(query: CompiledQuery, config: EngineConfig):
                 pool["pinned"],
                 torch.zeros((W + 1, K), dtype=torch.bool, device=dev),
             ])
-            marked_pin = _walk(marked0, page_roots, combined_pred, BW)
-        marked = _walk(marked_pin, lane_roots, combined_pred, BW)
+            marked_pin = gc_mark(marked0, page_roots, combined_pred)
+        marked = gc_mark(marked_pin, lane_roots, combined_pred)
         marked_pin = marked_pin[:BW]
         marked = marked[:BW]
 

@@ -11,52 +11,29 @@ lane tables (`nfa_step_scratch_words()` int32 words per key) with
 `torch.empty`; the kernel allocates nothing.
 
 Build: the query's header (ops/codegen.py) is spliced into the kernel
-source; the result is compiled at first use with
-
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
-         -shared -Xcompiler -fPIC -Xptxas -v
-
-into csrc/_build/ (listed in .gitignore), keyed by a hash of the
-generated source and the flags, and loaded with ctypes; ptxas's
-register and spill report is kept beside the library. The library
-exports a plain C function, so no PyTorch header is compiled.
-
-`build_library(..., target="cpu")` compiles the same source with g++
-under csrc/cpu_emu.h (threads for CUDA threads, a barrier for
-__syncthreads): the tests use it to run the kernel's own code on the CPU
-against the plain version. The wrapper never uses it.
+source, which is compiled at first use by ops/kernel_build.py (nvcc for
+sm_90a into csrc/_build/, keyed by a hash of the generated source and the
+flags, loaded with ctypes). `build_library(..., target="cpu")` compiles
+the same source with g++ under csrc/cpu_emu.h: the tests use it to run
+the kernel's own code on the CPU against the plain version. The wrapper
+never uses it.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 import threading
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from .codegen import XI_FIXED, field_layout, query_header
 from .engine import WM_NONE, EngineConfig, node_window_cap
+from .kernel_build import CSRC, compile_source
 from .step import COUNTER_FIELDS, build_plain_step
 from .tables import CompiledQuery
 
-CSRC = Path(__file__).resolve().parent.parent / "csrc"
-BUILD_DIR = CSRC / "_build"
 KERNEL_SOURCE = CSRC / "nfa_step.cu"
-
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
-CPU_FLAGS = (
-    "-x", "c++", "-std=c++20", "-O1", "-ffp-contract=off", "-shared",
-    "-fPIC", "-pthread", "-DNFA_CPU_EMU",
-)
 
 #: The kernel's envelope: its slot masks (3 slots per descent level),
 #: predicate masks and stage masks are 64-bit.
@@ -75,56 +52,14 @@ def kernel_source(query: CompiledQuery, config: EngineConfig,
     return src.replace('#include "nfa_query.cuh"\n', query_header(query, config))
 
 
-def _compiler(target: str) -> Tuple[List[str], Tuple[str, ...]]:
-    if target == "sm_90a":
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        if not os.path.exists(nvcc):
-            raise RuntimeError("nvcc not found (CUDA toolkit needed to build the step kernel)")
-        return [nvcc], NVCC_FLAGS
-    if target == "cpu":
-        gxx = shutil.which("g++")
-        if gxx is None:
-            raise RuntimeError("g++ not found")
-        return [gxx], CPU_FLAGS
-    raise ValueError(f"unknown target {target!r}")
-
-
 def build_library(
     query: CompiledQuery, config: EngineConfig, target: str = "sm_90a",
     build_dir: Optional[Path] = None, source: Path = KERNEL_SOURCE,
 ) -> Path:
-    """Compile the kernel for one (query, config) and return the .so path.
-    Cached by a hash of the generated source and the flags; concurrent
-    builders of the same key are safe (atomic rename). `source` names
-    another kernel file (scripts/time_nfa_step.py times variants)."""
-    cmd, flags = _compiler(target)
-    src = kernel_source(query, config, source)
-    keyed = src + "\0" + " ".join(flags)
-    if target == "cpu":
-        keyed += (CSRC / "cpu_emu.h").read_text()
-    key = hashlib.sha256(keyed.encode()).hexdigest()[:20]
-    out_dir = Path(build_dir) if build_dir is not None else BUILD_DIR
-    out_dir.mkdir(parents=True, exist_ok=True)
-    lib = out_dir / f"nfa_step_{target}_{key}.so"
-    if lib.exists():
-        return lib
-    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
-        cu = Path(tmp) / f"nfa_step_{key}.cu"
-        cu.write_text(src)
-        tmp_lib = Path(tmp) / lib.name
-        proc = subprocess.run(
-            cmd + list(flags) + ["-I", str(CSRC), "-o", str(tmp_lib), str(cu)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"building the step kernel failed ({target}):\n{proc.stderr[-4000:]}"
-            )
-        # The compiler's report (ptxas registers / spills) beside the .so.
-        (Path(tmp) / "log").write_text(proc.stdout + proc.stderr)
-        os.replace(Path(tmp) / "log", lib.with_suffix(".log"))
-        os.replace(tmp_lib, lib)
-    return lib
+    """Compile the kernel for one (query, config) and return the .so path
+    (cached by a hash of the generated source and the flags). `source`
+    names another kernel file (scripts/time_nfa_step.py times variants)."""
+    return compile_source(kernel_source(query, config, source), "nfa_step", target, build_dir)
 
 
 def load_library(path: Path) -> ctypes.CDLL:

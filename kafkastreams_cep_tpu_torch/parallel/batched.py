@@ -29,16 +29,41 @@ graft) and across the JAX Pallas engine's key padding; `resize()`
 re-shapes the capacity in place and builds the kernel for the new shape
 first, so a failed build leaves the engine as it was.
 
+Exact replay (`exact_replay=True`, the default, armed only for a query
+with folds): the step keeps fold registers per lane, the reference per
+run, and the two part when lanes that share a run id both fold in one
+event -- the step counts each such event in `seq_collisions`. At every
+`drain()` each key whose counter moved since the last one replays the
+interval through the host oracle (ops/replay.py, nfa/): the oracle's
+matches replace the engine's for that key and its device state is
+rebuilt from the oracle. The interval starts at the last `drain()` (the
+snapshot `_snap` is a reference to that generation of state and pool:
+no pass writes either in place) and its events are the host copies of
+each advanced batch's gidx/valid columns, at most
+`REPLAY_LEDGER_MAX_BATCHES` batches. With replay off on such a query the
+first collision warns once and sets `cep_fold_divergence_detected`.
+
+Metrics (`self.metrics`, obs/registry.py, the JAX engine's `cep_*`
+names): dispatch, drain, pull and decode walls and the batch, drain,
+slot, match and byte totals through `BatchTimings` (ops/profiling.py);
+GC flushes and phase; the ring, region, lane and chain-depth gauges read
+from the probes the engine pulls anyway; auto-drains, backpressure and
+drops; replays and the two replay gauges. No update on the advance path
+reads the device. `profile_every=N` (or `profile_sync=True`, every
+advance) records CUDA events around the step and the post pass of every
+N-th advance and feeds `cep_advance_compute_seconds{phase}` once they
+complete, without synchronizing (on the CPU: the walls).
+
 `native=False` packs and decodes in Python instead: the reference the
 tests hold the native code to. With `native=True` a schema whose fields
 are not all int32/float32 packs in Python too (the packer writes only
 4-byte columns); `pack_route` says which route the last pack took.
 
-Left for later slices (see ROADMAP.md): the capacity autosizer, exact
-replay, Arrow sinks, provenance sampling, the engine's other metrics,
-the decode worker thread and the mesh. The JAX engine's options for them
-are not parameters here, so passing one raises TypeError
-(`sink_format="arrow"` raises ValueError).
+Left for later slices (see ROADMAP.md): the capacity autosizer, Arrow
+sinks, provenance sampling, the decode worker thread, compile telemetry
+and the mesh. The JAX engine's options for them are not parameters here,
+so passing one raises TypeError (`sink_format="arrow"` raises
+ValueError).
 
 The device is explicit: `device=None` means "cuda", and a missing card
 raises instead of running on the CPU. `engine="cuda"` (the default on the
@@ -48,6 +73,7 @@ which is also what CPU tensors get.
 from __future__ import annotations
 
 import time
+import warnings
 from collections import deque
 from typing import Any, Dict, List, Mapping, Optional, Sequence as Seq, Tuple
 
@@ -56,7 +82,7 @@ import torch
 
 from ..core.event import Event
 from ..core.sequence import Sequence, Staged
-from ..obs.registry import MetricsRegistry
+from ..obs.registry import MetricsRegistry, next_instance_id
 from ..ops.engine import (
     DROP_COUNTER_KEYS,
     STATE_COUNTER_KEYS,
@@ -71,6 +97,8 @@ from ..ops.engine import (
     eval_stateless_preds,
     window_planes,
 )
+from ..ops.profiling import BatchTimings
+from ..ops.replay import device_to_oracle, oracle_to_device, supports_replay
 from ..ops.runtime import materialize_sequence, rebase_watermarks
 from ..ops.schema import EventSchema
 from ..ops.tables import CompiledQuery, compile_query
@@ -107,6 +135,10 @@ def resolve_device(device: Any = None) -> torch.device:
 class BatchedDeviceNFA:
     """K independent per-key NFAs advanced as one [T, K] program."""
 
+    #: Exact-replay ledger bound: batches per drain interval. Past it the
+    #: interval degrades to collision detection only.
+    REPLAY_LEDGER_MAX_BATCHES = 256
+
     def __init__(
         self,
         stages_or_query: Any,
@@ -119,6 +151,9 @@ class BatchedDeviceNFA:
         native: bool = True,
         sink_format: str = "objects",
         auto_drain: bool = True,
+        exact_replay: bool = True,
+        profile_sync: bool = False,
+        profile_every: Optional[int] = None,
         registry: Optional[MetricsRegistry] = None,
     ) -> None:
         if sink_format == "arrow":
@@ -191,31 +226,122 @@ class BatchedDeviceNFA:
         #: when a probe next observes a real match.
         self._region_backoff = False
         #: Decoded matches of engine-initiated drains (auto-drain,
-        #: backpressure), FIFO, handed out ahead of the next `drain()`'s.
-        self._auto_out: List[Dict[Any, List[Any]]] = []
+        #: backpressure) with their pull/decode walls and bytes, FIFO,
+        #: handed out ahead of the next `drain()`'s.
+        self._auto_out: List[Tuple[Dict[Any, List[Any]], Dict[str, float]]] = []
         #: Drop-counter totals already reported: the overflow policy acts
         #: on deltas (a restored engine carries historic totals).
         self._drop_base: Dict[str, int] = {k: 0 for k in DROP_COUNTER_KEYS}
-        #: The engine's counters, under the JAX engine's names. Private
+        #: Group flushes so far (mark/sweep passes).
+        self.flushes = 0
+        #: Exact replay (module doc): armed only when the query folds.
+        self.exact_replay = bool(exact_replay) and supports_replay(self.query)
+        self.replays = 0
+        self._warned_collisions = False
+        #: The interval's starting generation (state, pool), by reference;
+        #: None while replay is off, so no dead generation stays alive.
+        self._snap: Optional[Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]] = (
+            (self.state, self.pool) if self.exact_replay else None)
+        #: The interval's event ledger: (gidx [T, K], valid [T, K]) of each
+        #: advanced batch, host arrays from `pack_host` (or the device
+        #: columns of externally packed xs, read at the drain).
+        self._interval_packs: List[Tuple[Any, Any]] = []
+        self._interval_overflow = False
+        #: Host (gidx, valid) of packed batches not yet advanced, FIFO.
+        self._pack_meta: deque = deque()
+        #: seq_collisions per key at the interval's start.
+        self._collision_base = np.zeros(self.K, np.int64)
+        if profile_every is not None and int(profile_every) < 1:
+            raise ValueError(f"profile_every must be >= 1, got {profile_every}")
+        #: Sampled compute timing: every advance with profile_sync, every
+        #: profile_every-th otherwise (None: never).
+        self.profile_every = 1 if profile_sync else (
+            None if profile_every is None else int(profile_every))
+        #: (start, after step, after post) events of sampled advances on
+        #: the card, read once they complete.
+        self._profiles: deque = deque()
+        #: The engine's metrics, under the JAX engine's names. Private
         #: unless the caller passes `registry=` to aggregate.
         self.metrics = registry if registry is not None else MetricsRegistry()
-        self._m_auto_drains = self.metrics.counter(
+        self.timings = BatchTimings(registry=self.metrics)
+        self._init_metrics()
+
+    def _init_metrics(self) -> None:
+        """Register the engine's instruments on `self.metrics`. Gauges of
+        one engine carry its `instance` label (two engines on one registry
+        never share a series); counters are unlabelled totals."""
+        r = self.metrics
+        self.instance_id = next_instance_id()
+        inst = self.instance_id
+        r.gauge(
+            "cep_engine_info",
+            "Engine identity (value 1; labels carry the resolved config)",
+            labels=("instance", "engine", "drain_mode"),
+        ).labels(instance=inst, engine=self.engine, drain_mode="flat").set(1)
+
+        def gauge(name: str, doc: str):
+            return r.gauge(name, doc, labels=("instance",)).labels(instance=inst)
+
+        self._m_gc_phase = gauge("cep_gc_phase", "Advances accumulated since the last group flush")
+        self._m_flushes = r.counter("cep_gc_flushes_total", "GC group flushes (mark/sweep passes)")
+        self._m_auto_drains = r.counter(
             "cep_auto_drains_total",
             "Engine-initiated ring pulls by trigger "
             "(ring_full | region_pressure | micro_drain)",
             labels=("trigger",),
         )
-        self._m_backpressure = self.metrics.counter(
+        self._m_pend_occupancy = gauge(
+            "cep_pend_occupancy", "Freshest probed max ring cursor (true pending-match count)")
+        self._m_region_fill = gauge("cep_region_fill", "Freshest probed max node-region fill")
+        self._m_lane_occupancy = gauge(
+            "cep_lane_occupancy",
+            "Freshest probed max live-run count per key (the capacity "
+            "autosizer's lane-cap signal; rides the async ring probe)",
+        )
+        self._m_resizes = r.counter(
+            "cep_engine_resizes_total",
+            "In-place capacity re-shapes (graft restores at a new "
+            "lane/node/match extent; each one builds the step for it)",
+        )
+        self._m_pending = gauge("cep_pending_matches", "Pending matches at the last drain probe")
+        self._m_chain_depth = gauge(
+            "cep_chain_depth_max", "Max chain depth at the last flat drain probe")
+        self._m_ledger_overflow = gauge(
+            "cep_replay_ledger_overflow",
+            "1 while the exact-replay event ledger overflowed this interval",
+        )
+        self._m_divergence = gauge(
+            "cep_fold_divergence_detected",
+            "1 once fold divergence was detected with replay unavailable "
+            "(persists after the one-shot warning)",
+        )
+        self._m_replays = r.counter(
+            "cep_replays_total", "Per-key oracle replays at drain boundaries")
+        self._m_state = r.gauge(
+            "cep_engine_state_counter",
+            "Engine state counter totals from the last stats pull "
+            "(updated on the explicit stats sync, never on the advance path)",
+            labels=("instance", "counter"),
+        )
+        self._m_backpressure = r.counter(
             "cep_overflow_backpressure_total",
             "Blocked admissions under on_overflow='block' (forced early "
             "drain + group flush before the advance)",
         )
-        self._m_dropped = self.metrics.counter(
+        self._m_dropped = r.counter(
             "cep_overflow_dropped_total",
             "Engine drop-counter deltas observed at drain boundaries "
             "(silent capacity loss made loud; see EngineConfig.on_overflow)",
             labels=("counter",),
         )
+        compute = r.histogram(
+            "cep_advance_compute_seconds",
+            "Compute wall of sampled advances by phase "
+            "(profile_sync or every profile_every-th advance)",
+            labels=("instance", "phase"),
+        )
+        self._m_compute_advance = compute.labels(instance=inst, phase="advance")
+        self._m_compute_post = compute.labels(instance=inst, phase="post")
 
     # ------------------------------------------------------------------ API
     def add_keys(self, new_keys: Seq[Any]) -> None:
@@ -234,15 +360,28 @@ class BatchedDeviceNFA:
         fresh_pool = init_batched_pool(self.query, self.config, n, self.device)
         self.state = {k: torch.cat([v, fresh_state[k]], dim=-1) for k, v in self.state.items()}
         self.pool = {k: torch.cat([v, fresh_pool[k]], dim=-1) for k, v in self.pool.items()}
+        if self.exact_replay:
+            # The new keys' interval starts at their init state.
+            snap_s, snap_p = self._snap
+            self._snap = (
+                {k: torch.cat([v, fresh_state[k]], dim=-1) for k, v in snap_s.items()},
+                {k: torch.cat([v, fresh_pool[k]], dim=-1) for k, v in snap_p.items()},
+            )
+            self._collision_base = np.concatenate(
+                [self._collision_base, np.zeros(n, np.int64)])
         self.keys.extend(new_keys)
         self.K = len(self.keys)
         self.key_index = {k: i for i, k in enumerate(self.keys)}
 
     @property
     def stats(self) -> Dict[str, int]:
-        """Cross-key counter totals (one reduction + one host copy)."""
+        """Cross-key counter totals (one reduction + one host copy); the
+        `cep_engine_state_counter` gauges ride this explicit pull."""
         pulled = {k: int(v) for k, v in global_stats(self.state).items()}
-        return {k: pulled[k] for k in STATE_COUNTER_KEYS}
+        out = {k: pulled[k] for k in STATE_COUNTER_KEYS}
+        for k, v in out.items():
+            self._m_state.labels(instance=self.instance_id, counter=k).set(v)
+        return out
 
     def runs(self, key: Any) -> int:
         return int(self.state["runs"][self.key_index[key]])
@@ -332,6 +471,10 @@ class BatchedDeviceNFA:
         cols["gidx"] = gidx
         cols["valid"] = valid
         self._pack_hwms.append(self._next_gidx - 1)
+        if self.exact_replay:
+            # The batch's event ledger, taken into the replay interval when
+            # the batch is advanced (FIFO, in advance order).
+            self._pack_meta.append((gidx, valid))
         return cols
 
     def upload(self, cols: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
@@ -459,34 +602,72 @@ class BatchedDeviceNFA:
                 self._pend_accum = 0
         if self._pack_hwms:
             self._processed_gidx = max(self._processed_gidx, self._pack_hwms.popleft())
+        if self.exact_replay:
+            self._ledger_append(xs)
+        self._read_profiles()
+        sampled = self.profile_every is not None and self._batches % self.profile_every == 0
+        t0 = time.perf_counter()
+        marks = [self._profile_mark()] if sampled else None
         self.state, ys = self._advance(self.state, xs)
+        t_adv = time.perf_counter()
+        if sampled:
+            marks.append(self._profile_mark())
         self.state, self.pool, page_roots = self._append(self.state, self.pool, ys)
         self._group_ys.append({k: ys[k] for k in ("w_event", "w_name", "w_pred")})
         self._group_roots.append(page_roots)
         if len(self._group_ys) >= self.gc_group:
             self._flush_group()
+        self._m_gc_phase.set(len(self._group_ys))
+        if sampled:
+            marks.append(self._profile_mark())
+            self._profiles.append(marks)
+            self._read_profiles()
         self._batches += 1
         self._pend_accum += step_cap
         if self.auto_drain and step_cap <= self.config.matches:
             self._dispatch_pos_probe()
+        # Slots from the shape: counting valid events would read the device.
+        self.timings.record_advance(
+            t_adv - t0, int(np.prod(tuple(xs["valid"].shape))),
+            post_s=time.perf_counter() - t_adv,
+        )
         return self.drain() if decode else {}
 
     def drain(self) -> Dict[Any, List[Any]]:
         """Decode and clear all pending matches (a host sync point):
         `Sequence`s, or `SinkMatch`es with sink_format="json". Matches of
         earlier engine-initiated drains come first in every key's list.
+        With exact replay armed, the keys whose folds diverged in the
+        interval get the oracle's matches instead (`_replay_boundary`).
         Ends with the overflow-policy check (`_check_drop_counters`)."""
+        t0 = time.perf_counter()
         out: Dict[Any, List[Any]] = {}
         pending, self._auto_out = self._auto_out, []
         self._pend_accum = 0
-        raw = self._pull_raw_flat(self._window_pool_view())
+        raw = self._pull_raw()
         if raw is not None:
-            pending.append(self._decode_flat(raw))
-        for decoded in pending:
+            pending.append(self._decode_raw(raw))
+        pull_s = decode_s = 0.0
+        n_bytes = 0
+        for decoded, meta in pending:
             for k, v in decoded.items():
                 out.setdefault(k, []).extend(v)
+            pull_s += meta["pull_s"]
+            decode_s += meta["decode_s"]
+            n_bytes += meta["bytes"]
+        if self.exact_replay:
+            out = self._replay_boundary(out)
+        elif self.query.agg_slots and not self._warned_collisions:
+            self._detect_divergence()
+        # The prune runs after the replay: the oracle reads the interval's
+        # events from the registry.
         if not self._group_ys:
             self._prune_events()
+        self._read_profiles()
+        self.timings.record_drain(
+            time.perf_counter() - t0, sum(len(v) for v in out.values()),
+            pull_s=pull_s, decode_s=decode_s, bytes_pulled=n_bytes,
+        )
         self._check_drop_counters(drained=out)
         return out
 
@@ -592,6 +773,10 @@ class BatchedDeviceNFA:
         # policy acts on deltas, not on historic totals).
         bat._pend_accum = int(bat.pool["pend_pos"].max())
         bat._drop_base = {k: int(bat.state[k].sum()) for k in DROP_COUNTER_KEYS}
+        if bat.exact_replay:
+            # The next interval starts at the restored generation.
+            bat._snap = (bat.state, bat.pool)
+            bat._collision_base = bat.state["seq_collisions"].cpu().numpy().astype(np.int64)
         return bat
 
     def resize(self, config: EngineConfig) -> bool:
@@ -608,23 +793,40 @@ class BatchedDeviceNFA:
             self.config = config
             return False
         self._flush_group()
-        state_np, pool_np = ({k: v.cpu().numpy() for k, v in tree.items()}
-                             for tree in (self.state, self.pool))
+
+        def to_host(tree):
+            return {k: v.cpu().numpy() for k, v in tree.items()}
+
+        state_np, pool_np = to_host(self.state), to_host(self.pool)
         serde.check_restore_capacity(
             state_np, pool_np, lanes=config.lanes, nodes=config.nodes,
             matches=config.matches, where="resize",
         )
+        snap_np = None
+        if self._snap is not None:
+            # The interval replays from this generation: it must fit too.
+            snap_np = (to_host(self._snap[0]), to_host(self._snap[1]))
+            serde.check_restore_capacity(
+                snap_np[0], snap_np[1], lanes=config.lanes, nodes=config.nodes,
+                matches=config.matches, where="resize (replay snapshot)",
+            )
         advance = build_batched_advance(self.query, config, self.engine)
         if self.engine == "cuda" and self.device.type == "cuda":
             advance.library()  # the nvcc build: raises before anything changes
-        tgt_s = {k: v.numpy().copy() for k, v in
-                 init_batched_state(self.query, config, self.K).items()}
-        tgt_p = {k: v.numpy().copy() for k, v in
-                 init_batched_pool(self.query, config, self.K).items()}
-        serde.graft_array_tree(state_np, tgt_s)
-        serde.graft_array_tree(pool_np, tgt_p)
-        self.state = {k: torch.from_numpy(v).to(self.device) for k, v in tgt_s.items()}
-        self.pool = {k: torch.from_numpy(v).to(self.device) for k, v in tgt_p.items()}
+
+        def graft(src_state, src_pool):
+            tgt_s = {k: v.numpy().copy() for k, v in
+                     init_batched_state(self.query, config, self.K).items()}
+            tgt_p = {k: v.numpy().copy() for k, v in
+                     init_batched_pool(self.query, config, self.K).items()}
+            serde.graft_array_tree(src_state, tgt_s)
+            serde.graft_array_tree(src_pool, tgt_p)
+            return ({k: torch.from_numpy(v).to(self.device) for k, v in tgt_s.items()},
+                    {k: torch.from_numpy(v).to(self.device) for k, v in tgt_p.items()})
+
+        self.state, self.pool = graft(state_np, pool_np)
+        if snap_np is not None:
+            self._snap = graft(*snap_np)
         self.config = config
         self._advance = advance
         self._append = build_append_post(config)
@@ -635,6 +837,7 @@ class BatchedDeviceNFA:
         self._pos_obs = None
         self.lane_obs = None
         self.resizes += 1
+        self._m_resizes.inc()
         return True
 
     # ------------------------------------------------------------ internals
@@ -688,11 +891,221 @@ class BatchedDeviceNFA:
         """An engine-initiated drain: pull the ring and queue its decoded
         matches for the next `drain()`. Returns whether anything was
         pending."""
-        raw = self._pull_raw_flat(self._window_pool_view())
+        raw = self._pull_raw()
         if raw is None:
             return False
-        self._auto_out.append(self._decode_flat(raw))
+        self._auto_out.append(self._decode_raw(raw))
         return True
+
+    def _pull_raw(self) -> Optional[Dict[str, Any]]:
+        """Pull and clear the ring. Mid-group the flat drain reads the
+        region ++ window view, so a drain keeps the GC cadence; with exact
+        replay armed it flushes the group first instead, so the interval's
+        snapshot (taken at a drain) resolves every node id against its own
+        pool."""
+        if self.exact_replay:
+            self._flush_group()
+            return self._pull_raw_flat(self.pool)
+        return self._pull_raw_flat(self._window_pool_view())
+
+    def _decode_raw(self, raw: Dict[str, Any]) -> Tuple[Dict[Any, List[Any]], Dict[str, float]]:
+        """Decode a pulled table; returns the matches and the pull's and
+        decode's walls and bytes."""
+        t0 = time.perf_counter()
+        decoded = self._decode_flat(raw)
+        return decoded, {"pull_s": raw["pull_s"], "decode_s": time.perf_counter() - t0,
+                         "bytes": raw["bytes"]}
+
+    # ------------------------------------------------------------ exact replay
+    def _ledger_append(self, xs: Dict[str, torch.Tensor]) -> None:
+        """Take the advancing batch's event ledger into the interval: the
+        host copies `pack_host` made, or, for externally packed xs, the
+        device columns themselves (read at the drain, so the advance does
+        not synchronize). Past `REPLAY_LEDGER_MAX_BATCHES` the interval
+        degrades to detection: one warning, the overflow gauge, and under
+        on_overflow="raise" a `CEPOverflowError`."""
+        entry = self._pack_meta.popleft() if self._pack_meta else (xs["gidx"], xs["valid"])
+        if len(self._interval_packs) < self.REPLAY_LEDGER_MAX_BATCHES:
+            self._interval_packs.append(entry)
+            return
+        if not self._interval_overflow:
+            warnings.warn(
+                "exact-replay event ledger exceeded "
+                f"{self.REPLAY_LEDGER_MAX_BATCHES} batches without a drain; "
+                "this interval degrades to collision detection only -- "
+                "drain() more often to keep replay armed",
+                RuntimeWarning,
+            )
+        self._interval_overflow = True
+        self._m_ledger_overflow.set(1)
+        self._interval_packs = []
+        if self.config.on_overflow == "raise":
+            raise CEPOverflowError(
+                "exact-replay event ledger overflowed "
+                f"({self.REPLAY_LEDGER_MAX_BATCHES} batches without a drain); "
+                "drain() more often or raise the bound"
+            )
+
+    def _replay_boundary(self, out: Dict[Any, List[Any]]) -> Dict[Any, List[Any]]:
+        """At a drain: each key whose seq_collisions moved since the
+        interval's start replays the interval through the host oracle,
+        built from the interval's snapshot; the oracle's matches replace
+        the key's drained ones and its device state is rebuilt from the
+        oracle. Then the next interval starts here."""
+        cur = self.state["seq_collisions"].cpu().numpy().astype(np.int64)
+        hot = np.flatnonzero(cur > self._collision_base[: cur.shape[0]])
+        if hot.size:
+            self._m_divergence.set(1)
+        if hot.size and self._interval_overflow:
+            warnings.warn(
+                "fold-divergence detected but the replay ledger overflowed "
+                "this interval; affected keys' matches are engine-computed "
+                "(not oracle-replayed) for this interval only",
+                RuntimeWarning,
+            )
+        if hot.size and self._interval_packs and not self._interval_overflow:
+            self._replay_keys(hot, out)
+        self._collision_base = cur
+        self._snap = (self.state, self.pool)
+        self._interval_packs = []
+        self._interval_overflow = False
+        self._m_ledger_overflow.set(0)
+        return out
+
+    def _replay_keys(self, hot: np.ndarray, out: Dict[Any, List[Any]]) -> None:
+        """Replay the interval of the keys `hot` (a drain-time host step:
+        one gather and one copy per leaf for all of them)."""
+        idx = torch.as_tensor(hot, dtype=torch.long, device=self.device)
+
+        def columns(tree, names):
+            return {n: tree[n].index_select(-1, idx).cpu().numpy() for n in names}
+
+        snap_state, snap_pool = self._snap
+        s_np = columns(snap_state, snap_state.keys())
+        p_np = columns(snap_pool, ("node_event", "node_name", "node_pred", "node_count"))
+        c_np = columns(self.state, STATE_COUNTER_KEYS)
+        packs = [tuple(a.cpu().numpy() if isinstance(a, torch.Tensor) else a for a in e)
+                 for e in self._interval_packs]
+        ts_base = self._ts_base if self._ts_base is not None else 0
+        writes: Dict[int, Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]] = {}
+        for j, k in enumerate(hot.tolist()):
+            key = self.keys[k]
+            # Batches packed before the key was added have no column for it.
+            interval = [g for g_arr, v_arr in packs if k < g_arr.shape[1]
+                        for g in g_arr[v_arr[:, k], k].tolist()]
+            try:
+                # The oracle keeps fold cells under the events' record key,
+                # which is not the engine's key when that is a lane handle
+                # (streams/device_processor.py).
+                rec_key = self._events[interval[0]].key if interval else key
+                oracle, ev_gidx = device_to_oracle(
+                    self.query, self.config, {n: v[..., j] for n, v in s_np.items()},
+                    {n: v[..., j] for n, v in p_np.items()}, self._events, ts_base,
+                    rec_key,
+                )
+                matches: List[Any] = []
+                for g in interval:
+                    e = self._events[g]
+                    ev_gidx[e] = g
+                    matches.extend(oracle.match_pattern(e))
+            except KeyError as exc:
+                warnings.warn(
+                    f"exact-replay skipped for key {key!r}: event {exc} missing "
+                    "from the registry (snapshot or oracle feed); this interval's "
+                    "matches are engine-computed and fold values may diverge from "
+                    "the oracle for it"
+                )
+                continue
+            self.replays += 1
+            self._m_replays.inc()
+            if matches and self.sink_format == "json":
+                matches = [sink_match_from_sequence(m, "json") for m in matches]
+            if matches:
+                out[key] = matches
+            else:
+                out.pop(key, None)
+            try:
+                writes[k] = oracle_to_device(
+                    self.query, self.config, oracle, rec_key, ev_gidx, ts_base,
+                    {n: v[..., j] for n, v in c_np.items()},
+                )
+            except (ValueError, KeyError) as exc:
+                warnings.warn(
+                    f"exact-replay resync failed for key {key!r} ({exc}); device "
+                    "state kept -- this interval is oracle-exact but later ones "
+                    "fall back to detection"
+                )
+        if writes:
+            self._write_key_state(writes)
+
+    def _write_key_state(
+        self, writes: Dict[int, Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]]
+    ) -> None:
+        """Write resynced keys' columns ({key index: (state, pool)}, numpy
+        per key) into new state and pool tensors, one `index_copy` per
+        leaf: the old tensors, which the interval snapshot may hold, are
+        never written."""
+        ks = sorted(writes)
+        idx = torch.as_tensor(ks, dtype=torch.long, device=self.device)
+        for which, attr in enumerate(("state", "pool")):
+            tree = dict(getattr(self, attr))
+            for name, leaf in tree.items():
+                cols = np.stack([np.asarray(writes[k][which][name]) for k in ks], axis=-1)
+                src = torch.as_tensor(cols).to(dtype=leaf.dtype, device=leaf.device)
+                tree[name] = leaf.index_copy(leaf.dim() - 1, idx, src)
+            setattr(self, attr, tree)
+
+    def _detect_divergence(self) -> None:
+        """Replay off on a folding query: the first drain that sees a
+        collision warns once and sets the persistent gauge; under
+        on_overflow="raise" it raises."""
+        if int(self.state["seq_collisions"].sum()) == 0:
+            return
+        self._warned_collisions = True
+        self._m_divergence.set(1)
+        if supports_replay(self.query):
+            remedy = "Re-enable exact_replay (default) to recover exactness."
+        else:
+            remedy = ("This engine cannot replay (no host-stage oracle for this "
+                      "compiled query); run the affected query on its own engine "
+                      "for oracle-exact folds.")
+        warnings.warn(
+            "seq_collisions > 0 with exact replay unavailable: fold registers "
+            "have diverged from the reference's per-run semantics for at least "
+            "one key; matches may differ from the host oracle. " + remedy,
+            RuntimeWarning,
+        )
+        if self.config.on_overflow == "raise":
+            raise CEPOverflowError(
+                "fold divergence detected with exact replay unavailable; "
+                "matches may differ from the oracle. " + remedy
+            )
+
+    # ------------------------------------------------------------- profiling
+    def _profile_mark(self) -> Any:
+        """A timing mark of a sampled advance: a CUDA event recorded on
+        the current stream on the card, the wall clock on the CPU (where
+        the passes run synchronously)."""
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+        return time.perf_counter()
+
+    def _read_profiles(self) -> None:
+        """Feed `cep_advance_compute_seconds` from the sampled advances
+        whose last event has completed (an event query, never a wait)."""
+        while self._profiles:
+            start, mid, end = self._profiles[0]
+            if isinstance(end, float):
+                adv, post = mid - start, end - mid
+            elif end.query():
+                adv, post = start.elapsed_time(mid) / 1e3, mid.elapsed_time(end) / 1e3
+            else:
+                return
+            self._profiles.popleft()
+            self._m_compute_advance.observe(adv)
+            self._m_compute_post.observe(post)
 
     def _dispatch_pos_probe(self) -> None:
         """Start an asynchronous copy of [max ring cursor, max region fill,
@@ -729,6 +1142,9 @@ class BatchedDeviceNFA:
                 pos, fill, lanes = host.tolist()
                 self._pos_obs = (acc, pos, fill)
                 self.lane_obs = lanes
+                self._m_pend_occupancy.set(pos)
+                self._m_region_fill.set(fill)
+                self._m_lane_occupancy.set(lanes)
                 if pos > 0:
                     self._region_backoff = False  # a real match re-arms it
         if self._pos_obs is not None:
@@ -755,6 +1171,9 @@ class BatchedDeviceNFA:
         self._group_ys = []
         self._group_roots = []
         self.state, self.pool = self._flush(self.state, self.pool, ys_cat, roots_cat)
+        self.flushes += 1
+        self._m_flushes.inc()
+        self._m_gc_phase.set(0)
 
     def _window_pool_view(self) -> Dict[str, torch.Tensor]:
         """Mid-group drain view: node planes with the group's window
@@ -782,9 +1201,14 @@ class BatchedDeviceNFA:
     def _pull_raw_flat(self, pool_view) -> Optional[Dict[str, Any]]:
         """One [3, K] probe (counts, cursors, chain-depth bound), then the
         chain-flatten table sized to pow2 buckets of the probed maxima,
-        copied to the host once. Clears the ring."""
+        copied to the host once. Clears the ring. The pending, ring and
+        chain-depth gauges ride the probe."""
+        t0 = time.perf_counter()
         probe = drain_probe(pool_view).cpu().numpy()
         counts = probe[0]
+        self._m_pending.set(int(counts.sum()))
+        self._m_pend_occupancy.set(int(probe[1].max()))
+        self._m_chain_depth.set(int(probe[2].max()))
         if counts.sum() == 0:
             if int(probe[1].max()) > 0:
                 self.pool = drain_pend(self.pool)
@@ -801,7 +1225,8 @@ class BatchedDeviceNFA:
         table = build_chain_flatten(Mb, Cb)(pool_view).cpu().numpy()
         self.pool = drain_pend(self.pool)
         self._ring_cleared()
-        return {"counts": counts, "table": table}
+        return {"counts": counts, "table": table, "pull_s": time.perf_counter() - t0,
+                "bytes": int(probe.nbytes + table.nbytes)}
 
     def _decode_flat(self, raw: Dict[str, Any]) -> Dict[Any, List[Any]]:
         """Decode the flat [3, Mb, Cb, K] table into per-key `Sequence`s

@@ -6,9 +6,17 @@ options this port slice leaves out turned off: `auto_drain=False`,
 `exact_replay=False`, `provenance_sample=0`, `drain_mode="flat"`,
 `sink_format="objects"` (and `compile_telemetry=False`). The port side is
 `BatchedDeviceNFA(device="cpu")`, whose wrapper runs the plain PyTorch
-step on CPU tensors.
+step on CPU tensors. Exact replay is off on both sides: these cases are
+fold-free (letters, skip2, repeat) or collision-free on their streams
+(stock; every test asserts that seq_collisions stays 0), so replay would
+change no match, and with replay off both engines drain a GC group
+mid-group through the same window view (armed, the port flushes the
+group before a drain). tests/test_torch_replay.py holds the port with
+replay armed to the JAX engine at its defaults.
 
-Per conformance case (K=8 keys, T=10 events, 3 batches, stream seed 5),
+Per conformance case (K=8 keys, T=10 events, 3 batches, stream seed 5;
+the `repeat` case proceeds from a looping stage straight into a stage of
+the same name),
 and for skip2 again at the flagship deployment's post-pass settings
 (`pin_interval=True`, so the GC pins the id interval from pend_min
 instead of walking from the match pages; matches >= T x matches_per_step,
@@ -158,8 +166,9 @@ def test_engine_matches_jax_xla_and_carries_state(case):
     # every drain (the JAX engine never does here): the decoded matches
     # must not change.
     bp = P.BatchedDeviceNFA(qp, keys=KEYS, device="cpu", config=P.EngineConfig(**cfg),
-                            events_prune_threshold=16)
-    carried = P.BatchedDeviceNFA(qp, keys=KEYS, device="cpu", config=P.EngineConfig(**cfg))
+                            events_prune_threshold=16, exact_replay=False)
+    carried = P.BatchedDeviceNFA(qp, keys=KEYS, device="cpu", config=P.EngineConfig(**cfg),
+                                 exact_replay=False)
     n_matches = 0
     for b in range(N_BATCHES):
         jx = _advance_and_drain(b, f"{case} G=1", bx, bp,
@@ -177,6 +186,7 @@ def test_engine_matches_jax_xla_and_carries_state(case):
             jc = _matches_json(carried.advance(_batch(sp, b)), P.sequence_to_json)
             _assert_equal_after(b, f"{case} carried", bx, carried, jx, jc)
     assert n_matches > 0, "the case produced no matches"
+    assert int(bp.state["seq_collisions"].sum()) == 0
 
 
 @pytest.mark.parametrize("case", sorted(VARIANTS))
@@ -188,7 +198,7 @@ def test_engine_and_plain_step_match_jax_with_groups_and_watermarks(case):
     qj, qp, sj, sp, cfg = _setup(case)
     bx = _jax_engine(qj, cfg, G4)
     bp = P.BatchedDeviceNFA(qp, keys=KEYS, device="cpu",
-                            config=P.EngineConfig(**cfg, gc_group=G4))
+                            config=P.EngineConfig(**cfg, gc_group=G4), exact_replay=False)
     plain = build_plain_step(qp, bp.config)
     phases = []
     for b in range(N_BATCHES_G4):
@@ -204,6 +214,7 @@ def test_engine_and_plain_step_match_jax_with_groups_and_watermarks(case):
         _advance_and_drain(b, f"{case} G=4", bx, bp, xs_j, xs_p)
     phases.append(int(np.asarray(bx.state["gc_phase"])[0]))
     assert phases == [0, T, 2 * T, 3 * T, 0], f"gc_phase before each batch and at the end: {phases}"
+    assert int(bp.state["seq_collisions"].sum()) == 0
 
 
 def test_plain_step_matches_jax_past_one_chunk():

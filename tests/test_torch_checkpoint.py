@@ -29,7 +29,11 @@
 The JAX side runs `engine="xla"` (and `pallas_interpret` for the padding)
 with `exact_replay=False` and `provenance_sample=0`, and with
 `auto_drain=False` wherever the test compares state: a drain's timing
-moves what the GC keeps.
+moves what the GC keeps. Replay off changes nothing here: the letters
+case has no folds and the stock case's streams never fold-collide
+(`seq_collisions` is part of the compared state), so the port's replay,
+armed by default on stock, never fires; tests/test_torch_replay.py holds
+replay itself to the JAX engine at its defaults.
 """
 import gc
 import pickle

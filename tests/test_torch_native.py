@@ -19,6 +19,9 @@ the card does:
     frames hash to the JAX `sequence_identity`;
   * a native build pointed at a missing compiler raises, and the engine
     raises rather than packing in Python when the native build fails.
+
+The JAX engine here only packs (its `exact_replay=False` arms nothing:
+`pack()` runs no step and no drain).
 """
 import hashlib
 import random

@@ -19,7 +19,12 @@
 Under auto_drain the test holds match streams and counters, not state: a
 drain moves pend_min and so what the GC keeps, and when a drain happens
 depends on when an asynchronous probe lands. The JAX side runs
-`engine="xla"` with `exact_replay=False` and `provenance_sample=0`.
+`engine="xla"` with `exact_replay=False` and `provenance_sample=0`. Replay
+off changes nothing here: the letters cases have no folds, and the
+random fold patterns' streams never fold-collide (the compared counters
+include `seq_collisions`), so the port's replay, on by default, never
+fires; tests/test_torch_replay.py holds replay to the JAX engine at its
+defaults.
 """
 import random
 

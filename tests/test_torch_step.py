@@ -7,8 +7,10 @@ CPU this file compiles the same source with g++ under csrc/cpu_emu.h
 warp for its shuffles, ballots and __syncwarp) and holds its outputs
 bitwise to the plain step, on every leaf:
 
-  * the three conformance cases, along a gc_group=4 run with a watermark
-    column (so the kernel sees nonzero gc_phase and the wm clock);
+  * the conformance cases of models/cases.py (`repeat` proceeds from a
+    looping stage straight into a stage of the same name), along a
+    gc_group=4 run with a watermark column (so the kernel sees nonzero
+    gc_phase and the wm clock);
   * the cases of models/chunked.py, which reach the kernel's multi-chunk
     path (a key with more than 32 live lanes, walked 32 at a time with
     running rank bases): the flagship skip_any8 deployment at lanes=96,
@@ -51,11 +53,13 @@ def _query_config(case):
 
 def _trajectory(case, device="cpu"):
     """(query, config, [(state, xs)]) along a plain-step run with
-    gc_group=4 and a per-event watermark column (some ahead of ts)."""
+    gc_group=4 and a per-event watermark column (some ahead of ts). Exact
+    replay is off, so the drains leave the GC group open (armed, a drain
+    flushes the group first) and the kernel sees a nonzero gc_phase."""
     stream = CASES[case][2]
     query, config = _query_config(case)
     eng = P.BatchedDeviceNFA(query, keys=KEYS, config=config, device=device,
-                             engine="torch")
+                             engine="torch", exact_replay=False)
     rng = random.Random(5)
     streams = {k: stream(rng, T * N_BATCHES) for k in KEYS}
     pairs = []

@@ -4,8 +4,9 @@
 Everything runs on the CPU: the port side with `device="cpu"` (the plain
 step behind the same driver, native pack and decode, processor, emission
 gate and sink), the JAX side with `engine="xla"` and the options the port
-leaves out turned off (`auto_drain=False`, `exact_replay=False`,
-`provenance_sample=0`, `drain_mode="flat"`), both with one small
+leaves out turned off (`auto_drain=False`, `provenance_sample=0`,
+`drain_mode="flat"`) and `exact_replay=False` (the letters query has no
+folds, so replay arms on neither side), both with one small
 EngineConfig so the JAX side compiles once per key extent:
   * the stock demo golden out of `runtime="cuda"`, batch_size 3 and 100
     (tests/test_stock_demo.py's device cases);
@@ -146,7 +147,7 @@ def _opt_id(case):
     ({"runtime": "host"}, ValueError), ({"runtime": "tpu"}, ValueError),
     ({"sink_format": "arrow"}, ValueError),
     ({"provenance_sample": 0.5}, TypeError),
-    ({"exact_replay": True}, TypeError), ({"drain_mode": "pool"}, TypeError),
+    ({"target_emit_ms": 5.0}, TypeError), ({"drain_mode": "pool"}, TypeError),
     ({"mesh": object()}, TypeError),
     ({"config": P.EngineConfig(reorder_capacity=4)}, ValueError),
 ], ids=_opt_id)
@@ -160,7 +161,7 @@ def test_unported_options_raise(opt):
 def test_unknown_engine_option_raises():
     with pytest.raises(TypeError):
         P.ComplexStreamsBuilder().stream("letters").query(
-            "q", letters_pattern(), runtime="cuda", device="cpu", profile_every=4)
+            "q", letters_pattern(), runtime="cuda", device="cpu", compile_telemetry=False)
 
 
 def test_sink_keys_carry_the_gate_digest_and_dedupe_replays():
