@@ -5,7 +5,8 @@
 
 Builds the step kernel from csrc/ with nvcc (one build per compiled query
 and capacity, the flagship's grown shape and the fold query of phase 13
-included), the GC mark kernel (csrc/gc_mark.cu, one build) and the native
+included; the event-time phases reuse the flagship's build), the GC mark
+kernel (csrc/gc_mark.cu, one build) and the native
 packer, decoder and CRC-32C from native/ with g++, all started together,
 then:
 
@@ -101,7 +102,35 @@ then:
      oracle (nfa/) run per key; then the same 4 batches pre-packed and
      advanced deferred: 0 host syncs over the 4 advances, and after one
      drain the same matches;
- 14. prints the kernel line, the card line, and last the ok line.
+ 14. event time at the flagship: the same deployment through a gated
+     `runtime="cuda"` topology (reorder_capacity 256, lateness 6 ms; key
+     k_i on partition i, the sources of a `MinMergeWatermark` over
+     per-key `BoundedOutOfOrderness(6)`, all registered first), fed each
+     key's stream shuffled within 6 ms (bench.py's `shuffled_within_bound`,
+     seed 47) and, again, presorted; checks that the matches per key of
+     both equal phase 4's, late 0, reorder overflow 0, drops 0, and
+     `nfa_step` and `gc_mark` launched once per flush (group flush); prints
+     records/s of both against phase 5's ungated objects run, the gate's
+     ms per flush and the watermark lag p50/p99; holds the step kernel
+     bitwise to the plain step on flush 3's batch, which carries the
+     gate's "wm" column, and on the same batch with every clock pushed up
+     to 16 ms ahead (expiry off the watermark), and times both there;
+ 15. LogDriver: the shuffled flagship records and one record that does not
+     deserialize go through `produce()` into a file-backed `RecordLog`,
+     then through a `LogDriver` over a gated `runtime="cuda"` topology
+     (polls of one batch, 131,072 records, each followed by a flush; a
+     commit every 3 polls); checks that every
+     record was polled, the sink equals phase 14's matches, the poison
+     record is in the dead-letter topic and `cep_match_latency_seconds`
+     counted one sample per match; prints records/s through the driver,
+     match latency p50/p99 and ms per commit; then on a copy of the log a
+     driver is dropped after poll 7 (last commit after poll 6) with its
+     topology and engine, and a fresh one restores from the files and
+     finishes: its sink must equal the uninterrupted run's, every match
+     once, in order, the poison record dead-lettered once; prints the
+     time to recover;
+ 16. prints the kernel line (with the `wm` run's numbers under
+     nfa_step), the card line, and last the ok line.
 
 Each phase that drives the main path zeroes the kernels' launch counts
 just before and reads them just after, and fails if a kernel was not
@@ -246,6 +275,7 @@ def main() -> int:
     from kafkastreams_cep_tpu_torch.ops import step_kernel as sk
     from kafkastreams_cep_tpu_torch.ops.engine import DROP_COUNTER_KEYS
     from kafkastreams_cep_tpu_torch.ops.step import build_plain_step
+    from kafkastreams_cep_tpu_torch.streams.emission import decode_sink_key
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -460,8 +490,8 @@ def main() -> int:
         eng._pull_raw_flat = timed("probe+flatten+D2H", eng._pull_raw_flat)
         decode = timed("decode", eng._decode_flat)
 
-        def decode_and_check(raw):
-            out = decode(raw)
+        def decode_and_check(raw, trigger="drain"):
+            out = decode(raw, trigger)
             if check_host:
                 t = time.perf_counter()
                 clock_on, gc_clock.on = gc_clock.on, False
@@ -660,6 +690,7 @@ def main() -> int:
     def check_topology(res, label):
         out, proc = res["out"], res["proc"]
         n_records = n_timed * K * T
+        res["rps"] = n_records / res["timed_s"]
         log(f"topology[{label}]: {n_records / res['timed_s']:.0f} records/s end to end over "
             f"{n_timed} timed flushes of {K * T} records; ms per flush: " + ", ".join(
                 f"{k} {v / n_timed * 1e3:.2f}" for k, v in res["walls"].items())
@@ -693,6 +724,7 @@ def main() -> int:
                if by_key.get(k) != engine_matches.get(k)]
         raise AssertionError(f"topology matches differ from the engine run on {len(bad)} keys")
     topo_launches = topo_obj["launches"]
+    topo_rps = topo_obj["rps"]
     topo_gc_launches = topo_obj["gc_launches"]
     obj_rows = [(r.key, P.sequence_to_json(r.value).encode("utf-8"))
                 for r in topo_obj["out"].records]
@@ -1035,8 +1067,6 @@ def main() -> int:
         sink = [(r.key, r.value) for r in rlog.read("matches")]
         rlog.close()
         del builder, topo, out, rlog
-    from kafkastreams_cep_tpu_torch.streams.emission import decode_sink_key
-
     digests = [decode_sink_key(k)[1] for k, _v in sink]
     if len(set(digests)) != len(digests):
         raise AssertionError("the recovered sink holds a match twice")
@@ -1051,7 +1081,7 @@ def main() -> int:
         f"crash point {(t3 - t2) * 1e3:.1f} ms; time to recover {(t3 - t0) * 1e3:.1f} ms; "
         f"sink == phase 5's: {len(sink)} matches, each once; nfa_step launches "
         f"{crash_launches}")
-    del obj_sink, sink, engine_matches, order
+    del obj_sink, sink, order
 
     # -- 12. the GC mark kernel against the plain walk ------------------------
     def capture_flushes(cfg, at, n):
@@ -1220,7 +1250,343 @@ def main() -> int:
         f"drain, {fd.replays} replays, matches == the drained run's")
     del fd, xs_list
 
-    # -- 14. the kernel line, the card line, the ok line ----------------------
+    # -- 14. event time at the flagship ---------------------------------------
+    from kafkastreams_cep_tpu_torch.obs.registry import MetricsRegistry
+    from kafkastreams_cep_tpu_torch.ops.engine import WM_NONE
+    from kafkastreams_cep_tpu_torch.time import BoundedOutOfOrderness, MinMergeWatermark
+
+    reorder_ms = 6
+    gated_cfg = replace(flag_cfg, reorder_capacity=256, lateness_ms=reorder_ms)
+
+    def shuffled_within_bound(events):
+        """bench.py's bounded shuffle (a fresh Random(47) per stream):
+        each arrival displaced by at most reorder_ms of event time."""
+        sr = random.Random(47)
+        order = sorted(range(len(events)),
+                       key=lambda i: (events[i].timestamp + sr.randint(0, reorder_ms), i))
+        return [events[i] for i in order]
+
+    shuffled = {k: shuffled_within_bound(s) for k, s in streams.items()}
+
+    def metric_total(reg, name):
+        fam = reg.snapshot().get(name)
+        return sum(v["value"] for v in fam["values"]) if fam else 0
+
+    def gated_run(feeds, capture_flush=None):
+        """The flagship through a gated runtime="cuda" topology: key k_i on
+        partition i, one source of a min-merge over per-key
+        BoundedOutOfOrderness(6) (every source registered first); each
+        key's records numbered in arrival order and fed t-major across
+        keys as in phase 5; a flush at every K*T released records and one
+        at the end (flush_event_time). Returns the matches per key, the
+        timed records' seconds (batches 3-10 and the end flush), the gate's
+        seconds in them, the watermark lag once per round of K records and
+        the (state, xs) the step got at flush `capture_flush`."""
+        reg = MetricsRegistry()
+        builder = P.ComplexStreamsBuilder()
+        out = builder.stream("letters").query(
+            "skip_any8", skip_any.skip_any8_pattern(), runtime="cuda", config=gated_cfg,
+            batch_size=K * T, initial_keys=K, registry=reg,
+            watermark_gen=MinMergeWatermark(per_source={
+                ("letters", i): BoundedOutOfOrderness(reorder_ms) for i in range(K)}),
+        )
+        topo = builder.build()
+        proc = out.node.processor
+        gate, offer, gate_s = proc.gate, proc.gate.offer, [0.0]
+
+        def timed_offer(event, source=None):
+            t = time.perf_counter()
+            res = offer(event, source)
+            gate_s[0] += time.perf_counter() - t
+            return res
+
+        gate.offer = timed_offer
+        captured, advance, calls = {}, proc.engine._advance, [0]
+
+        def capture(state, xs):
+            calls[0] += 1
+            if calls[0] == capture_flush:
+                captured["pair"] = (state, xs)
+            return advance(state, xs)
+
+        proc.engine._advance = capture
+        process, lags = topo.process, []
+        torch.cuda.synchronize()
+        sk.NfaStep.launches = gk.GcMark.launches = 0
+        for b in range(n_batches):
+            if b == n_warm:
+                torch.cuda.synchronize()
+                gate_s[0], flushes0, t0 = 0.0, proc._flushes, time.perf_counter()
+            for t in range(T):
+                i_t = b * T + t
+                for i, k in enumerate(keys):
+                    e = feeds[k][i_t]
+                    process("letters", k, e.value, timestamp=e.timestamp, partition=i,
+                            offset=i_t)
+                if b >= n_warm:
+                    lags.append(gate.watermark_lag_ms)
+        topo.flush_event_time()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches, gc_launches = sk.NfaStep.launches, gk.GcMark.launches
+        by_key = {}
+        for r in out.records:
+            by_key.setdefault(r.key, []).append(P.sequence_to_json(r.value))
+        stats = proc.stats
+        res = dict(matches=by_key, secs=secs, gate_s=gate_s[0], lags=lags,
+                   timed_flushes=proc._flushes - flushes0, flushes=proc._flushes,
+                   gc_flushes=proc.engine.flushes, launches=launches,
+                   gc_launches=gc_launches, drops={k: stats[k] for k in DROP_COUNTER_KEYS},
+                   late=metric_total(reg, "cep_late_dropped_total"),
+                   overflow=metric_total(reg, "cep_reorder_overflow_dropped_total"),
+                   occupancy=gate.occupancy, pair=captured.get("pair"))
+        del out, topo, builder, proc, gate
+        return res
+
+    def check_gated(res, label):
+        if res["launches"] != res["flushes"] or res["gc_launches"] != res["gc_flushes"] \
+                or res["gc_launches"] == 0:
+            raise AssertionError(
+                f"gated[{label}]: {res['launches']} nfa_step launches for {res['flushes']} "
+                f"flushes, {res['gc_launches']} gc_mark launches for {res['gc_flushes']} "
+                "group flushes")
+        if any(res["drops"].values()) or res["late"] or res["overflow"] or res["occupancy"]:
+            raise AssertionError(f"gated[{label}]: drops {res['drops']}, late {res['late']}, "
+                                 f"reorder overflow {res['overflow']}, left buffered "
+                                 f"{res['occupancy']}")
+
+    gated = gated_run(shuffled, capture_flush=3)
+    check_gated(gated, "shuffled")
+    gated_in_order = gated_run(streams)
+    check_gated(gated_in_order, "presorted")
+    if gated["matches"] != gated_in_order["matches"]:
+        bad = [k for k in keys if gated["matches"].get(k) != gated_in_order["matches"].get(k)]
+        raise AssertionError(f"event time: shuffled != presorted matches on {len(bad)} keys")
+    if gated_in_order["matches"] != engine_matches:
+        raise AssertionError("event time: the gated presorted run differs from phase 4's")
+    n_gated_matches = sum(map(len, gated["matches"].values()))
+    lags = torch.tensor([x for x in gated["lags"] if x is not None], dtype=torch.float64)
+    rps, rps_sorted = (n_timed * K * T / r["secs"] for r in (gated, gated_in_order))
+    log(f"event time (K={K}, reorder_capacity 256, lateness 6 ms, min-merge over {K} "
+        f"per-key BoundedOutOfOrderness(6)): shuffled {rps:.0f} records/s, presorted "
+        f"{rps_sorted:.0f}, ungated (phase 5, objects) {topo_rps:.0f}: "
+        f"{(1 - rps / topo_rps) * 100:.1f} % below the ungated run; gate "
+        f"{gated['gate_s'] / gated['timed_flushes'] * 1e3:.2f} ms per flush "
+        f"({gated['gate_s'] / (n_timed * K * T) * 1e6:.2f} us per record) over "
+        f"{gated['timed_flushes']} timed flushes; watermark lag p50 "
+        f"{float(lags.quantile(0.5)):.1f} ms, p99 {float(lags.quantile(0.99)):.1f} ms, "
+        f"max {float(lags.max()):.0f} ms ({lags.numel()} samples, one per round of {K} "
+        f"records)")
+    log(f"event time: {n_gated_matches} matches; shuffled == presorted == phase 4's per key; "
+        f"late 0, reorder overflow 0, drops 0; nfa_step launches {gated['launches']} and "
+        f"gc_mark launches {gated['gc_launches']} for {gated['flushes']} flushes "
+        f"({gated['gc_flushes']} group flushes)")
+    del gated_in_order, engine_matches
+
+    # The step on flush 3's batch, which carries the gate's wm column; then
+    # the same batch with every clock pushed up to 16 ms past its event
+    # (window expiry off the watermark, the max(ts, wm) branch).
+    state, xs = gated.pop("pair")
+    valid = xs["valid"]
+    n_wm = int((xs["wm"] != int(WM_NONE))[valid].sum())
+    if n_wm != int(valid.sum()) or n_wm == 0:
+        raise AssertionError(f"the gated batch carries {n_wm} clocks for "
+                             f"{int(valid.sum())} events")
+    plain_g = build_plain_step(flag_q, gated_cfg)
+    s1, y1 = plain_g(state, xs)
+    s2, y2 = sk.launch(flag_lib, flag_q, gated_cfg, state, xs)
+    torch.cuda.synchronize()
+    wm_err = max(max_abs_diff(s1, s2), max_abs_diff(y1, y2))
+    gen = torch.Generator(device=dev).manual_seed(47)
+    ahead = torch.randint(0, 17, xs["wm"].shape, generator=gen, device=dev,
+                          dtype=torch.int32)
+    xs_ahead = dict(xs, wm=torch.where(valid, torch.maximum(xs["wm"], xs["ts"]) + ahead,
+                                       xs["wm"]))
+    s3, y3 = plain_g(state, xs_ahead)
+    s4, y4 = sk.launch(flag_lib, flag_q, gated_cfg, state, xs_ahead)
+    torch.cuda.synchronize()
+    wm_err = max(wm_err, max_abs_diff(s3, s4), max_abs_diff(y3, y4))
+    expired = int(s1["n_expired"].sum() - state["n_expired"].sum())
+    expired_ahead = int(s3["n_expired"].sum() - state["n_expired"].sum())
+    del s1, y1, s2, y2, s3, y3, s4, y4
+    ptrs, T_, K_, s_out, ys, keep = sk.prepare(flag_q, gated_cfg, state, xs, words)
+    wm_ms = cuda_ms(lambda: sk.call(flag_lib, ptrs, T_, K_, dev), reps=20)
+    wm_plain_ms = cuda_ms(lambda: plain_g(state, xs), reps=2)
+    wm_moved = bytes_moved(state, s_out, ys, keep)
+    wm_bound_ms = wm_moved / HBM_BYTES_PER_S * 1e3
+    log(f"nfa_step with the gate's wm column (flush 3, T={xs['valid'].shape[0]}, K={K}, "
+        f"{n_wm} clocks): kernel == plain bitwise, and with the clocks pushed ahead "
+        f"(expired runs {expired} -> {expired_ahead}); kernel {wm_ms:.4f} ms, plain "
+        f"{wm_plain_ms:.3f} ms, bytes moved {wm_moved} -> bound {wm_bound_ms:.4f} ms "
+        f"({wm_bound_ms / wm_ms:.1%} of it)")
+    wm_launches, gated_matches = gated["launches"], gated["matches"]
+    del ptrs, s_out, ys, keep, state, xs, xs_ahead, plain_g, gated
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 15. LogDriver: produce, poll, commit, restart, dead letters ---------
+    import shutil
+
+    from kafkastreams_cep_tpu_torch.streams.driver import dlq_topic
+
+    # A poll of one flagship batch (the driver flushes after every poll):
+    # 10 polls, commits after 3, 6 and 9; the restart after poll 7.
+    poll_records, polls_per_commit, restart_after = K * T, 3, 7
+    poison_at = poll_records + poll_records // 3  # committed before the restart
+    poison = (b"\x00not a pickle", b"\x00nor this")
+    arrivals = [(k, shuffled[k][b * T + t]) for b in range(n_batches) for t in range(T)
+                for k in keys]
+    del shuffled
+
+    class LatencyRecorder:
+        """Every match-latency observation of one query (the registry's
+        reservoir keeps a recent window only)."""
+
+        def __init__(self, child):
+            self.child, self.values = child, []
+
+        def observe(self, v):
+            self.values.append(v)
+            self.child.observe(v)
+
+    def driver_on(log_):
+        reg = MetricsRegistry()
+        builder = P.ComplexStreamsBuilder(log=log_)
+        out = builder.stream("letters").query(
+            "skip_any8", skip_any.skip_any8_pattern(), runtime="cuda", config=gated_cfg,
+            batch_size=per_flush, initial_keys=K, registry=reg,
+        ).to("matches")
+        topo = builder.build()
+        latency = out.node._m_match_latency = LatencyRecorder(out.node._m_match_latency)
+        t = time.perf_counter()
+        driver = P.LogDriver(topo, group="g", registry=reg)
+        return driver, latency, time.perf_counter() - t
+
+    def pump(driver, commit_ms, polls, stop_after=None):
+        """Poll until the log is consumed (or `stop_after` polls), a
+        commit every `polls_per_commit` polls; returns records and polls."""
+        n = 0
+        while stop_after is None or polls < stop_after:
+            got = driver.poll(max_records=poll_records, commit=False)
+            if got == 0:
+                break
+            n, polls = n + got, polls + 1
+            if polls % polls_per_commit == 0:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                driver.commit()
+                commit_ms.append((time.perf_counter() - t) * 1e3)
+        return n, polls
+
+    def sink_of(log_):
+        return [(r.key, r.value) for r in log_.read("matches")]
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_driver_") as tmp:
+        whole_dir, restart_dir = f"{tmp}/whole", f"{tmp}/restart"
+        plog = P.RecordLog(whole_dir)
+        t0 = time.perf_counter()
+        for n, (key, e) in enumerate(arrivals):
+            if n == poison_at:
+                plog.append("letters", *poison, timestamp=e.timestamp)
+            P.produce(plog, "letters", key, e.value, timestamp=e.timestamp)
+        plog.flush()
+        produce_s = time.perf_counter() - t0
+        n_log = plog.end_offset("letters")
+        plog.close()
+        shutil.copytree(whole_dir, restart_dir)
+        del arrivals
+
+        # The uninterrupted run: the reference sink.
+        sk.NfaStep.launches = gk.GcMark.launches = 0
+        wlog = P.RecordLog(whole_dir)
+        driver, latency, _ = driver_on(wlog)
+        commit_ms = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        n_polled, whole_polls = pump(driver, commit_ms, 0)
+        driver.drain_event_time()
+        torch.cuda.synchronize()
+        drive_s = time.perf_counter() - t0
+        drv_launches = launched("LogDriver", sk.NfaStep.launches)
+        drv_gc_launches = launched("LogDriver (gc_mark)", gk.GcMark.launches)
+        no_drops("LogDriver", driver.topology.queries[0][1].processor)
+        whole_sink, whole_dlq = sink_of(wlog), wlog.read(dlq_topic("letters"))
+        lat = torch.tensor(latency.values, dtype=torch.float64)
+        health = driver.health()
+        driver.close(commit=False)
+        wlog.close()
+        del driver, latency
+        if n_polled != n_log:
+            raise AssertionError(f"LogDriver polled {n_polled} of {n_log} records")
+        if lat.numel() != len(whole_sink) or not whole_sink:
+            raise AssertionError(f"cep_match_latency_seconds counted {lat.numel()} samples "
+                                 f"for {len(whole_sink)} sink matches")
+        if len(whole_dlq) != 1 or (whole_dlq[0].value != poison[1]):
+            raise AssertionError(f"dead-letter topic holds {len(whole_dlq)} records")
+        by_key = {}
+        for k, v in whole_sink:
+            by_key.setdefault(decode_sink_key(k)[0], []).append(v.decode())
+        if by_key != gated_matches:
+            raise AssertionError("the LogDriver's sink differs from phase 14's matches")
+        del by_key, gated_matches
+
+        # The same log (a copy) with a restart: after poll 7 (commits
+        # after polls 3 and 6) the driver, topology and engine are
+        # dropped and the log closed; all are built afresh on the files,
+        # restored from the committed changelogs and offsets, and finish.
+        sk.NfaStep.launches = gk.GcMark.launches = 0
+        rlog = P.RecordLog(restart_dir)
+        driver, _lat, _ = driver_on(rlog)
+        restart_commit_ms = []
+        _n, polls = pump(driver, restart_commit_ms, 0, stop_after=restart_after)
+        del driver, _lat
+        rlog.close()
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        rlog = P.RecordLog(restart_dir)
+        t1 = time.perf_counter()
+        driver, _lat, init_s = driver_on(rlog)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        resumed_at = driver.position("letters")
+        pump(driver, restart_commit_ms, polls)
+        driver.drain_event_time()
+        restart_launches = launched("LogDriver restart", sk.NfaStep.launches)
+        no_drops("LogDriver restart", driver.topology.queries[0][1].processor)
+        restart_sink, restart_dlq = sink_of(rlog), rlog.read(dlq_topic("letters"))
+        restored = driver.restored_records
+        driver.close(commit=False)
+        rlog.close()
+        del driver, _lat
+    digests = [decode_sink_key(k)[1] for k, _v in restart_sink]
+    if len(set(digests)) != len(digests):
+        raise AssertionError("the restarted driver's sink holds a match twice")
+    if restart_sink != whole_sink:
+        raise AssertionError(f"the restarted driver's sink ({len(restart_sink)} records) "
+                             f"differs from the uninterrupted run's ({len(whole_sink)})")
+    if len(restart_dlq) != 1 or restart_dlq[0].value != poison[1]:
+        raise AssertionError(f"restart: dead-letter topic holds {len(restart_dlq)} records")
+    log(f"LogDriver: produce() of {n_log} records ({n_log - 1} flagship records and 1 "
+        f"poison) into a file-backed RecordLog in {produce_s:.1f} s; uninterrupted run: "
+        f"{n_polled / drive_s:.0f} records/s through the driver ({whole_polls} polls of "
+        f"{poll_records}, a commit every {polls_per_commit}, the gate as phase 14's with "
+        f"its default watermark), {len(whole_sink)} sink matches, match latency p50 "
+        f"{float(lat.quantile(0.5)) * 1e3:.1f} ms, p99 {float(lat.quantile(0.99)) * 1e3:.1f} "
+        f"ms over {lat.numel()} samples (one per match); ms per commit "
+        f"{[round(x, 1) for x in commit_ms]}; dead letters {health['dead_letters_by_reason']};"
+        f" nfa_step launches {drv_launches}, gc_mark launches {drv_gc_launches}")
+    log(f"LogDriver restart after poll {restart_after} (last commit after poll "
+        f"{restart_after // polls_per_commit * polls_per_commit}): log reload "
+        f"{(t1 - t0) * 1e3:.1f} ms, topology + LogDriver with restore {init_s * 1e3:.1f} ms "
+        f"({restored} changelog records), resumed at offset {resumed_at}; time to recover "
+        f"{(t2 - t0) * 1e3:.1f} ms; the sink == the uninterrupted run's, {len(restart_sink)} "
+        f"matches each once, in order; the poison record once in the dead-letter topic; "
+        f"ms per commit {[round(x, 1) for x in restart_commit_ms]}; nfa_step launches "
+        f"{restart_launches}")
+    del whole_sink, restart_sink, lat
+
+    # -- 16. the kernel line, the card line, the ok line ----------------------
     log(f"chip_smoke ran {time.perf_counter() - T_START:.1f}s")
     kernels = [{
         "name": "nfa_step",
@@ -1238,6 +1604,11 @@ def main() -> int:
             "lanes": grown_cfg.lanes, "nodes": grown_cfg.nodes, "launches": grown_launches,
             "max_abs_err": grown_err, "ms": grown_ms, "plain_ms": grown_plain_ms,
             "bound_ms": grown_bound_ms, "bound_by": "bytes",
+        },
+        "wm": {
+            "launches": wm_launches, "max_abs_err": wm_err, "ms": wm_ms,
+            "plain_ms": wm_plain_ms, "bound_ms": wm_bound_ms, "bound_by": "bytes",
+            "library_ms": None,
         },
     }, {
         "name": "gc_mark",

@@ -10,7 +10,9 @@ multi-key `BatchedDeviceNFA` (parallel/batched.py), with the host's pack
 and decode in C++ (native/). Users reach it through the streams API:
 `ComplexStreamsBuilder().stream(...).query(..., runtime="cuda")`
 (streams/builder.py), whose matches pass an exactly-once emission gate
-into a sink.
+into a sink, optionally behind an event-time gate (time/); `LogDriver`
+(streams/driver.py) pumps a `RecordLog` through such a topology with
+commits, restore and dead letters.
 
 The package imports torch and numpy only -- never jax, and nothing of the
 JAX package. Kernels and native extensions build at first use, never at
@@ -30,15 +32,16 @@ from .pattern.expressions import agg, const, field, key, timestamp, topic_is, va
 from .pattern.pattern import Pattern, Selected, Strategy
 from .pattern.stages import EdgeOperation, Stage, Stages, StateType
 from .streams.builder import ComplexStreamsBuilder
+from .streams.driver import LogDriver, produce
 from .streams.log import RecordLog
 from .streams.serde import Queried, SinkMatch, sequence_to_dict, sequence_to_json
 
 __all__ = [
     "BatchedDeviceNFA", "CompiledQuery", "ComplexStreamsBuilder", "DeweyVersion",
     "EdgeOperation", "EngineConfig", "Event", "EventSchema",
-    "InvalidPatternException", "Pattern", "QueryBuilder", "Queried", "RecordLog",
+    "InvalidPatternException", "LogDriver", "Pattern", "QueryBuilder", "Queried", "RecordLog",
     "Selected", "Sequence", "SequenceBuilder", "SinkMatch", "Stage", "Staged",
     "Stages", "StateType", "Strategy", "agg",
-    "compile_pattern", "compile_query", "const", "field", "key",
+    "compile_pattern", "compile_query", "const", "field", "key", "produce",
     "sequence_to_dict", "sequence_to_json", "timestamp", "topic_is", "value",
 ]

@@ -73,11 +73,11 @@ class EngineConfig:
     """Capacity knobs and semantics switches, field for field the JAX
     package's `EngineConfig` (same names, defaults and checks).
 
-    The port's driver honours the capacity fields, `strict_windows`,
-    `pin_interval`, `gc_group` and the overflow policy (`on_overflow`,
-    `block_retries`, `block_backoff_s`); the event-time gate
-    (`reorder_capacity > 0`) belongs to a later slice and is refused by
-    `BatchedDeviceNFA`.
+    The port's driver honours every field: the capacity fields,
+    `strict_windows`, `pin_interval`, `gc_group`, the overflow policy
+    (`on_overflow`, `block_retries`, `block_backoff_s`) and the event-time
+    gate's (`reorder_capacity > 0` arms it in the processor, with
+    `lateness_ms` and `late_policy`).
     """
 
     lanes: int = 64          # max simultaneous runs per key (run-lane pool)

@@ -13,12 +13,15 @@ summaries (the registry's histograms bucket cumulatively and never reset;
 replacing a BatchTimings over the same registry resets the percentile
 window while the counters stay monotonic).
 
-The JAX package's `device_trace` (a `jax.profiler` capture) is not
-copied: the port's device profile (CUDA events or `torch.profiler`) is a
-later slice (ROADMAP.md).
+`device_trace` is the port's counterpart of the JAX package's
+`jax.profiler` capture: a `torch.profiler` session (CPU activity, plus
+CUDA activity when a card is present) written as a Chrome trace.
 """
 from __future__ import annotations
 
+import contextlib
+import os
+import threading
 import time
 from typing import Any, Dict, List, Optional
 
@@ -247,3 +250,65 @@ class BatchTimings:
             out["emit_latency_ms_p99"] = float(np.percentile(lat, 99))
             out["emit_latency_ms_max"] = float(lat.max())
         return out
+
+
+#: Held while a `device_trace` capture runs.
+_TRACE_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: str, registry: Optional[MetricsRegistry] = None):
+    """Capture a device profile of the enclosed block into
+    `log_dir/trace.json` (Chrome trace format; CUDA kernels on the card).
+
+    Degrades to a NO-OP when the profiler cannot start (a session already
+    active, no profiler support in this torch build): the enclosed block
+    still runs, and the condition stays visible as the persistent
+    `cep_profiler_unavailable{reason}` gauge on `registry` (process
+    default when omitted). A failed capture degrades a trace, never the
+    engine's device or kernels."""
+    from ..obs.registry import default_registry
+
+    def _unavailable(exc: BaseException) -> None:
+        reg = registry if registry is not None else default_registry()
+        reg.gauge(
+            "cep_profiler_unavailable",
+            "1 once a device-trace capture failed to start or finalize "
+            "(profiler missing/busy); persists for the process lifetime",
+            labels=("reason",),
+        ).labels(reason=str(exc)[:120] or type(exc).__name__).set(1)
+
+    # One session per process: torch.profiler starts a second session
+    # without complaint and then crashes when the first one stops.
+    if not _TRACE_LOCK.acquire(blocking=False):
+        _unavailable(RuntimeError("a device trace is already active"))
+        yield
+        return
+    try:
+        try:
+            import torch
+            from torch.profiler import ProfilerActivity, profile
+
+            activities = [ProfilerActivity.CPU]
+            if torch.cuda.is_available():
+                activities.append(ProfilerActivity.CUDA)
+            prof = profile(activities=activities)
+            prof.__enter__()
+        except Exception as exc:
+            _unavailable(exc)
+            yield
+            return
+        try:
+            yield
+        finally:
+            try:
+                prof.__exit__(None, None, None)
+                os.makedirs(log_dir, exist_ok=True)
+                prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+            except Exception as exc:
+                # Finalization failures degrade the same way; swallowed so
+                # they can neither fail the block nor mask an exception
+                # already unwinding it.
+                _unavailable(exc)
+    finally:
+        _TRACE_LOCK.release()

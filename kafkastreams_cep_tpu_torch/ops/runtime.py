@@ -1,6 +1,6 @@
-"""Host helpers of the device runtime: watermark rebase and match
-materialization (the JAX package's `ops/runtime.py` helpers, which the
-port keeps its own copy of)."""
+"""Host helpers of the device runtime: watermark rebase, match
+materialization and match provenance (the JAX package's `ops/runtime.py`
+helpers, which the port keeps its own copy of)."""
 from __future__ import annotations
 
 from typing import Any, Dict, List, Tuple
@@ -8,7 +8,7 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 
 from ..core.event import Event
-from ..core.sequence import Sequence, Staged
+from ..core.sequence import MatchProvenance, Sequence, Staged
 from .engine import WM_NONE
 
 
@@ -27,6 +27,8 @@ def rebase_watermarks(watermark_ms: Any, n: int, ts_base: int) -> np.ndarray:
             raise ValueError(
                 f"watermark sequence length {len(seq)} != batch length {n}"
             )
+    if None not in seq:
+        return np.clip(np.asarray(seq, np.int64) - ts_base, lo, hi).astype(np.int32)
     out = np.empty(n, np.int32)
     for i, w in enumerate(seq):
         out[i] = WM_NONE if w is None else int(min(max(int(w) - ts_base, lo), hi))
@@ -76,3 +78,30 @@ def materialize_sequence(
         else:
             matched.append(Staged(name, evs))
     return Sequence(matched)
+
+
+def sequence_provenance(
+    seq: Sequence, query: str = "q", trigger: str = "drain"
+) -> MatchProvenance:
+    """One match's lineage from its materialized Sequence (the JAX
+    package's `ops/runtime.sequence_provenance`): stage path and
+    version-path depth from the group walk, chain depth from the hop
+    count, the offset span in the Event contract's order and the
+    timestamp span over raw event time (behind a reorder gate an
+    out-of-order source's log order no longer tracks event time). A pure
+    host read: no device pull, no sync."""
+    events = [e for staged in seq.matched for e in staged.events]
+    first = min(events) if events else None
+    last = max(events) if events else None
+    ts = [e.timestamp for e in events]
+    return MatchProvenance(
+        query=query,
+        trigger=trigger,
+        stage_path=tuple(s.stage for s in seq.matched),
+        chain_depth=len(events),
+        branch_depth=len(seq.matched),
+        first_offset=first.offset if first is not None else -1,
+        last_offset=last.offset if last is not None else -1,
+        first_timestamp=min(ts) if ts else -1,
+        last_timestamp=max(ts) if ts else -1,
+    )

@@ -59,11 +59,27 @@ tests hold the native code to. With `native=True` a schema whose fields
 are not all int32/float32 packs in Python too (the packer writes only
 4-byte columns); `pack_route` says which route the last pack took.
 
+Provenance (`provenance_sample=r`, `provenance_ring=N`): every 1/r-th
+decoded match (a stride accumulator, deterministic) gets a
+`MatchProvenance` derived from its host Sequence -- a JSON-sink match is
+re-walked through the object path for it and also carries its explain
+`lineage` -- and lands in a bounded ring read by `provenance_exemplars()`
+(counted in `cep_provenance_sampled_total`). Sampling reads only the
+pulled table: no device work.
+
+Fault sites (faults/injection.py, a no-op unless a harness armed one):
+`engine.device_step` around the step dispatch (transient: retried, exact
+because the step is functional) and `engine.mid_drain` after the ring was
+pulled and cleared, before its matches are decoded.
+
+Event time: `pack(..., watermarks=)` threads the gate's release clocks
+into the step as a "wm" column; the gate itself (time/gate.py) lives in
+the processor (streams/device_processor.py).
+
 Left for later slices (see ROADMAP.md): the capacity autosizer, Arrow
-sinks, provenance sampling, the decode worker thread, compile telemetry
-and the mesh. The JAX engine's options for them are not parameters here,
-so passing one raises TypeError (`sink_format="arrow"` raises
-ValueError).
+sinks, the decode worker thread, compile telemetry and the mesh. The JAX
+engine's options for them are not parameters here, so passing one raises
+TypeError (`sink_format="arrow"` raises ValueError).
 
 The device is explicit: `device=None` means "cuda", and a missing card
 raises instead of running on the CPU. `engine="cuda"` (the default on the
@@ -72,6 +88,7 @@ which is also what CPU tensors get.
 """
 from __future__ import annotations
 
+import threading
 import time
 import warnings
 from collections import deque
@@ -82,6 +99,8 @@ import torch
 
 from ..core.event import Event
 from ..core.sequence import Sequence, Staged
+from ..faults import injection as _flt
+from ..faults.injection import CEPOverflowError, TransientFault, with_retry
 from ..obs.registry import MetricsRegistry, next_instance_id
 from ..ops.engine import (
     DROP_COUNTER_KEYS,
@@ -99,13 +118,12 @@ from ..ops.engine import (
 )
 from ..ops.profiling import BatchTimings
 from ..ops.replay import device_to_oracle, oracle_to_device, supports_replay
-from ..ops.runtime import materialize_sequence, rebase_watermarks
+from ..ops.runtime import materialize_sequence, rebase_watermarks, sequence_provenance
 from ..ops.schema import EventSchema
 from ..ops.tables import CompiledQuery, compile_query
 from ..pattern.stages import Stages
 from ..state import serde
-from ..streams.errors import CEPOverflowError
-from ..streams.serde import SinkMatch, json_fragment, sink_match_from_sequence
+from ..streams.serde import SinkMatch, json_fragment, match_lineage, sink_match_from_sequence
 from .key_shard import (
     ENGINES,
     build_batched_advance,
@@ -155,6 +173,9 @@ class BatchedDeviceNFA:
         profile_sync: bool = False,
         profile_every: Optional[int] = None,
         registry: Optional[MetricsRegistry] = None,
+        provenance_sample: float = 0.0,
+        provenance_ring: int = 256,
+        query_name: Optional[str] = None,
     ) -> None:
         if sink_format == "arrow":
             raise ValueError("sink_format='arrow' is not ported (ROADMAP.md item 5e)")
@@ -166,8 +187,6 @@ class BatchedDeviceNFA:
             assert isinstance(stages_or_query, Stages)
             self.query = compile_query(stages_or_query, schema)
         self.config = config if config is not None else EngineConfig()
-        if self.config.reorder_capacity > 0:
-            raise ValueError("the event-time reorder gate is not ported yet")
         self.device = resolve_device(device)
         if engine is None:
             engine = "cuda" if self.device.type == "cuda" else "torch"
@@ -264,6 +283,17 @@ class BatchedDeviceNFA:
         #: unless the caller passes `registry=` to aggregate.
         self.metrics = registry if registry is not None else MetricsRegistry()
         self.timings = BatchTimings(registry=self.metrics)
+        if not 0.0 <= float(provenance_sample) <= 1.0:
+            raise ValueError(f"provenance_sample must be in [0, 1], got {provenance_sample}")
+        #: Provenance sampling (module doc): the stride accumulator, the
+        #: owning query's name for the exemplars, and the bounded ring of
+        #: (key, MatchProvenance). Readers (an HTTP scrape thread) take
+        #: the lock to snapshot the ring.
+        self.provenance_sample = float(provenance_sample)
+        self.query_name = query_name
+        self._prov_acc = 0.0
+        self._prov_ring: deque = deque(maxlen=max(1, int(provenance_ring)))
+        self._prov_lock = threading.Lock()
         self._init_metrics()
 
     def _init_metrics(self) -> None:
@@ -334,6 +364,25 @@ class BatchedDeviceNFA:
             "(silent capacity loss made loud; see EngineConfig.on_overflow)",
             labels=("counter",),
         )
+        q = self.query_name or "q"
+        self._m_prov = r.counter(
+            "cep_provenance_sampled_total",
+            "Decoded matches that received a sampled lineage exemplar",
+            labels=("query",),
+        ).labels(query=q)
+        sink_matches = r.counter(
+            "cep_sink_matches_total",
+            "Matches decoded straight to sink bytes (sink_format json)",
+            labels=("query", "format"),
+        )
+        sink_bytes = r.counter(
+            "cep_sink_bytes_total",
+            "Sink payload bytes produced by the sink-to-bytes decode",
+            labels=("query", "format"),
+        )
+        if self.sink_format != "objects":
+            self._m_sink_matches = sink_matches.labels(query=q, format=self.sink_format)
+            self._m_sink_bytes = sink_bytes.labels(query=q, format=self.sink_format)
         compute = r.histogram(
             "cep_advance_compute_seconds",
             "Compute wall of sampled advances by phase "
@@ -594,7 +643,7 @@ class BatchedDeviceNFA:
             if ring_full or region_pressure:
                 trigger = "ring_full" if ring_full else "region_pressure"
                 self._m_auto_drains.labels(trigger=trigger).inc()
-                if not self._pull_and_decode() and region_pressure and not ring_full:
+                if not self._pull_and_decode(trigger) and region_pressure and not ring_full:
                     self._region_backoff = True
                 if region_pressure:
                     # Only the mark/sweep reclaims region space.
@@ -608,7 +657,20 @@ class BatchedDeviceNFA:
         sampled = self.profile_every is not None and self._batches % self.profile_every == 0
         t0 = time.perf_counter()
         marks = [self._profile_mark()] if sampled else None
-        self.state, ys = self._advance(self.state, xs)
+        if _flt.ACTIVE is None:
+            self.state, ys = self._advance(self.state, xs)
+        else:
+            # `engine.device_step` transient site: the step is functional
+            # (state reassigned only on success), so a bounded retry is
+            # exact.
+            def _step():
+                _flt.ACTIVE.fire("engine.device_step")
+                return self._advance(self.state, xs)
+
+            self.state, ys = with_retry(
+                _step, site="engine.device_step",
+                retry_on=(TransientFault,), registry=self.metrics,
+            )
         t_adv = time.perf_counter()
         if sampled:
             marks.append(self._profile_mark())
@@ -645,8 +707,14 @@ class BatchedDeviceNFA:
         pending, self._auto_out = self._auto_out, []
         self._pend_accum = 0
         raw = self._pull_raw()
+        if _flt.ACTIVE is not None:
+            # `engine.mid_drain` crash site: the ring was pulled and
+            # cleared on the device but not decoded -- a crash here loses
+            # every in-flight match unless the pipeline above recovers
+            # from its last commit.
+            _flt.ACTIVE.fire("engine.mid_drain")
         if raw is not None:
-            pending.append(self._decode_raw(raw))
+            pending.append(self._decode_raw(raw, "drain"))
         pull_s = decode_s = 0.0
         n_bytes = 0
         for decoded, meta in pending:
@@ -882,19 +950,19 @@ class BatchedDeviceNFA:
             if not need or attempt == cfg.block_retries:
                 return
             self._m_backpressure.inc()
-            self._pull_and_decode()
+            self._pull_and_decode("backpressure")
             self._flush_group()
             if cfg.block_backoff_s > 0:
                 time.sleep(cfg.block_backoff_s * (attempt + 1))
 
-    def _pull_and_decode(self) -> bool:
+    def _pull_and_decode(self, trigger: str) -> bool:
         """An engine-initiated drain: pull the ring and queue its decoded
         matches for the next `drain()`. Returns whether anything was
         pending."""
         raw = self._pull_raw()
         if raw is None:
             return False
-        self._auto_out.append(self._decode_raw(raw))
+        self._auto_out.append(self._decode_raw(raw, trigger))
         return True
 
     def _pull_raw(self) -> Optional[Dict[str, Any]]:
@@ -908,11 +976,14 @@ class BatchedDeviceNFA:
             return self._pull_raw_flat(self.pool)
         return self._pull_raw_flat(self._window_pool_view())
 
-    def _decode_raw(self, raw: Dict[str, Any]) -> Tuple[Dict[Any, List[Any]], Dict[str, float]]:
-        """Decode a pulled table; returns the matches and the pull's and
+    def _decode_raw(
+        self, raw: Dict[str, Any], trigger: str,
+    ) -> Tuple[Dict[Any, List[Any]], Dict[str, float]]:
+        """Decode a pulled table (provenance sampled under `trigger`, the
+        drain that pulled it); returns the matches and the pull's and
         decode's walls and bytes."""
         t0 = time.perf_counter()
-        decoded = self._decode_flat(raw)
+        decoded = self._decode_flat(raw, trigger)
         return decoded, {"pull_s": raw["pull_s"], "decode_s": time.perf_counter() - t0,
                          "bytes": raw["bytes"]}
 
@@ -1228,33 +1299,133 @@ class BatchedDeviceNFA:
         return {"counts": counts, "table": table, "pull_s": time.perf_counter() - t0,
                 "bytes": int(probe.nbytes + table.nbytes)}
 
-    def _decode_flat(self, raw: Dict[str, Any]) -> Dict[Any, List[Any]]:
+    def _decode_flat(self, raw: Dict[str, Any], trigger: str = "drain") -> Dict[Any, List[Any]]:
         """Decode the flat [3, Mb, Cb, K] table into per-key `Sequence`s
         (`SinkMatch`es with sink_format="json"): hops are newest-first,
         hops with gidx < 0 (a GC-dropped put) are skipped while the chain
-        goes on, and an all-dead chain decodes to nothing."""
+        goes on, and an all-dead chain decodes to nothing. Sampled matches
+        get their provenance here."""
         table = raw["table"]
         counts = np.ascontiguousarray(raw["counts"], np.int32)
         # [3, Mb, Cb, K] -> per-plane [K, Mb, Cb] strided views (no copy).
         gidx, name, live = (np.moveaxis(table[i], -1, 0) for i in range(3))
+        if self.sink_format == "json":
+            out = self._decode_flat_json(counts, gidx, name, live)
+            if self.provenance_sample > 0.0 and out:
+                self._sample_bytes_provenance(trigger, counts, gidx, name, live, out)
+            return out
         if not self.native:
-            seqs = self._decode_flat_python(counts, gidx, name, live)
-            if self.sink_format == "json":
-                return {k: [sink_match_from_sequence(s, "json") for s in v]
-                        for k, v in seqs.items()}
-            return seqs
+            out = self._decode_flat_python(counts, gidx, name, live)
+        else:
+            per_key = self._native_decoder().decode_matches_flat(
+                counts, gidx, name, live, self.query.name_of_id, self._events,
+                Staged, Sequence)
+            out = {self.keys[k]: seqs for k, seqs in enumerate(per_key) if seqs}
+        self._attach_provenance(out, trigger)
+        return out
+
+    def _native_decoder(self):
         if self._decoder is None:
             from ..native import load_decoder
 
             self._decoder = load_decoder()
-        args = (counts, gidx, name, live, self.query.name_of_id, self._events,
-                Staged, Sequence)
-        if self.sink_format == "json":
-            per_key = self._decoder.decode_matches_json(*args, json_fragment)
-            return {self.keys[k]: [SinkMatch("json", *item) for item in items]
-                    for k, items in enumerate(per_key) if items}
-        per_key = self._decoder.decode_matches_flat(*args)
-        return {self.keys[k]: seqs for k, seqs in enumerate(per_key) if seqs}
+        return self._decoder
+
+    def _decode_flat_json(self, counts, gidx, name, live) -> Dict[Any, List[SinkMatch]]:
+        """The sink-to-bytes decode: JSON payloads and ident frames from
+        the native decoder (or `sink_match_from_sequence` of the Python
+        walk), counted in `cep_sink_matches_total`/`cep_sink_bytes_total`."""
+        if not self.native:
+            out = {k: [sink_match_from_sequence(s, "json") for s in v]
+                   for k, v in self._decode_flat_python(counts, gidx, name, live).items()}
+        else:
+            per_key = self._native_decoder().decode_matches_json(
+                counts, gidx, name, live, self.query.name_of_id, self._events,
+                Staged, Sequence, json_fragment)
+            out = {self.keys[k]: [SinkMatch("json", *item) for item in items]
+                   for k, items in enumerate(per_key) if items}
+        n_matches = sum(len(v) for v in out.values())
+        if n_matches:
+            self._m_sink_matches.inc(n_matches)
+            self._m_sink_bytes.inc(sum(len(sm.payload) for v in out.values() for sm in v))
+        return out
+
+    # ------------------------------------------------------------- provenance
+    def _attach_provenance(self, decoded: Dict[Any, List[Sequence]], trigger: str) -> None:
+        """Attach a `MatchProvenance` to every 1/provenance_sample-th
+        decoded Sequence and keep it in the ring."""
+        if self.provenance_sample <= 0.0 or not decoded:
+            return
+        qname = self.query_name or "q"
+        for key, seqs in decoded.items():
+            for seq in seqs:
+                self._prov_acc += self.provenance_sample
+                if self._prov_acc < 1.0:
+                    continue
+                self._prov_acc -= 1.0
+                prov = sequence_provenance(seq, query=qname, trigger=trigger)
+                seq.provenance = prov
+                with self._prov_lock:
+                    self._prov_ring.append((key, prov))
+                self._m_prov.inc()
+
+    def _sample_bytes_provenance(
+        self, trigger: str, counts, gidx, name, live, out: Dict[Any, List[SinkMatch]],
+    ) -> None:
+        """Provenance for the JSON decode: the stride accumulator advances
+        per match as on the object path, and each sampled SinkMatch
+        re-walks its chain through `materialize_sequence` for the
+        exemplar, attached as `.sequence` with its explain `.lineage`."""
+        qname = self.query_name or "q"
+        Mb, Cb = gidx.shape[1], gidx.shape[2]
+        for k in range(min(gidx.shape[0], len(self.keys))):
+            sms = out.get(self.keys[k])
+            if not sms:
+                continue
+            want: Dict[int, SinkMatch] = {}
+            for pos in range(len(sms)):
+                self._prov_acc += self.provenance_sample
+                if self._prov_acc >= 1.0:
+                    self._prov_acc -= 1.0
+                    want[pos] = sms[pos]
+            if not want:
+                continue
+            pos = 0
+            for j in range(min(int(counts[k]), Mb)):
+                chain: List[Tuple[int, int]] = []
+                for c in range(Cb):
+                    if not live[k, j, c]:
+                        break
+                    g = int(gidx[k, j, c])
+                    if g >= 0:
+                        chain.append((int(name[k, j, c]), g))
+                if not chain:
+                    continue
+                sm = want.get(pos)
+                pos += 1
+                if sm is None:
+                    continue
+                chain.reverse()
+                seq = materialize_sequence(chain, self.query.name_of_id, self._events)
+                prov = sequence_provenance(seq, query=qname, trigger=trigger)
+                seq.provenance = prov
+                sm.sequence = seq
+                sm.lineage = match_lineage(seq, prov)
+                with self._prov_lock:
+                    self._prov_ring.append((self.keys[k], prov))
+                self._m_prov.inc()
+
+    def provenance_exemplars(self, limit: int = 64) -> List[Dict[str, Any]]:
+        """Recent sampled match-lineage exemplars as JSON-ready dicts,
+        newest first; a lane handle's key is unwrapped to the record key."""
+        with self._prov_lock:
+            snap = list(self._prov_ring)
+        out: List[Dict[str, Any]] = []
+        for key, prov in snap[::-1][: max(0, limit)]:
+            entry = prov.to_dict()
+            entry["key"] = str(getattr(key, "key", key))
+            out.append(entry)
+        return out
 
     def _decode_flat_python(self, counts, gidx, name, live) -> Dict[Any, List[Sequence]]:
         """The Python walk over the flat table: the reference for the

@@ -17,9 +17,9 @@ What differs from the JAX module:
     package's module paths to the port's copies, so a JAX snapshot
     restores without importing the JAX package; any other path of that
     package is refused;
-  * the host runtime's stage tables and the event-time frames are not
-    copied (the port has neither yet); `carries_event_time` only
-    recognises an event-time wrapper so that a processor can refuse it.
+  * the host runtime's stage tables are not copied (the port has no host
+    runtime). The event-time gate frames (`encode_event_time_state`,
+    `wrap_event_time`) are the JAX package's, byte for byte.
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ import importlib
 import io
 import pickle
 import struct
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -159,12 +159,6 @@ def read_magic(r: "_Reader") -> int:
     if tag in COMPAT_MAGIC:
         return int(tag[3:].decode())
     raise CheckpointError("bad checkpoint magic")
-
-
-def carries_event_time(data: bytes) -> bool:
-    """True when a processor snapshot is wrapped with event-time gate
-    state (the JAX package's `wrap_event_time`)."""
-    return bytes(open_frame(data)[:4]) == ET_MAGIC
 
 
 def upgrade_pool_tree(pool: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
@@ -411,6 +405,97 @@ def decode_event_registry(data: bytes) -> Dict[int, Event]:
         out[gidx] = get_event(r)
     r.expect_end()
     return out
+
+
+# ---------------------------------------------------------------------------
+# Event-time gate frames
+# ---------------------------------------------------------------------------
+def encode_event_time_state(state: Dict[str, Any]) -> bytes:
+    """Seal an `EventTimeGate.snapshot_state()` dict, byte for byte the
+    JAX package's frame: watermark-generator kind + state, per-key release
+    clocks, forced/observed marks, the arrival sequence, every key's
+    buffered (seq, Event) entries in (ts, seq) order, the late side output
+    and the arrival high-water marks (`{}` from the device processor,
+    whose marks ride its own frame)."""
+    w = _Writer()
+    w._buf.write(MAGIC)
+    w.text(state["gen_kind"])
+    w.blob(dumps(state["gen_state"]))
+    clocks = state["clocks"]
+    w.i32(len(clocks))
+    for key in clocks:
+        w.blob(dumps(key))
+        w.i64(clocks[key])
+    w.i64(state["forced_wm"])
+    w.i64(state["max_seen"])
+    w.i64(state["seq"])
+    buffers = state["buffers"]
+    w.i32(len(buffers))
+    for key in buffers:
+        w.blob(dumps(key))
+        entries = buffers[key]
+        w.i32(len(entries))
+        for _ts, seq, ev in entries:
+            w.i64(seq)
+            put_event(w, ev)
+    late = state["late"]
+    w.i32(len(late))
+    for ev in late:
+        put_event(w, ev)
+    w.blob(dumps(state.get("hwm", {})))
+    return seal_frame(w.getvalue())
+
+
+def decode_event_time_state(data: bytes) -> Dict[str, Any]:
+    r = _Reader(open_frame(data))
+    read_magic(r)
+    out: Dict[str, Any] = {"gen_kind": r.text(), "gen_state": loads(r.blob())}
+    clocks: Dict[Any, int] = {}
+    for _ in range(r.i32()):
+        ck = loads(r.blob())
+        clocks[ck] = r.i64()
+    out["clocks"] = clocks
+    out["forced_wm"] = r.i64()
+    out["max_seen"] = r.i64()
+    out["seq"] = r.i64()
+    buffers: Dict[Any, list] = {}
+    for _ in range(r.i32()):
+        key = loads(r.blob())
+        entries = []
+        for _ in range(r.i32()):
+            seq = r.i64()
+            ev = get_event(r)
+            entries.append((ev.timestamp, seq, ev))
+        buffers[key] = entries
+    out["buffers"] = buffers
+    out["late"] = [get_event(r) for _ in range(r.i32())]
+    out["hwm"] = loads(r.blob())
+    r.expect_end()
+    return out
+
+
+def wrap_event_time(inner: bytes, gate_bytes: bytes) -> bytes:
+    """Wrap a processor snapshot with its event-time gate frame."""
+    w = _Writer()
+    w._buf.write(ET_MAGIC)
+    w.blob(inner)
+    w.blob(gate_bytes)
+    return seal_frame(w.getvalue())
+
+
+def split_event_time(data: bytes) -> Tuple[bytes, Optional[bytes]]:
+    """(inner snapshot, gate frame | None): the inverse of
+    `wrap_event_time`. A snapshot without the wrapper passes through with
+    gate None."""
+    payload = open_frame(data)
+    if bytes(payload[:4]) != ET_MAGIC:
+        return data, None
+    r = _Reader(payload)
+    r._read(4)
+    inner = bytes(r.blob())
+    gate = bytes(r.blob())
+    r.expect_end()
+    return inner, gate
 
 
 # ---------------------------------------------------------------------------

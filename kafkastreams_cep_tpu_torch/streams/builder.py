@@ -11,8 +11,11 @@ and, through `.to(topic)`, a sink topic of the builder's `RecordLog`.
 
 `runtime="cuda"` is the only runtime: the JAX package's "host", "tpu" and
 "auto" raise. `device=`, `engine=`, `config=`, `batch_size=`,
-`initial_keys=`, `sink_format=`, `native=` and `auto_drain=` pass
-through to the processor and its engine.
+`initial_keys=`, `sink_format=`, `native=`, `auto_drain=`,
+`provenance_sample=` and `watermark_gen=` pass through to the processor
+and its engine. A config with `reorder_capacity > 0` arms the
+processor's event-time gate; `Topology.tick_event_time`,
+`flush_event_time` and `event_time_health` drive and read it.
 
 Crash consistency, with a builder `log`: each query's
 `DeviceStateStore` appends the processor's snapshot to
@@ -22,25 +25,36 @@ after a crash a topology built afresh on the same log runs
 `restore_stores()` and replays the input from the committed offsets, and
 the emission gate dedupes what the sink already holds.
 
-Left out (ROADMAP.md): ingest stamps and match latency, the tracer and
-`explain`, and the event-time gate's `tick_event_time`.
+Observability, as in the JAX package: `stamp_ingest` (the driver's poll)
+records each record's ingest wall, read back at sink emission into
+`cep_match_latency_seconds{query}`; a record that carried a trace context
+lands a stitched "match.emit" span on the tracer `attach_tracer` gave;
+and every durably emitted match leaves a bounded lineage entry that
+`explain()` returns, newest first.
 """
 from __future__ import annotations
 
+import time
+from collections import OrderedDict, deque
 from typing import Any, Callable, Dict, List, Optional, Sequence as Seq, Union
 
+from ..obs.registry import default_registry
+from ..obs.trace import TraceContext
+from ..ops.profiling import LATENCY_BUCKETS
 from ..pattern.pattern import Pattern
+from ..state import serde as state_serde
 from ..state.naming import (
     changelog_topic,
     device_state_store,
     emitted_store,
+    event_time_store,
     normalize_query_name,
 )
 from ..state.nfa_store import EmissionStore
 from ..state.store import ChangeLoggingKeyValueStore, InMemoryKeyValueStore, restore_store
 from .device_processor import DeviceCEPProcessor, DeviceStateStore
 from .emission import EmissionGate, encode_sink_key
-from .serde import Queried, SinkMatch, sequence_to_json
+from .serde import Queried, SinkMatch, match_lineage, sequence_to_json
 
 RUNTIMES = ("cuda",)
 
@@ -98,6 +112,15 @@ class QueryNode:
             )
         self.emission_store = EmissionStore(backing=emit_kv)
         self.gate = EmissionGate(self.name, store=self.emission_store, registry=registry)
+        # Ingest (the driver's poll stamp) -> sink emission, per match.
+        self._m_match_latency = (
+            registry if registry is not None else default_registry()
+        ).histogram(
+            "cep_match_latency_seconds",
+            "Ingest (driver poll stamp) -> sink emission wall per match",
+            labels=("query",),
+            buckets=LATENCY_BUCKETS,
+        ).labels(query=self.name)
         self.processor = DeviceCEPProcessor(
             name,
             pattern,
@@ -113,6 +136,73 @@ class QueryNode:
             self.stores[ds_name] = DeviceStateStore(
                 self, log, changelog_topic(app_id, ds_name), registry=registry,
             )
+
+
+class EventTimeStateStore:
+    """Changelog durability for a gate that lives outside its processor's
+    own snapshot (the JAX package's store of the same name, which its host
+    runtime registers).
+
+    Appends `encode_event_time_state(node.processor.event_time_state())`
+    (the gate's contents and the arrival marks it guards, one frame) to
+    `<app>-<query>-streamscep-eventtime-changelog` at every flush and
+    restores the newest snapshot that validates through
+    `node.processor.restore_event_time`; CRC-rejected tails are counted in
+    `cep_checkpoint_corrupt_total`. A valid snapshot the configured gate
+    cannot absorb raises ValueError. The port's `runtime="cuda"` node does
+    not register it: its processor snapshot carries the gate with the
+    engine state of the same commit (`DeviceStateStore`)."""
+
+    def __init__(self, node: Any, log: Any, topic: str,
+                 registry: Optional[Any] = None) -> None:
+        self.name = event_time_store(node.name)
+        self.node = node
+        self.log = log
+        self.topic = topic
+        self.metrics = registry if registry is not None else default_registry()
+        self._m_corrupt = self.metrics.counter(
+            "cep_checkpoint_corrupt_total",
+            "Checkpoint payloads rejected by CRC/framing validation",
+        )
+
+    @property
+    def persistent(self) -> bool:
+        return True
+
+    def flush(self) -> None:
+        if self.log is None:
+            return
+        self.log.append(
+            self.topic, None,
+            state_serde.encode_event_time_state(self.node.processor.event_time_state()),
+        )
+
+    def restore_from_changelog(self) -> int:
+        if self.log is None:
+            return 0
+        recs = self.log.read(self.topic)
+        for rec in reversed(recs):
+            if rec.value is None:
+                continue
+            try:
+                state = state_serde.decode_event_time_state(rec.value)
+            except state_serde.CheckpointError:
+                # Corrupt bytes: walk back to the previous generation.
+                self._m_corrupt.inc()
+                continue
+            try:
+                self.node.processor.restore_event_time(state)
+            except (ValueError, KeyError) as exc:
+                # A valid snapshot the configured gate cannot absorb is a
+                # configuration mismatch: restoring an empty gate over
+                # committed offsets would lose every buffered record.
+                raise ValueError(
+                    f"{self.name}: event-time snapshot does not match the "
+                    f"configured watermark generator ({exc}); restore with "
+                    "the original event-time config"
+                ) from exc
+            return len(recs)
+        return len(recs)
 
 
 class CEPStream:
@@ -186,10 +276,134 @@ class ComplexStreamsBuilder:
 class Topology:
     """The built processing graph, drivable record by record."""
 
+    #: Ingest-stamp map bound: records that never complete a match would
+    #: pin their stamp forever; past the bound the oldest stamps evict
+    #: (their eventual matches skip the latency observation). A topology
+    #: keeps at least twice its largest micro-batch (`ingest_stamps_max`):
+    #: a record's stamp must outlive the batch that completes its match.
+    INGEST_STAMPS_MAX = 1 << 16
+
+    #: The explain ring: one lineage entry per durably admitted match.
+    EXPLAIN_RING = 256
+
     def __init__(self, queries: List[tuple], log: Optional[Any] = None) -> None:
         self.queries = queries
         self.log = log
         self._offsets: Dict[tuple, int] = {}
+        #: (topic, partition, key, offset) -> (ingest wall
+        #: [time.perf_counter], trace blob or None, broker or None), in
+        #: insertion order, so eviction drops the oldest. An OrderedDict:
+        #: evicting a plain dict's first key with `next(iter(d))` scans
+        #: every key deleted before it, O(bound) per record.
+        self._ingest_stamps: "OrderedDict[tuple, tuple]" = OrderedDict()
+        self.ingest_stamps_max = max(
+            [self.INGEST_STAMPS_MAX]
+            + [2 * node.processor.batch_size for _s, node, _o in queries])
+        self._tracer: Optional[Any] = None
+        self._explain: deque = deque(maxlen=self.EXPLAIN_RING)
+
+    def attach_tracer(self, tracer: Any) -> None:
+        """Attach a SpanTracer for the stitched "match.emit" spans (a
+        LogDriver attaches its own)."""
+        self._tracer = tracer
+
+    def stamp_ingest(
+        self, topic: str, partition: int, key, offset: int, t: float,
+        trace: Optional[bytes] = None, broker: Optional[int] = None,
+    ) -> None:
+        """Record one record's ingest wall (the driver's poll), with its
+        trace-context blob and source broker when known."""
+        stamps = self._ingest_stamps
+        stamps[(topic, partition, key, offset)] = (t, trace, broker)
+        while len(stamps) > self.ingest_stamps_max:
+            stamps.popitem(last=False)
+
+    def _observe_match_latency(
+        self, node: QueryNode, topic: str, partition: int, key, offset: int,
+        seq: Any = None,
+    ) -> Optional[bytes]:
+        """For one emitted match, keyed by its completing event's
+        identity: observe ingest -> emission latency, land the stitched
+        "match.emit" span when that event carried a trace context, and
+        record the explain entry. Returns the trace blob for the sink
+        append to forward. The stamp stays: several matches may complete
+        on one event."""
+        stamp = self._ingest_stamps.get((topic, partition, key, offset))
+        latency: Optional[float] = None
+        trace_blob: Optional[bytes] = None
+        broker: Optional[int] = None
+        ctx = None
+        if stamp is not None:
+            t0, trace_blob, broker = stamp
+            latency = time.perf_counter() - t0
+            node._m_match_latency.observe(latency)
+            if trace_blob is not None and self._tracer is not None:
+                ctx = TraceContext.decode(trace_blob)
+                if ctx is not None:
+                    self._tracer.record("match.emit", latency, trace=ctx)
+        entry: Dict[str, Any] = {
+            "query": node.name,
+            "key": str(key),
+            "topic": topic,
+            "partition": partition,
+            "offset": offset,
+            "latency_s": latency,
+            "trace_id": ctx.trace_id if ctx is not None else None,
+            "ingest_unix": ctx.ingest_unix if ctx is not None else None,
+            "broker": broker,
+        }
+        lineage = self._match_lineage(seq)
+        if lineage is not None:
+            entry.update(lineage)
+        self._explain.append(entry)
+        return trace_blob
+
+    @staticmethod
+    def _match_lineage(seq: Any) -> Optional[Dict[str, Any]]:
+        """The bounded lineage of one emitted match: the JSON decode's
+        pre-built `SinkMatch.lineage` (sampled matches), else derived from
+        an attached Sequence, else the completing event alone."""
+        if seq is None:
+            return None
+        if isinstance(seq, SinkMatch):
+            if seq.lineage is not None:
+                return dict(seq.lineage)
+            if seq.sequence is not None:
+                return match_lineage(seq.sequence)
+            last = seq.last_event
+            if last is None:
+                return None
+            return {
+                "events": [{
+                    "stage": None,
+                    "topic": getattr(last, "topic", ""),
+                    "partition": getattr(last, "partition", 0),
+                    "offset": getattr(last, "offset", 0),
+                    "timestamp": getattr(last, "timestamp", 0),
+                }],
+                "truncated_events": 0,
+                "stage_path": [],
+                "branch_depth": 0,
+                "chain_depth": 1,
+            }
+        if getattr(seq, "matched", None) is not None:
+            return match_lineage(seq)
+        return None
+
+    def explain(self, limit: int = 64) -> List[Dict[str, Any]]:
+        """Recent emitted-match lineage entries, newest first: the
+        contributing event identities, run version path, trace id, source
+        broker and observed latency."""
+        return list(self._explain)[::-1][: max(0, limit)]
+
+    @property
+    def source_topics(self) -> List[str]:
+        seen: List[str] = []
+        for stream, _node, _out in self.queries:
+            for t in stream.topics:
+                if t not in seen:
+                    seen.append(t)
+        return seen
 
     def process(
         self, topic: str, key, value, timestamp: int = 0, partition: int = 0,
@@ -221,6 +435,50 @@ class Topology:
         for _stream, node, out in self.queries:
             outputs.extend(self._emit_device(node, out, node.processor.flush()))
         return outputs
+
+    def tick_event_time(self, now_ms: int) -> List[Record]:
+        """Wall-clock tick for the event-time gates (idle-source
+        watermark timeouts): emits the matches of whatever the advanced
+        watermarks released. No-op for queries without a gate."""
+        outputs: List[Record] = []
+        for _stream, node, out in self.queries:
+            outputs.extend(self._emit_device(node, out, node.processor.tick_event_time(now_ms)))
+        return outputs
+
+    def flush_event_time(self) -> List[Record]:
+        """End of stream: release every gate's buffered records in
+        event-time order and flush them through the engines."""
+        outputs: List[Record] = []
+        for _stream, node, out in self.queries:
+            outputs.extend(self._emit_device(node, out, node.processor.flush_event_time()))
+        return outputs
+
+    def event_time_health(self) -> Dict[str, Any]:
+        """Event-time liveness for /healthz: per gated query its watermark
+        lag and reorder-buffer occupancy, plus the aggregates. Queries
+        without a gate are absent."""
+        per_query: Dict[str, Any] = {}
+        occupancy = 0
+        lag_max: Optional[float] = None
+        for _stream, node, _out in self.queries:
+            gate = node.processor.gate
+            if gate is None:
+                continue
+            lag_ms = gate.watermark_lag_ms
+            lag_s = None if lag_ms is None else lag_ms / 1e3
+            per_query[node.name] = {
+                "watermark_lag_s": lag_s,
+                "reorder_occupancy": gate.occupancy,
+            }
+            occupancy += gate.occupancy
+            if lag_s is not None:
+                lag_max = lag_s if lag_max is None else max(lag_max, lag_s)
+        return {
+            "gated_queries": len(per_query),
+            "reorder_occupancy": occupancy,
+            "watermark_lag_s_max": lag_max,
+            "queries": per_query,
+        }
 
     def take_poisoned(self) -> List[tuple]:
         """Drain every query's quarantined records: [(query, key, event,
@@ -288,15 +546,23 @@ class Topology:
             for fn in node.downstream:
                 fn(rkey, seq)
             if digest is not None:
-                self._sink(node, record, digest)
+                trace: Optional[bytes] = None
+                if last is not None:
+                    # A match completes at its last event: that event's
+                    # ingest stamp anchors the latency sample.
+                    trace = self._observe_match_latency(
+                        node, last.topic, last.partition, rkey, last.offset, seq)
+                self._sink(node, record, digest, trace=trace)
         return emitted
 
-    def _sink(self, node: QueryNode, record: Record, digest: bytes) -> None:
+    def _sink(self, node: QueryNode, record: Record, digest: bytes,
+              trace: Optional[bytes] = None) -> None:
         """Write a matched record to the node's sink topics in the log.
 
         The record key carries the match's emission digest
         (streams/emission.py `encode_sink_key`), so the sink topic itself
-        is the durable record of what it saw."""
+        is the durable record of what it saw. `trace` forwards the
+        completing event's trace context."""
         if self.log is None or not node.sink_topics:
             return
         key_bytes = encode_sink_key(record.key, digest)
@@ -305,4 +571,5 @@ class Topology:
         else:
             value_bytes = sequence_to_json(record.value).encode("utf-8")
         for topic in node.sink_topics:
-            self.log.append(topic, key_bytes, value_bytes, timestamp=record.timestamp)
+            self.log.append(topic, key_bytes, value_bytes, timestamp=record.timestamp,
+                            trace=trace)

@@ -13,14 +13,20 @@ Key lanes are assigned on first sight and the key axis grows
 geometrically through `BatchedDeviceNFA.add_keys` (each growth flushes
 the engine's GC group, so doubling keeps those early flushes O(log keys)).
 
-Crash consistency: `snapshot()` / `restore()` write and read the JAX
-processor's frame (engine blob, high-water marks, pending records; the
-lane map rides the engine's keys), and `DeviceStateStore` appends a
-snapshot to a changelog topic at every commit and restores the newest one
-that validates.
+Event time (`EngineConfig.reorder_capacity > 0`): arriving records pass
+an `EventTimeGate` (time/gate.py) that buffers them per key and releases
+them in event-time order as the watermark advances; each release carries
+the gate's monotone clock, which the flush threads into the step as its
+"wm" column, so window expiry sweeps off event time. `tick_event_time`
+advances idle-source watermarks on wall time, `flush_event_time` releases
+everything at end of stream, `take_late` drains the late side output.
 
-Left out (ROADMAP.md): the event-time reorder gate (a snapshot that
-carries gate state is refused).
+Crash consistency: `snapshot()` / `restore()` write and read the JAX
+processor's frame (engine blob, high-water marks, pending records and,
+with a gate, their release clocks; the lane map rides the engine's keys),
+wrapped with the gate's frame when a gate is armed,
+and `DeviceStateStore` appends a snapshot to a changelog topic at every
+commit and restores the newest one that validates.
 """
 from __future__ import annotations
 
@@ -38,6 +44,7 @@ from ..pattern.compiler import compile_pattern
 from ..pattern.pattern import Pattern
 from ..state import serde
 from ..state.naming import device_state_store, normalize_query_name
+from ..time import EventTimeGate
 
 K = TypeVar("K")
 V = TypeVar("V")
@@ -67,6 +74,7 @@ class DeviceCEPProcessor(Generic[K, V]):
         batch_size: int = 64,
         initial_keys: int = 8,
         registry: Optional[MetricsRegistry] = None,
+        watermark_gen: Optional[Any] = None,
         **engine_opts: Any,
     ) -> None:
         if isinstance(pattern_or_query, CompiledQuery):
@@ -80,7 +88,9 @@ class DeviceCEPProcessor(Generic[K, V]):
         self.batch_size = max(1, batch_size)
         self._capacity = max(1, initial_keys)
         #: The engine knobs (device=, engine=, sink_format=, ...), kept so
-        #: that a restore rebuilds the same engine.
+        #: that a restore rebuilds the same engine. Provenance exemplars
+        #: name their query, so the query name rides into the engine.
+        engine_opts.setdefault("query_name", self.query_name)
         self._engine_opts = dict(engine_opts)
         # One registry for the processor and its engine.
         self.engine = BatchedDeviceNFA(
@@ -101,9 +111,24 @@ class DeviceCEPProcessor(Generic[K, V]):
             "Sequences emitted by the device driver",
             labels=("query",),
         ).labels(query=self.query_name)
+        #: The event-time gate (module doc), armed by reorder_capacity > 0.
+        self.gate: Optional[EventTimeGate] = None
+        if self.config.reorder_capacity > 0:
+            self.gate = EventTimeGate(
+                capacity=self.config.reorder_capacity,
+                lateness_ms=self.config.lateness_ms,
+                late_policy=self.config.late_policy,
+                on_overflow=self.config.on_overflow,
+                generator=watermark_gen,
+                registry=self.metrics,
+                query_name=self.query_name,
+            )
         self._lane_of_key: Dict[Any, _Lane] = {}
         self._next_lane = 0
         self._pending: Dict[Any, List[Event]] = {}
+        #: Release clocks parallel to `_pending` (gate armed only):
+        #: _pending_wm[k][i] is the clock _pending[k][i] was released at.
+        self._pending_wm: Dict[Any, List[Optional[int]]] = {}
         self._pending_count = 0
         self._flushes = 0
         self._warned_low_keys = False
@@ -132,13 +157,51 @@ class DeviceCEPProcessor(Generic[K, V]):
         latest = self._hwm.get(hwm_key)
         if latest is not None and offset < latest:
             return []  # replayed record below the high-water mark
-        self._hwm[hwm_key] = offset + 1
-        self._pending.setdefault(key, []).append(
-            Event(key, value, timestamp, topic, partition, offset))
-        self._pending_count += 1
+        event = Event(key, value, timestamp, topic, partition, offset)
+        if self.gate is not None:
+            # What the watermark releases (possibly other keys' records,
+            # possibly nothing) enqueues with its release clock. The mark
+            # advances only after admission: a CEPOverflowError from
+            # on_overflow="raise" leaves it, so the caller's retry of the
+            # rejected record is not deduped as a replay.
+            released = self.gate.offer(event)
+            self._hwm[hwm_key] = offset + 1
+            self._enqueue_released(released)
+        else:
+            self._hwm[hwm_key] = offset + 1
+            self._pending.setdefault(key, []).append(event)
+            self._pending_count += 1
         if self._pending_count >= self.batch_size:
             return self.flush()
         return []
+
+    def _enqueue_released(self, released: List[Tuple[Event, int]]) -> None:
+        for ev, clk in released:
+            self._pending.setdefault(ev.key, []).append(ev)
+            self._pending_wm.setdefault(ev.key, []).append(clk)
+            self._pending_count += 1
+
+    def tick_event_time(self, now_ms: int) -> List[Tuple[K, Any]]:
+        """Wall-clock tick for idle-source watermarks (the driver's poll
+        cadence): enqueue what the advanced watermark released, flush if
+        the batch filled. No-op without a gate."""
+        if self.gate is None:
+            return []
+        self._enqueue_released(self.gate.advance_wall(now_ms))
+        if self._pending_count >= self.batch_size:
+            return self.flush()
+        return []
+
+    def flush_event_time(self) -> List[Tuple[K, Any]]:
+        """End of stream: release every buffered record in event-time
+        order and flush."""
+        if self.gate is not None:
+            self._enqueue_released(self.gate.flush())
+        return self.flush()
+
+    def take_late(self) -> List[Event]:
+        """Drain the gate's late side output (late_policy="sideoutput")."""
+        return self.gate.take_late() if self.gate is not None else []
 
     def flush(self) -> List[Tuple[K, Any]]:
         """Drive the pending micro-batch through the device engine."""
@@ -157,21 +220,33 @@ class DeviceCEPProcessor(Generic[K, V]):
                 "flush of so few keys leaves nearly all of the card idle",
                 RuntimeWarning,
             )
-        batch = {self._lane_for(key): events for key, events in self._pending.items()}
+        batch: Dict[_Lane, List[Event]] = {}
+        wms: Optional[Dict[_Lane, List[Optional[int]]]] = (
+            {} if self.gate is not None else None)
+        for key, events in self._pending.items():
+            lane = self._lane_for(key)
+            batch[lane] = events
+            if wms is not None:
+                clocks = self._pending_wm.get(key, [])
+                # Pending records restored from a snapshot without event
+                # time carry no clocks: pad at the front (they precede
+                # every later release) with None, arrival-order expiry.
+                wms[lane] = [None] * (len(events) - len(clocks)) + list(clocks)
         self._pending = {}
+        self._pending_wm = {}
         self._pending_count = 0
         # Only the host pack is guarded: a record the schema cannot pack
         # raises there, before the engine changes. A failed native build
         # and any error of the upload, the step or the drain propagate.
         try:
-            cols = self.engine.pack_host(batch)
+            cols = self.engine.pack_host(batch, wms)
         except NativeBuildError:
             raise
         except Exception:
             # The batched pack is all-or-nothing, so isolate record by
             # record: the healthy remainder advances, the poison lands in
             # `self._poisoned`.
-            advanced = self._advance_isolating(batch)
+            advanced = self._advance_isolating(batch, wms)
         else:
             advanced = self.engine.advance_packed(self.engine.upload(cols))
         out: List[Tuple[K, Any]] = []
@@ -187,6 +262,11 @@ class DeviceCEPProcessor(Generic[K, V]):
         out, self._poisoned = self._poisoned, []
         return out
 
+    def provenance_exemplars(self, limit: int = 64) -> List[Dict[str, Any]]:
+        """Recent sampled match-lineage exemplars of the engine, newest
+        first, under the record keys (empty unless provenance_sample > 0)."""
+        return self.engine.provenance_exemplars(limit)
+
     def runs(self, key: K) -> int:
         return self.engine.runs(self._lane_for(key))
 
@@ -198,7 +278,9 @@ class DeviceCEPProcessor(Generic[K, V]):
     def snapshot(self) -> bytes:
         """Bytes-level checkpoint, the JAX processor's frame: the engine
         snapshot (whose keys are the lane handles, so the lane map rides
-        it), the high-water marks and the pending records."""
+        it), the high-water marks, the pending records and, with a gate,
+        their release clocks; the gate's buffers and watermark state ride
+        a wrapper frame, so a restore gets gate and engine of one commit."""
         w = serde._Writer()
         w._buf.write(serde.MAGIC)
         w.blob(self.engine.snapshot())
@@ -207,7 +289,13 @@ class DeviceCEPProcessor(Generic[K, V]):
         for key, events in self._pending.items():
             w.blob(serde.dumps(key))
             w.blob(serde.encode_event_registry(dict(enumerate(events))))
-        return serde.seal_frame(w.getvalue())
+        if self.gate is not None:
+            w.blob(serde.dumps(self._pending_wm))
+        inner = serde.seal_frame(w.getvalue())
+        if self.gate is None:
+            return inner
+        return serde.wrap_event_time(
+            inner, serde.encode_event_time_state(self.gate.snapshot_state()))
 
     @classmethod
     def restore(
@@ -220,22 +308,25 @@ class DeviceCEPProcessor(Generic[K, V]):
         batch_size: int = 64,
         initial_keys: int = 8,
         registry: Optional[MetricsRegistry] = None,
+        watermark_gen: Optional[Any] = None,
         **engine_opts: Any,
     ) -> "DeviceCEPProcessor":
         """A processor from a `snapshot()` of either package's processor
         (lane handles pickled by the JAX package load as this module's
-        `_Lane`). A snapshot with event-time gate state raises
-        ValueError: the port has no gate yet."""
-        if serde.carries_event_time(data):
-            raise ValueError(
-                "checkpoint carries event-time gate state; the port has no "
-                "event-time gate (EngineConfig.reorder_capacity > 0) yet"
-            )
+        `_Lane`). A snapshot with gate state needs a config that arms the
+        gate (ValueError otherwise); one without restores a fresh gate."""
         proc = cls(
             query_name, pattern_or_query, schema=schema, config=config,
             batch_size=batch_size, initial_keys=initial_keys,
-            registry=registry, **engine_opts,
+            registry=registry, watermark_gen=watermark_gen, **engine_opts,
         )
+        data, gate_bytes = serde.split_event_time(data)
+        if gate_bytes is not None and proc.gate is None:
+            raise ValueError(
+                "checkpoint carries event-time gate state but the restored "
+                "processor has no gate (EngineConfig.reorder_capacity == 0); "
+                "restore with the original event-time config"
+            )
         r = serde._Reader(serde.open_frame(data))
         serde.read_magic(r)
         proc.engine = BatchedDeviceNFA.restore(
@@ -249,25 +340,36 @@ class DeviceCEPProcessor(Generic[K, V]):
         proc._next_lane = len(proc._lane_of_key)
         proc._hwm = serde.loads(r.blob())
         proc._pending = {}
+        proc._pending_wm = {}
         proc._pending_count = 0
         for _ in range(r.i32()):
             key = serde.loads(r.blob())
             events = serde.decode_event_registry(r.blob())
             proc._pending[key] = [events[i] for i in sorted(events)]
             proc._pending_count += len(events)
+        if gate_bytes is not None:
+            proc._pending_wm = serde.loads(r.blob())
         r.expect_end()
+        if gate_bytes is not None:
+            proc.gate.restore_state(serde.decode_event_time_state(gate_bytes))
         return proc
 
     # ------------------------------------------------------------ internals
-    def _advance_isolating(self, batch: Dict["_Lane", List[Event]]) -> Dict["_Lane", List[Any]]:
+    def _advance_isolating(
+        self,
+        batch: Dict["_Lane", List[Event]],
+        wms: Optional[Dict["_Lane", List[Optional[int]]]] = None,
+    ) -> Dict["_Lane", List[Any]]:
         """Record-at-a-time pass after a batch pack raised: each record
-        advances alone (per-lane order preserved); records whose pack
-        still raises are quarantined instead of wedging the pump."""
+        advances alone (per-lane order preserved, with its release clock);
+        records whose pack still raises are quarantined instead of
+        wedging the pump."""
         out: Dict[_Lane, List[Any]] = {}
         for lane, events in batch.items():
-            for ev in events:
+            for i, ev in enumerate(events):
+                one_wm = {lane: [wms[lane][i]]} if wms is not None else None
                 try:
-                    cols = self.engine.pack_host({lane: [ev]})
+                    cols = self.engine.pack_host({lane: [ev]}, one_wm)
                 except NativeBuildError:
                     raise
                 except Exception as exc:

@@ -1,9 +1,10 @@
 """Append-only record log: the framework's Kafka-role transport.
 
-A copy of the JAX package's `streams/log.py` (without its fault-injection
-hooks). The reference's only communication backend is the Kafka broker:
-source and sink topics carry records, and one compacted changelog topic per
-state store carries durability writes (reference: README.md:350-355,
+A copy of the JAX package's `streams/log.py`, with its `log.torn_append`
+fault site (faults/injection.py). The reference's only communication
+backend is the Kafka broker: source and sink topics carry records, and one
+compacted changelog topic per state store carries durability writes
+(reference: README.md:350-355,
 ComplexStreamsBuilder.java:61-100). This module is the framework's
 equivalent: an embedded, optionally file-backed log of (topic, partition)
 streams with monotonically increasing offsets -- the egress of a query's
@@ -114,9 +115,25 @@ class RecordLog:
         trace: Optional[bytes] = None,
     ) -> int:
         """Append one record; returns its offset."""
+        from ..faults import injection as _flt
+
         tp = (topic, partition)
         with self._lock:
             f = self._file_for(tp)
+            if _flt.ACTIVE is not None and f is not None:
+                # `log.torn_append` crash site: the injector lands half the
+                # frame durably and dies BEFORE the in-memory append, so
+                # the reload path (torn-tail truncation above) owns
+                # recovery -- the caller never saw this offset.
+                frame = bytearray(_HEADER.pack(0, timestamp))
+                for blob in (key, value):
+                    if blob is None:
+                        frame += _LEN.pack(-1)
+                    else:
+                        frame += _LEN.pack(len(blob)) + blob
+                _flt.ACTIVE.fire(
+                    "log.torn_append", file=f, payload=bytes(frame)
+                )
             records = self._records.setdefault(tp, [])
             offset = len(records)
             records.append(LogRecord(offset, timestamp, key, value, trace))

@@ -62,9 +62,12 @@ class SinkMatch:
     identity frames the EmissionGate digests (`admit_ident` -- digest
     parity with `admit(key, seq)` on the same match), `last_event` the
     completing event carrying the Record timestamp/topic/partition/offset.
-    `sequence` is set only by `sink_match_from_sequence`."""
+    `sequence` is set by `sink_match_from_sequence` and, for
+    provenance-sampled matches, by the engine's decode, which also sets
+    `lineage` (`match_lineage` of that sequence: the topology's explain
+    entry, with no re-decode downstream)."""
 
-    __slots__ = ("format", "payload", "ident", "last_event", "sequence")
+    __slots__ = ("format", "payload", "ident", "last_event", "sequence", "lineage")
 
     def __init__(
         self,
@@ -73,18 +76,67 @@ class SinkMatch:
         ident: bytes,
         last_event: Any,
         sequence: Optional[Sequence] = None,
+        lineage: Optional[dict] = None,
     ) -> None:
         self.format = format
         self.payload = payload
         self.ident = ident
         self.last_event = last_event
         self.sequence = sequence
+        self.lineage = lineage
 
     def __repr__(self) -> str:
         return (
             f"SinkMatch(format={self.format!r}, "
             f"payload={len(self.payload)}B, last={self.last_event!r})"
         )
+
+
+#: Bound on contributing-event identities carried per lineage record: an
+#: explain read is diagnostic, so a long chain must not balloon the ring.
+LINEAGE_MAX_EVENTS = 16
+
+
+def match_lineage(
+    sequence: Sequence,
+    provenance: Optional[Any] = None,
+    max_events: int = LINEAGE_MAX_EVENTS,
+) -> dict:
+    """The bounded lineage record of one match (the JAX package's
+    `match_lineage`): contributing event identities in chain order (stage,
+    topic, partition, offset, timestamp), the run's version path (stage
+    walk + branch depth, from `MatchProvenance` when sampled, re-derived
+    from the matched stages otherwise) and the chain depth. Identities
+    past `max_events` are dropped and counted in ``truncated_events``."""
+    events = []
+    total = 0
+    for staged in sequence.matched:
+        for e in staged.events:
+            total += 1
+            if len(events) < max_events:
+                events.append({
+                    "stage": staged.stage,
+                    "topic": getattr(e, "topic", ""),
+                    "partition": getattr(e, "partition", 0),
+                    "offset": getattr(e, "offset", 0),
+                    "timestamp": getattr(e, "timestamp", 0),
+                })
+    prov = provenance if provenance is not None else getattr(sequence, "provenance", None)
+    if prov is not None:
+        stage_path = list(prov.stage_path)
+        branch_depth = prov.branch_depth
+        chain_depth = prov.chain_depth
+    else:
+        stage_path = [st.stage for st in sequence.matched]
+        branch_depth = len(stage_path)
+        chain_depth = total
+    return {
+        "events": events,
+        "truncated_events": total - len(events),
+        "stage_path": stage_path,
+        "branch_depth": branch_depth,
+        "chain_depth": chain_depth,
+    }
 
 
 def sink_match_from_sequence(sequence: Sequence, format: str) -> SinkMatch:

@@ -189,9 +189,12 @@ def test_unpickler_maps_jax_paths_and_refuses_the_rest():
     assert type(got[0]) is _Lane and (got[0].index, got[0].key) == (3, "u1")
     assert got[1] == {"x": 1}
     from kafkastreams_cep_tpu.faults.injection import TransientFault
+    from kafkastreams_cep_tpu.streams.processor import CEPProcessor
+    from kafkastreams_cep_tpu_torch.faults.injection import TransientFault as PortTransientFault
 
+    assert type(serde.loads(pickle.dumps(TransientFault("site")))) is PortTransientFault
     with pytest.raises(pickle.UnpicklingError, match="no counterpart"):
-        serde.loads(pickle.dumps(TransientFault("site")))
+        serde.loads(pickle.dumps(CEPProcessor))
 
 
 # ----------------------------------------------------------- engine snapshots

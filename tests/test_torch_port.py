@@ -51,6 +51,10 @@ def test_port_import_loads_no_jax():
     code = (
         "import sys, kafkastreams_cep_tpu_torch\n"
         "import kafkastreams_cep_tpu_torch.ops.step_kernel\n"
+        "import kafkastreams_cep_tpu_torch.faults, kafkastreams_cep_tpu_torch.time\n"
+        "import kafkastreams_cep_tpu_torch.streams.driver\n"
+        "import kafkastreams_cep_tpu_torch.obs.http, kafkastreams_cep_tpu_torch.obs.trace_export\n"
+        "import kafkastreams_cep_tpu_torch.models.exchanges, kafkastreams_cep_tpu_torch.models.sensors\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('kafkastreams_cep_tpu.') or m == 'kafkastreams_cep_tpu']\n"
         "print(bad)\n"

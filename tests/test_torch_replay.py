@@ -80,6 +80,7 @@ PORTED_ENGINE_METRICS = {
     "cep_chain_depth_max", "cep_replay_ledger_overflow", "cep_fold_divergence_detected",
     "cep_replays_total", "cep_engine_state_counter", "cep_overflow_backpressure_total",
     "cep_overflow_dropped_total", "cep_advance_compute_seconds", "cep_engine_info",
+    "cep_provenance_sampled_total", "cep_sink_matches_total", "cep_sink_bytes_total",
 }
 #: Counters whose values the two engines must agree on.
 COUNTERS = ("cep_batches_total", "cep_drains_total", "cep_slots_total",

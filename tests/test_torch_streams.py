@@ -146,10 +146,10 @@ def _opt_id(case):
 @pytest.mark.parametrize("opt", [
     ({"runtime": "host"}, ValueError), ({"runtime": "tpu"}, ValueError),
     ({"sink_format": "arrow"}, ValueError),
-    ({"provenance_sample": 0.5}, TypeError),
+    ({"compile_cost_estimates": True}, TypeError),
     ({"target_emit_ms": 5.0}, TypeError), ({"drain_mode": "pool"}, TypeError),
     ({"mesh": object()}, TypeError),
-    ({"config": P.EngineConfig(reorder_capacity=4)}, ValueError),
+    ({"runtime": "auto"}, ValueError),
 ], ids=_opt_id)
 def test_unported_options_raise(opt):
     opt, exc = opt
