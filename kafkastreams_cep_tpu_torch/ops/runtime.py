@@ -27,12 +27,9 @@ def rebase_watermarks(watermark_ms: Any, n: int, ts_base: int) -> np.ndarray:
             raise ValueError(
                 f"watermark sequence length {len(seq)} != batch length {n}"
             )
-    if None not in seq:
-        return np.clip(np.asarray(seq, np.int64) - ts_base, lo, hi).astype(np.int32)
-    out = np.empty(n, np.int32)
-    for i, w in enumerate(seq):
-        out[i] = WM_NONE if w is None else int(min(max(int(w) - ts_base, lo), hi))
-    return out
+    # None maps to ts_base + lo, which the clip takes to lo == WM_NONE.
+    vals = np.asarray([ts_base + lo if w is None else w for w in seq], np.int64)
+    return np.clip(vals - ts_base, lo, hi).astype(np.int32)
 
 
 def materialize_sequence(

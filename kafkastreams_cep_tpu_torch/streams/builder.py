@@ -42,12 +42,10 @@ from ..obs.registry import default_registry
 from ..obs.trace import TraceContext
 from ..ops.profiling import LATENCY_BUCKETS
 from ..pattern.pattern import Pattern
-from ..state import serde as state_serde
 from ..state.naming import (
     changelog_topic,
     device_state_store,
     emitted_store,
-    event_time_store,
     normalize_query_name,
 )
 from ..state.nfa_store import EmissionStore
@@ -136,73 +134,6 @@ class QueryNode:
             self.stores[ds_name] = DeviceStateStore(
                 self, log, changelog_topic(app_id, ds_name), registry=registry,
             )
-
-
-class EventTimeStateStore:
-    """Changelog durability for a gate that lives outside its processor's
-    own snapshot (the JAX package's store of the same name, which its host
-    runtime registers).
-
-    Appends `encode_event_time_state(node.processor.event_time_state())`
-    (the gate's contents and the arrival marks it guards, one frame) to
-    `<app>-<query>-streamscep-eventtime-changelog` at every flush and
-    restores the newest snapshot that validates through
-    `node.processor.restore_event_time`; CRC-rejected tails are counted in
-    `cep_checkpoint_corrupt_total`. A valid snapshot the configured gate
-    cannot absorb raises ValueError. The port's `runtime="cuda"` node does
-    not register it: its processor snapshot carries the gate with the
-    engine state of the same commit (`DeviceStateStore`)."""
-
-    def __init__(self, node: Any, log: Any, topic: str,
-                 registry: Optional[Any] = None) -> None:
-        self.name = event_time_store(node.name)
-        self.node = node
-        self.log = log
-        self.topic = topic
-        self.metrics = registry if registry is not None else default_registry()
-        self._m_corrupt = self.metrics.counter(
-            "cep_checkpoint_corrupt_total",
-            "Checkpoint payloads rejected by CRC/framing validation",
-        )
-
-    @property
-    def persistent(self) -> bool:
-        return True
-
-    def flush(self) -> None:
-        if self.log is None:
-            return
-        self.log.append(
-            self.topic, None,
-            state_serde.encode_event_time_state(self.node.processor.event_time_state()),
-        )
-
-    def restore_from_changelog(self) -> int:
-        if self.log is None:
-            return 0
-        recs = self.log.read(self.topic)
-        for rec in reversed(recs):
-            if rec.value is None:
-                continue
-            try:
-                state = state_serde.decode_event_time_state(rec.value)
-            except state_serde.CheckpointError:
-                # Corrupt bytes: walk back to the previous generation.
-                self._m_corrupt.inc()
-                continue
-            try:
-                self.node.processor.restore_event_time(state)
-            except (ValueError, KeyError) as exc:
-                # A valid snapshot the configured gate cannot absorb is a
-                # configuration mismatch: restoring an empty gate over
-                # committed offsets would lose every buffered record.
-                raise ValueError(
-                    f"{self.name}: event-time snapshot does not match the "
-                    f"configured watermark generator ({exc}); restore with "
-                    "the original event-time config"
-                ) from exc
-            return len(recs)
-        return len(recs)
 
 
 class CEPStream:

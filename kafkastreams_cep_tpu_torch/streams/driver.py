@@ -2,7 +2,10 @@
 
 A copy of the JAX package's `streams/driver.py` over the port's
 `runtime="cuda"` topology, without adaptive pacing (`pacing=`; its
-`AdmissionPacer` is not ported).
+`AdmissionPacer` is not ported). Unlike the JAX driver, `poll` does not
+dead-letter what `Topology.process` raises: the port's processor
+quarantines the poison its schema cannot pack, so an error that escapes
+is the engine's and propagates, with nothing committed.
 
 The Kafka-Streams-runtime role the reference delegates to its platform
 (reference: the poll/process/commit loop of Kafka Streams' StreamThread
@@ -22,7 +25,7 @@ import time
 from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 from ..faults import injection as _flt
-from ..faults.injection import CEPOverflowError, TransientFault, with_retry
+from ..faults.injection import with_retry
 from ..obs.registry import MetricsRegistry, default_registry
 from ..obs.trace import SpanTracer
 from ..state.store import default_deserializer, default_serializer
@@ -123,8 +126,11 @@ class LogDriver:
                 f"on_poison must be quarantine|raise, got {on_poison!r}"
             )
         #: Poison policy: "quarantine" (default) dead-letters records that
-        #: fail deserialization or raise inside a predicate and keeps the
-        #: pump advancing; "raise" propagates them (fail-stop).
+        #: fail deserialization or that the processor quarantined (a value
+        #: its schema cannot pack) and keeps the pump advancing; "raise"
+        #: propagates them (fail-stop). Any other error of the topology (a
+        #: failed build, launch or decode, an overflow escalation, an
+        #: exhausted transient) propagates under both.
         self.on_poison = on_poison
         self.max_restore_attempts = max(1, max_restore_attempts)
         #: Partition scope (the rebalance layer's task assignment): when a
@@ -372,28 +378,20 @@ class LogDriver:
                         trace=getattr(rec, "trace", None),
                         broker=broker,
                     )
-                    try:
-                        self.topology.process(
-                            topic,
-                            key,
-                            value,
-                            timestamp=rec.timestamp,
-                            partition=partition,
-                            offset=rec.offset,
-                        )
-                    except (CEPOverflowError, TransientFault):
-                        # Policy escalation / an exhausted transient
-                        # (infrastructure, not data): never misclassify as
-                        # poison -- quarantining it would also silently
-                        # drop the rest of an in-flight device batch.
-                        raise
-                    except Exception as exc:
-                        self._dead_letter(
-                            topic, partition, rec.offset,
-                            rec.key, rec.value, rec.timestamp,
-                            "predicate", exc,
-                            trace=getattr(rec, "trace", None),
-                        )
+                    # Not guarded: the processor quarantines the poison
+                    # its schema cannot pack (dead-lettered below), so an
+                    # error that escapes is the engine's -- a failed
+                    # build, launch or decode of a flush this record
+                    # started -- and dead-lettering it would drop the
+                    # whole batch that flush was driving.
+                    self.topology.process(
+                        topic,
+                        key,
+                        value,
+                        timestamp=rec.timestamp,
+                        partition=partition,
+                        offset=rec.offset,
+                    )
                     processed += 1
                 if records:
                     self._positions[(topic, partition)] = records[-1].offset + 1
@@ -456,9 +454,9 @@ class LogDriver:
 
     def _quarantine_flushed(self) -> None:
         """Dead-letter records the device runtime quarantined at flush
-        time (poison only detectable at pack/predicate-eval; the original
-        wire bytes are gone by then, so key/value re-serialize through the
-        default serde)."""
+        time (poison only detectable at pack; the original wire bytes are
+        gone by then, so key/value re-serialize through the default
+        serde)."""
         for query, _key, event, exc in self.topology.take_poisoned():
             self._dead_letter(
                 event.topic or query,

@@ -15,6 +15,10 @@ on the CPU.
     metric names are a subset of the JAX run's, and
     `cep_match_latency_seconds` counts one sample per sink match of the
     uninterrupted run and, across the restart, as many as the JAX run;
+  * an engine failure is not poison: a failed native build or decode
+    of a flush that `poll` started raises out of `LogDriver.poll` with
+    the dead-letter topic empty and nothing committed (the JAX driver
+    dead-letters it as a predicate failure and moves on);
   * the fault sites of the port (faults/injection.py): a transient
     `engine.device_step` is retried, crashes at `engine.mid_drain`,
     `driver.pre_commit` and `log.torn_append` recover from disk, and the
@@ -191,6 +195,50 @@ def test_driver_metric_names_are_jax_names_and_latency_counts_every_match(runs):
     # restored from the snapshot's gate buffer has no stamp: as in JAX.
     assert latency(runs["port_whole"]) == [len(runs["port_whole"]["sink"])]
     assert latency(port) == latency(jax)
+
+
+def _break_build(monkeypatch, _topo):
+    from kafkastreams_cep_tpu_torch import native
+
+    def broken(name, cxx=None, build_dir=None):
+        raise native.NativeBuildError(f"building the native {name} failed: test")
+
+    monkeypatch.setattr(native, "build_ext", broken)
+    monkeypatch.setattr(native, "_mods", {})
+    return native.NativeBuildError, "failed: test"
+
+
+def _break_decoder(_monkeypatch, topo):
+    class BrokenDecoder:
+        def decode_matches_flat(self, *args):
+            raise RuntimeError("decoder failed")
+
+    topo.queries[0][1].processor.engine._decoder = BrokenDecoder()
+    return RuntimeError, "decoder failed"
+
+
+@pytest.mark.parametrize("breakage", [_break_build, _break_decoder],
+                         ids=["native_build", "decode"])
+def test_engine_failure_raises_out_of_poll_and_commits_nothing(monkeypatch, breakage):
+    """A failed build or decode of a flush that `poll` started is the
+    engine's, not the record's: it raises out of `LogDriver.poll`, the
+    dead-letter topic stays empty and no offset is committed, so a
+    restart replays the whole batch."""
+    log = P.RecordLog()
+    for i, (key, value, ts) in enumerate(_records()):
+        if i != 37:  # no pack poison: nothing may land in the DLQ
+            P.produce(log, TOPIC, key, value, timestamp=ts)
+    reg = MetricsRegistry()
+    topo = _topology(P, log, reg)
+    exc_type, message = breakage(monkeypatch, topo)
+    driver = P.LogDriver(topo, group="g", registry=reg)
+    with pytest.raises(exc_type, match=message):
+        driver.poll()
+    assert log.read(dlq_topic(TOPIC)) == []
+    assert log.read("__consumer_offsets") == []
+    assert topo.take_poisoned() == []
+    assert reg.get("cep_driver_dead_letters_total").labels(
+        topic=TOPIC, reason="predicate").value == 0
 
 
 def _fault_run(tmp_path, schedule, registry):

@@ -23,9 +23,8 @@
     into a gated config; a gated snapshot refuses a gateless one;
   * one error class: a `CEPOverflowError` raised by the gate is the
     engine's, and leaves the high-water mark so the retry admits;
-  * `EventTimeStateStore`: changelog bytes equal to the JAX store's,
-    restored across packages, past a corrupt record, refusing a
-    mismatched generator;
+  * the flush's "wm" column (`rebase_watermarks`) equal to the JAX
+    package's: scalars, None entries, clamping;
   * the copied event-time models (exchanges, sensors).
 
 One JAX engine configuration (`CFG`, K = 8, the skip-till-any pattern) is
@@ -35,6 +34,7 @@ batch length.
 import dataclasses
 import random
 
+import numpy as np
 import pytest
 import torch
 
@@ -49,11 +49,9 @@ from kafkastreams_cep_tpu.obs.registry import MetricsRegistry as JaxRegistry  # 
 from kafkastreams_cep_tpu.ops.engine import EngineConfig as JaxEngineConfig  # noqa: E402
 from kafkastreams_cep_tpu.parallel import BatchedDeviceNFA as JaxBatched  # noqa: E402
 from kafkastreams_cep_tpu.state import serde as jax_serde  # noqa: E402
-from kafkastreams_cep_tpu.streams.builder import EventTimeStateStore as JaxETStore  # noqa: E402
 from kafkastreams_cep_tpu.streams.device_processor import (  # noqa: E402
     DeviceCEPProcessor as JaxProcessor,
 )
-from kafkastreams_cep_tpu.streams.log import RecordLog as JaxRecordLog  # noqa: E402
 from kafkastreams_cep_tpu.streams.serde import sequence_to_json as jax_json  # noqa: E402
 from kafkastreams_cep_tpu_torch import time as ptime  # noqa: E402
 from kafkastreams_cep_tpu_torch.core.event import Event  # noqa: E402
@@ -64,7 +62,6 @@ from kafkastreams_cep_tpu_torch.state import serde  # noqa: E402
 from kafkastreams_cep_tpu_torch.state.aggregates import AggregatesStore  # noqa: E402
 from kafkastreams_cep_tpu_torch.state.buffer import SharedVersionedBuffer  # noqa: E402
 from kafkastreams_cep_tpu_torch.streams import errors  # noqa: E402
-from kafkastreams_cep_tpu_torch.streams.builder import EventTimeStateStore  # noqa: E402
 from kafkastreams_cep_tpu_torch.streams.device_processor import DeviceCEPProcessor  # noqa: E402
 
 TS = 1_000_000
@@ -584,77 +581,29 @@ def test_gate_overflow_raise_is_the_engine_error_and_keeps_the_hwm():
     assert proc.gate.occupancy == 1 or res, "the retry must not be deduped"
 
 
-# --------------------------------------------------------- event-time store
-class _GateHolder:
-    """A processor face over one gate: what EventTimeStateStore reads."""
+# ------------------------------------------------------- the "wm" column
+@pytest.mark.parametrize("watermarks", [
+    1_000_040, None, [None, None, None], [1_000_003, None, 1_000_010],
+    [2**62, -(2**62), 1_000_000], [np.int64(1_000_007)] * 3,
+], ids=["scalar", "none", "all_none", "some_none", "clamped", "numpy"])
+def test_rebase_watermarks_equals_jax(watermarks):
+    """The flush's "wm" column: absolute clocks rebased to the batch's
+    timestamp base, None as WM_NONE, clamped into i32; equal to the JAX
+    package's column."""
+    from kafkastreams_cep_tpu.ops.runtime import rebase_watermarks as jax_rebase
+    from kafkastreams_cep_tpu_torch.ops.runtime import rebase_watermarks
 
-    def __init__(self, gate):
-        self.gate = gate
-        self.hwm = {"t#0": 7}
-
-    def event_time_state(self):
-        state = self.gate.snapshot_state()
-        state["hwm"] = dict(self.hwm)
-        return state
-
-    def restore_event_time(self, state):
-        self.gate.restore_state(state)
-        self.hwm = dict(state.get("hwm", {}))
-
-
-class _Node:
-    def __init__(self, gate):
-        self.name = "q"
-        self.processor = _GateHolder(gate)
+    got = rebase_watermarks(watermarks, 3, TS)
+    want = jax_rebase(watermarks, 3, TS)
+    assert got.dtype == want.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
 
 
-def test_event_time_state_store_changelog_equals_jax():
-    topic = "app-q-streamscep-eventtime-changelog"
-    arrivals = _arrivals(seed=11)
-    jg = jtime.EventTimeGate(capacity=64, lateness_ms=3, registry=JaxRegistry())
-    pg = ptime.EventTimeGate(capacity=64, lateness_ms=3, registry=MetricsRegistry())
-    jlog, plog = JaxRecordLog(), P.RecordLog()
-    jstore = JaxETStore(_Node(jg), jlog, topic, registry=JaxRegistry())
-    preg = MetricsRegistry()
-    pstore = EventTimeStateStore(_Node(pg), plog, topic, registry=preg)
-    assert pstore.name == jstore.name and pstore.persistent
-    for part in (arrivals[:30], arrivals[30:60]):
-        for a in part:
-            jg.offer(_ev(JaxEvent, a))
-            pg.offer(_ev(Event, a))
-        jstore.flush()
-        pstore.flush()
-    jbytes = [r.value for r in jlog.read(topic)]
-    assert [r.value for r in plog.read(topic)] == jbytes
-    # The JAX store's changelog restores a fresh port gate, and back.
-    fresh = ptime.EventTimeGate(capacity=64, lateness_ms=3, registry=MetricsRegistry())
-    cross_log = P.RecordLog()
-    for b in jbytes:
-        cross_log.append(topic, None, b)
-    node = _Node(fresh)
-    node.processor.hwm = {}
-    assert EventTimeStateStore(node, cross_log, topic, registry=preg).restore_from_changelog() == 2
-    assert serde.encode_event_time_state(node.processor.event_time_state()) == jbytes[-1]
-    jfresh = jtime.EventTimeGate(capacity=64, lateness_ms=3, registry=JaxRegistry())
-    jlog2 = JaxRecordLog()
-    for r in plog.read(topic):
-        jlog2.append(topic, None, r.value)
-    JaxETStore(_Node(jfresh), jlog2, topic, registry=JaxRegistry()).restore_from_changelog()
-    assert jax_serde.encode_event_time_state(jfresh.snapshot_state()) == \
-        jax_serde.encode_event_time_state(jg.snapshot_state())
-    # A corrupt newest record falls back to the one before, counted.
-    torn = P.RecordLog()
-    torn.append(topic, None, jbytes[0])
-    torn.append(topic, None, jbytes[1][:-3] + b"xyz")
-    node = _Node(ptime.EventTimeGate(capacity=64, lateness_ms=3, registry=MetricsRegistry()))
-    EventTimeStateStore(node, torn, topic, registry=preg).restore_from_changelog()
-    assert serde.encode_event_time_state(node.processor.event_time_state()) == jbytes[0]
-    assert preg.get("cep_checkpoint_corrupt_total").value == 1
-    # A valid snapshot of another generator kind is refused.
-    other = _Node(ptime.EventTimeGate(capacity=64, generator=ptime.ArrivalOrderWatermark(),
-                                      registry=MetricsRegistry()))
-    with pytest.raises(ValueError):
-        EventTimeStateStore(other, cross_log, topic, registry=preg).restore_from_changelog()
+def test_rebase_watermarks_refuses_a_column_of_another_length():
+    from kafkastreams_cep_tpu_torch.ops.runtime import rebase_watermarks
+
+    with pytest.raises(ValueError, match="length 2 != batch length 3"):
+        rebase_watermarks([TS, TS], 3, TS)
 
 
 # -------------------------------------------------------------------- models
