@@ -4,8 +4,10 @@
     python3 chip_smoke.py
 
 Builds the step kernel from csrc/ with nvcc (one build per compiled query
-and capacity, the flagship's grown shape and the fold query of phase 13
-included; the event-time phases reuse the flagship's build), the GC mark
+and capacity, the flagship's grown shape, phase 18's arm shape and the
+fold query of phase 13 included; the event-time phases reuse the
+flagship's build, and the shapes phase 18's autosizer grows to build
+inside that phase, timed), the GC mark
 kernel (csrc/gc_mark.cu, one build) and the native
 packer, decoder and CRC-32C from native/ with g++, all started together,
 then:
@@ -129,8 +131,47 @@ then:
      finishes: its sink must equal the uninterrupted run's, every match
      once, in order, the poison record dead-lettered once; prints the
      time to recover;
- 16. prints the kernel line (with the `wm` run's numbers under
-     nfa_step), the card line, and last the ok line.
+ 16. the host runtime: the stock golden through a `runtime="host"`
+     topology (4 matches, phase 7's output; no card);
+ 17. `runtime="auto"` at the flagship, with the JAX package's defaults
+     (promote_after 64, buffer_max 65,536, autosize on; batch_size
+     131,072): the full streams of 63 keys (40,320 records) on the host
+     runtime, then the other 1,985 keys in phase 5's interleaved order; the
+     64th key promotes the query and the ledger replays through the card.
+     Checks: the sink equals phase 5's per key, each match once; one
+     promotion, runtime "cuda"; drops 0; `nfa_step` and `gc_mark`
+     launched, the step kernel bitwise to the plain step on the first
+     post-promotion batch. Prints the host phase's records/s, the
+     promotion's wall and its replay share, the device phase's records/s
+     beside phase 5's, match latency p50/p99 (ingest stamped per record as
+     the driver does), the autosizer's and the DrainController's
+     `state()`, and the nvcc builds;
+ 18. controllers on the engine: the flagship deferred
+     (`advance_packed(decode=False)`, one drain at the end) from an arm
+     shape of lanes 224, nodes 2048, a ring of 8 pages and gc_group 4,
+     with a `CapacityAutosizer` ticked after every advance (its
+     `DrainController` arms micro-drains, max_emit_ms 100, gc_group held
+     at 4). The flagship's peaks (183 lanes, 1,609 nodes) sit above the
+     75 % grow line: the autosizer must grow, and the phase must drop
+     nothing. Checks: matches equal phase 4's; no micro-drain pull flushed
+     the GC group, and every flush is on the G = 4 cadence or forced by
+     region pressure or a resize. Prints the resizes, their walls and
+     nvcc builds, the pulls by trigger, events/s with the decode worker
+     (resize walls excluded) beside phase 4's, and for each grown shape
+     the kernel held bitwise to the plain step and timed on its first
+     batch there, with its bound; then the decode worker against inline
+     decode (each pulled table decoded on the calling thread) on the
+     flagship deferred with micro-drains, in the order worker, inline,
+     inline, worker, each run's matches equal to phase 4's;
+ 19. the paced `LogDriver`: phase 15's log again, `pacing=True` (the
+     `AdmissionPacer` sizes each poll), no commits: the sink must equal
+     phase 15's per key (other poll sizes interleave the keys
+     otherwise), each match once; prints records/s and the budgets the
+     pacer chose;
+ 20. prints the kernel line (with the `wm`, `auto`, `controllers` and
+     `paced_driver` runs' numbers under nfa_step and gc_mark, the grown
+     shapes' times and bounds among them), the card line, and last the
+     ok line.
 
 Each phase that drives the main path zeroes the kernels' launch counts
 just before and reads them just after, and fails if a kernel was not
@@ -299,6 +340,10 @@ def main() -> int:
     builds["skip_any8"] = (flag_q, flag_cfg, None)
     grown_cfg = replace(flag_cfg, lanes=640, nodes=16384)
     builds["skip_any8_grown"] = (flag_q, grown_cfg, None)
+    # Phase 18's arm shape (its grown shapes build when the autosizer
+    # resizes, inside the phase).
+    arm_cfg = replace(flag_cfg, lanes=224, nodes=2048, matches=8 * flag_cfg.matches, gc_group=4)
+    builds["skip_any8_arm"] = (flag_q, arm_cfg, None)
     gold_q = P.compile_query(P.compile_pattern(stocks_pattern()), P.EventSchema(STOCK_FIELDS))
     gold_cfg = P.EngineConfig(lanes=32, nodes=512, matches=64)
     builds["stock_golden"] = (gold_q, gold_cfg, None)
@@ -490,14 +535,16 @@ def main() -> int:
         eng._pull_raw_flat = timed("probe+flatten+D2H", eng._pull_raw_flat)
         decode = timed("decode", eng._decode_flat)
 
-        def decode_and_check(raw, trigger="drain"):
-            out = decode(raw, trigger)
+        def decode_and_check(raw, trigger="drain", events=None):
+            # On the decode worker: the drain joins it, so its walls fall
+            # inside the drain's.
+            out = decode(raw, trigger, events)
             if check_host:
                 t = time.perf_counter()
                 clock_on, gc_clock.on = gc_clock.on, False
                 counts = raw["counts"].astype("int32")
                 planes = [raw["table"][i].transpose(2, 0, 1) for i in range(3)]
-                ref = eng._decode_flat_python(counts, *planes)
+                ref = eng._decode_flat_python(counts, *planes, events)
                 if seqs_json(out) != seqs_json(ref):
                     raise AssertionError("native decode != Python decode of a drained table")
                 decode_checks[0] += 1
@@ -1381,7 +1428,7 @@ def main() -> int:
         f"late 0, reorder overflow 0, drops 0; nfa_step launches {gated['launches']} and "
         f"gc_mark launches {gated['gc_launches']} for {gated['flushes']} flushes "
         f"({gated['gc_flushes']} group flushes)")
-    del gated_in_order, engine_matches
+    del gated_in_order
 
     # The step on flush 3's batch, which carries the gate's wm column; then
     # the same batch with every clock pushed up to 16 ms past its event
@@ -1449,7 +1496,7 @@ def main() -> int:
             self.values.append(v)
             self.child.observe(v)
 
-    def driver_on(log_):
+    def driver_on(log_, pacing=None):
         reg = MetricsRegistry()
         builder = P.ComplexStreamsBuilder(log=log_)
         out = builder.stream("letters").query(
@@ -1459,7 +1506,7 @@ def main() -> int:
         topo = builder.build()
         latency = out.node._m_match_latency = LatencyRecorder(out.node._m_match_latency)
         t = time.perf_counter()
-        driver = P.LogDriver(topo, group="g", registry=reg)
+        driver = P.LogDriver(topo, group="g", registry=reg, pacing=pacing)
         return driver, latency, time.perf_counter() - t
 
     def pump(driver, commit_ms, polls, stop_after=None):
@@ -1481,6 +1528,7 @@ def main() -> int:
     def sink_of(log_):
         return [(r.key, r.value) for r in log_.read("matches")]
 
+    paced_tmp = tempfile.mkdtemp(prefix="chip_smoke_paced_")
     with tempfile.TemporaryDirectory(prefix="chip_smoke_driver_") as tmp:
         whole_dir, restart_dir = f"{tmp}/whole", f"{tmp}/restart"
         plog = P.RecordLog(whole_dir)
@@ -1494,6 +1542,7 @@ def main() -> int:
         n_log = plog.end_offset("letters")
         plog.close()
         shutil.copytree(whole_dir, restart_dir)
+        shutil.copytree(whole_dir, f"{paced_tmp}/log")  # phase 19's
         del arrivals
 
         # The uninterrupted run: the reference sink.
@@ -1584,9 +1633,349 @@ def main() -> int:
         f"matches each once, in order; the poison record once in the dead-letter topic; "
         f"ms per commit {[round(x, 1) for x in restart_commit_ms]}; nfa_step launches "
         f"{restart_launches}")
-    del whole_sink, restart_sink, lat
+    del restart_sink, lat
 
-    # -- 16. the kernel line, the card line, the ok line ----------------------
+    # -- 16. the host runtime: the stock golden through runtime="host" -------
+    builder = P.ComplexStreamsBuilder()
+    host_out = builder.stream("stock-events").query(
+        "Stocks", stocks_pattern(), P.Queried(schema=P.EventSchema(STOCK_FIELDS)),
+        runtime="host")
+    host_topo = builder.build()
+    for i, e in enumerate(GOLDEN_EVENTS):
+        host_topo.process("stock-events", "K1", e, timestamp=i)
+    got = [P.sequence_to_json(r.value) for r in host_out.records]
+    if got != GOLDEN_MATCHES:
+        raise AssertionError(f"stock golden through runtime='host': {got}")
+    log("stock golden through a runtime='host' topology: 4 matches, == phase 7's "
+        "runtime='cuda' output")
+    del builder, host_out, host_topo
+
+    # -- 17. runtime="auto" at the flagship: host phase, promotion, card -----
+    from kafkastreams_cep_tpu_torch.ops import kernel_build
+
+    from kafkastreams_cep_tpu_torch.streams.auto_router import AutoRoutingProcessor
+
+    n_host_keys = AutoRoutingProcessor.PROMOTE_AFTER - 1  # the last host-phase key count
+    auto_reg, auto_log = MetricsRegistry(), P.RecordLog()
+    builder = P.ComplexStreamsBuilder(log=auto_log)
+    auto_out = builder.stream("letters").query(
+        "skip_any8", skip_any.skip_any8_pattern(), runtime="auto", config=flag_cfg,
+        batch_size=K * T, initial_keys=K, registry=auto_reg,
+    ).to("matches")
+    auto_topo = builder.build()
+    router = auto_out.node.processor
+    auto_lat = auto_out.node._m_match_latency = LatencyRecorder(auto_out.node._m_match_latency)
+    stamp, process = auto_topo.stamp_ingest, auto_topo.process
+    host_recs = [(k, e) for k in keys[:n_host_keys] for e in streams[k]]
+    dev_recs = [(k, streams[k][b * T + t]) for b in range(n_batches) for t in range(T)
+                for k in keys[n_host_keys:]]
+    builds0 = len(kernel_build.BUILDS)
+    sk.NfaStep.launches = gk.GcMark.launches = 0
+    t0 = time.perf_counter()
+    for key, e in host_recs:
+        stamp("letters", 0, key, e.offset, time.perf_counter())
+        process("letters", key, e.value, timestamp=e.timestamp, offset=e.offset)
+    host_s = time.perf_counter() - t0
+    if router.runtime != "host" or sk.NfaStep.launches:
+        raise AssertionError(f"auto: {router.runtime} with {sk.NfaStep.launches} launches "
+                             f"after the {n_host_keys} host keys")
+    key, e = dev_recs[0]
+    t1 = time.perf_counter()
+    stamp("letters", 0, key, e.offset, time.perf_counter())
+    process("letters", key, e.value, timestamp=e.timestamp, offset=e.offset)
+    torch.cuda.synchronize()
+    promote_s = time.perf_counter() - t1
+    if router.runtime != "cuda":
+        raise AssertionError(f"auto: key {n_host_keys + 1} did not promote the query")
+    promo = dict(router.promotion)
+    # One post-promotion batch for the kernel check: the next step's inputs.
+    captured, advance = {}, router.engine._advance
+
+    def capture_once(state, xs):
+        router.engine._advance = advance
+        captured["pair"] = (state, xs)
+        return advance(state, xs)
+
+    router.engine._advance = capture_once
+    t2 = time.perf_counter()
+    for key, e in dev_recs[1:]:
+        stamp("letters", 0, key, e.offset, time.perf_counter())
+        process("letters", key, e.value, timestamp=e.timestamp, offset=e.offset)
+    auto_topo.flush()
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t2
+    auto_launches = launched("auto", sk.NfaStep.launches)
+    auto_gc_launches = launched("auto (gc_mark)", gk.GcMark.launches)
+    auto_builds = kernel_build.BUILDS[builds0:]
+    no_drops("auto", router.device)
+    auto_state = router.state()
+    promotions = auto_reg.get("cep_auto_promotions_total").labels(query="skip_any8").value
+    runtime_gauge = auto_reg.get("cep_auto_runtime")
+    if promotions != 1 or runtime_gauge.labels(query="skip_any8", runtime="cuda").value != 1:
+        raise AssertionError(f"auto: {promotions} promotions, runtime {auto_state['runtime']}")
+    auto_sink = [(r.key, r.value) for r in auto_log.read("matches")]
+    digests = [decode_sink_key(k)[1] for k, _v in auto_sink]
+    if len(set(digests)) != len(digests):
+        raise AssertionError("auto: the sink holds a match twice")
+    by_key = {}
+    for k, v in auto_sink:
+        by_key.setdefault(decode_sink_key(k)[0], []).append(v.decode())
+    if by_key != engine_matches:
+        bad = [k for k in keys if by_key.get(k) != engine_matches.get(k)]
+        raise AssertionError(f"auto: the sink differs from phase 5's on {len(bad)} keys")
+    state, xs = captured.pop("pair")
+    plain_a = build_plain_step(flag_q, flag_cfg)
+    s1, y1 = plain_a(state, xs)
+    s2, y2 = sk.launch(flag_lib, flag_q, flag_cfg, state, xs)
+    torch.cuda.synchronize()
+    auto_err = max(max_abs_diff(s1, s2), max_abs_diff(y1, y2))
+    del s1, y1, s2, y2, state, xs, plain_a
+    auto_lat_t = torch.tensor(auto_lat.values, dtype=torch.float64)
+    if auto_lat_t.numel() != len(auto_sink):
+        raise AssertionError(f"auto: {auto_lat_t.numel()} latency samples for "
+                             f"{len(auto_sink)} sink matches")
+    dev_rps = (len(dev_recs) - 1) / dev_s
+    log(f"auto (promote_after {n_host_keys + 1}, buffer_max 65,536, autosize on; batch_size "
+        f"{K * T}): host "
+        f"phase {len(host_recs)} records of {n_host_keys} keys at "
+        f"{len(host_recs) / host_s:.0f} records/s; promotion at key {n_host_keys + 1} in "
+        f"{promote_s * 1e3:.1f} ms ({promo['wall_s'] * 1e3:.1f} ms in the router, ledger "
+        f"replay {promo['replay_s'] * 1e3:.1f} ms = {promo['replay_s'] / promo['wall_s']:.1%}; "
+        f"{promo['ledger']} ledger records, {promo['replayed_matches']} replayed matches, "
+        f"{promo['host_matches']} already emitted by the host); device phase "
+        f"{len(dev_recs) - 1} records at {dev_rps:.0f} records/s (phase 5, objects, same "
+        f"run: {topo_rps:.0f}); match latency p50 "
+        f"{float(auto_lat_t.quantile(0.5)) * 1e3:.1f} ms, p99 "
+        f"{float(auto_lat_t.quantile(0.99)) * 1e3:.1f} ms over {auto_lat_t.numel()} samples")
+    log(f"auto: {len(auto_sink)} sink matches == phase 5's per key, each once; 1 promotion, "
+        f"runtime cuda; drops 0; nfa_step launches {auto_launches}, gc_mark launches "
+        f"{auto_gc_launches}; the step kernel == plain bitwise on the first post-promotion "
+        f"batch; nvcc builds {[(n, round(sec, 1)) for n, _t, sec in auto_builds]}; autosizer "
+        f"{json.dumps(auto_state['autosizer'])}; DrainController knobs "
+        f"{json.dumps(router.autosizer.cadence.state())}; engine signatures "
+        f"{router.engine.compile_watch.builds()}")
+    del auto_topo, auto_out, router, auto_log, auto_sink, by_key, builder, host_recs, dev_recs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 18. controllers on the engine: autosizer + micro-drains, deferred ---
+    arm = new_engine(arm_cfg)
+    autosizer = P.parallel.CapacityAutosizer(arm, max_emit_ms=100.0, gc_group_min=4,
+                                             gc_group_max=4)
+    pulls, flush_log, in_micro = [], [], [False]
+    pull_raw, flush_group, resize = arm._pull_raw, arm._flush_group, arm.resize
+
+    def counting_pull(trigger="drain"):
+        in_micro[0] = trigger == "micro_drain"
+        before = arm.flushes
+        try:
+            return pull_raw(trigger=trigger)
+        finally:
+            in_micro[0] = False
+            pulls.append((trigger, arm.flushes - before))
+
+    def classified_flush():
+        n = len(arm._group_ys)
+        flush_group()
+        if n:
+            flush_log.append("micro" if in_micro[0] else ("cadence" if n == arm.gc_group
+                                                          else "forced"))
+
+    resize_walls, resized_pairs = [], {}
+
+    def timed_resize(cfg):
+        t = time.perf_counter()
+        out = resize(cfg)
+        resize_walls.append(time.perf_counter() - t)
+        return out
+
+    arm._pull_raw, arm._flush_group, arm.resize = counting_pull, classified_flush, timed_resize
+    step = arm._advance
+
+    def capture_shape(state, xs):
+        shape = (arm.config.lanes, arm.config.nodes)
+        resized_pairs.setdefault(shape, (arm.config, state, xs))
+        return arm._advance_inner(state, xs)
+
+    builds0 = len(kernel_build.BUILDS)
+    sk.NfaStep.launches = gk.GcMark.launches = 0
+    m_ctl, t0 = {}, None
+    for b in range(n_batches):
+        if b == n_warm:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            resize_walls.clear()
+        arm._advance_inner = arm._advance
+        arm._advance = capture_shape
+        arm.advance_packed(arm.pack(batch_of(b)), decode=False)
+        arm._advance = arm._advance_inner
+        autosizer.observe(events=K * T, t=T)
+    for key, seqs in arm.drain().items():
+        m_ctl.setdefault(key, []).extend(P.sequence_to_json(s) for s in seqs)
+    torch.cuda.synchronize()
+    ctl_s = time.perf_counter() - t0 - sum(resize_walls)
+    ctl_launches = launched("controllers", sk.NfaStep.launches)
+    ctl_gc_launches = launched("controllers (gc_mark)", gk.GcMark.launches)
+    ctl_builds = kernel_build.BUILDS[builds0:]
+    no_drops("controllers", arm)
+    if m_ctl != engine_matches:
+        bad = [k for k in keys if m_ctl.get(k) != engine_matches.get(k)]
+        raise AssertionError(f"controllers: matches differ from phase 4's on {len(bad)} keys")
+    micro = [f for trig, f in pulls if trig == "micro_drain"]
+    if "micro" in flush_log or any(micro):
+        raise AssertionError("controllers: a micro-drain flushed the GC group")
+    if arm.flushes != len(flush_log):
+        raise AssertionError(f"controllers: {arm.flushes} flushes, {len(flush_log)} logged")
+    ctl_state = autosizer.state()
+    triggers = {t: sum(1 for trig, _f in pulls if trig == t) for t, _f in pulls}
+    resized_rows = []
+    for (lanes, nodes), (cfg, state, xs) in sorted(resized_pairs.items()):
+        if (lanes, nodes) == (arm_cfg.lanes, arm_cfg.nodes):
+            continue
+        r_lib = sk.load_library(sk.build_library(flag_q, cfg))
+        plain_r = build_plain_step(flag_q, cfg)
+        s1, y1 = plain_r(state, xs)
+        s2, y2 = sk.launch(r_lib, flag_q, cfg, state, xs)
+        torch.cuda.synchronize()
+        r_err = max(max_abs_diff(s1, s2), max_abs_diff(y1, y2))
+        del s1, y1, s2, y2
+        ptrs, T_, K_, s_out, ys, keep = sk.prepare(flag_q, cfg, state, xs,
+                                                   int(r_lib.nfa_step_scratch_words()))
+        r_ms = cuda_ms(lambda: sk.call(r_lib, ptrs, T_, K_, dev), reps=20)
+        r_plain_ms = cuda_ms(lambda: plain_r(state, xs), reps=1)
+        r_moved = bytes_moved(state, s_out, ys, keep)
+        resized_rows.append(dict(lanes=lanes, nodes=nodes, max_abs_err=r_err, ms=r_ms,
+                                 plain_ms=r_plain_ms, bound_ms=r_moved / HBM_BYTES_PER_S * 1e3,
+                                 bound_by="bytes"))
+        del ptrs, s_out, ys, keep, plain_r
+    del resized_pairs
+    if ctl_state["resizes"] == 0:
+        raise AssertionError("controllers: the autosizer did not grow at the arm shape")
+    ctl_eps = n_timed * T * K / ctl_s
+    log(f"controllers (deferred, arm lanes {arm_cfg.lanes} nodes {arm_cfg.nodes} matches "
+        f"{arm_cfg.matches} gc_group {arm_cfg.gc_group}; CapacityAutosizer with a "
+        f"DrainController, max_emit_ms 100, gc_group held at 4): matches == phase 4's, drops 0; "
+        f"autosizer {json.dumps({k: v for k, v in ctl_state.items() if k != 'cadence'})}; "
+        f"resize walls {[round(x, 2) for x in resize_walls]} s; nvcc builds "
+        f"{[(n, round(sec, 1)) for n, _t, sec in ctl_builds]}; engine signatures "
+        f"{arm.compile_watch.builds()}")
+    log(f"controllers: pulls by trigger {triggers} (micro-drains {len(micro)}, none of them "
+        f"flushed); {arm.flushes} group flushes for {n_batches} advances at G=4 "
+        f"({flush_log.count('cadence')} on the cadence, {flush_log.count('forced')} forced by "
+        f"region pressure, a resize or the drain); {ctl_eps:.0f} events/s over the "
+        f"{n_timed} timed deferred batches with the decode worker, resize walls excluded "
+        f"(phase 4, same run: {e2e_eps:.0f}); DrainController "
+        f"{json.dumps(ctl_state['cadence'])}; nfa_step launches {ctl_launches}, gc_mark "
+        f"launches {ctl_gc_launches}")
+    for row in resized_rows:
+        log(f"nfa_step at the autosizer's shape lanes {row['lanes']} nodes {row['nodes']} "
+            f"(its first batch there): kernel == plain bitwise, kernel {row['ms']:.4f} ms, "
+            f"plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_ms'] / row['ms']:.1%} of it)")
+    arm.close()
+    del arm, autosizer, m_ctl
+
+    # The decode worker against inline decode: the same deferred run
+    # (flagship shape, an 8-page ring, micro-drains every 50 ms), once
+    # with the worker and once with each pulled table decoded on the
+    # calling thread.
+    import concurrent.futures
+
+    def micro_run(inline: bool):
+        eng = new_engine(replace(flag_cfg, matches=8 * flag_cfg.matches), target_emit_ms=100.0)
+        if inline:
+            def submit_inline(raw):
+                fut = concurrent.futures.Future()
+                fut.set_result(eng._decode_job(raw, eng._events))
+                eng._decode_futs.append(fut)
+
+            eng._submit_decode = submit_inline
+        out, t0 = {}, None
+        for b in range(n_batches):
+            if b == n_warm:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            eng.advance_packed(eng.pack(batch_of(b)), decode=False)
+        for key, seqs in eng.drain().items():
+            out.setdefault(key, []).extend(P.sequence_to_json(s) for s in seqs)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        decode_s = eng.metrics.get("cep_decode_seconds").sum
+        micro_n = eng.metrics.get("cep_auto_drains_total").labels(trigger="micro_drain").value
+        eng.close()
+        return out, secs, decode_s, micro_n
+
+    overlap = {False: [], True: []}
+    for inline in (False, True, True, False):
+        m_run, secs, dec_s, n_micro = micro_run(inline)
+        if m_run != engine_matches:
+            raise AssertionError(f"decode {'inline' if inline else 'worker'}: matches differ "
+                                 "from phase 4's")
+        overlap[inline].append((secs, dec_s, n_micro))
+    del m_run
+
+    def overlap_str(rows):
+        return "; ".join(f"{n_timed * T * K / secs:.0f} events/s ({secs * 1e3:.1f} ms, decode "
+                         f"{dec * 1e3:.1f} ms, {n:.0f} micro-drains)" for secs, dec, n in rows)
+
+    log(f"decode worker vs inline decode (flagship, deferred, micro-drains at "
+        f"target_emit_ms 100, runs in the order worker, inline, inline, worker; "
+        f"{n_timed} timed batches): worker {overlap_str(overlap[False])}; inline "
+        f"{overlap_str(overlap[True])}; the native decoder holds the GIL while it builds "
+        f"the matches")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 19. the paced LogDriver: phase 15's log again, pacing=True ----------
+    sk.NfaStep.launches = gk.GcMark.launches = 0
+    plog = P.RecordLog(f"{paced_tmp}/log")
+    driver, _lat, _ = driver_on(plog, pacing=True)
+    budgets = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    n_paced = 0
+    while True:
+        budgets.append(driver.pacer.suggest_batch())
+        got = driver.poll(commit=False)
+        if got == 0:
+            budgets.pop()
+            break
+        n_paced += got
+    driver.drain_event_time(commit=False)
+    torch.cuda.synchronize()
+    paced_s = time.perf_counter() - t0
+    paced_launches = launched("paced LogDriver", sk.NfaStep.launches)
+    no_drops("paced LogDriver", driver.topology.queries[0][1].processor)
+    paced_sink = sink_of(plog)
+    driver.close(commit=False)
+    plog.close()
+    del driver, _lat
+    shutil.rmtree(paced_tmp, ignore_errors=True)
+    if n_paced != n_log:
+        raise AssertionError(f"paced LogDriver polled {n_paced} of {n_log} records")
+    # Other poll sizes flush other micro-batches, so the keys interleave
+    # otherwise in the sink: each key's records, in order, must be phase
+    # 15's, and each match once.
+    def per_key(sink):
+        out = {}
+        for k, v in sink:
+            out.setdefault(decode_sink_key(k)[0], []).append((k, v))
+        return out
+
+    if per_key(paced_sink) != per_key(whole_sink) or len(paced_sink) != len(whole_sink):
+        raise AssertionError(f"the paced driver's sink ({len(paced_sink)} records) differs "
+                             f"from phase 15's ({len(whole_sink)}) per key")
+    digests = [decode_sink_key(k)[1] for k, _v in paced_sink]
+    if len(set(digests)) != len(digests):
+        raise AssertionError("the paced driver's sink holds a match twice")
+    log(f"paced LogDriver (AdmissionPacer defaults: 100 ms a poll, budgets 32-8192): "
+        f"{n_paced / paced_s:.0f} records/s over {len(budgets)} polls (phase 15: "
+        f"{n_polled / drive_s:.0f} over {whole_polls} polls of {poll_records}); budgets: first "
+        f"{budgets[:12]}, then {sorted(set(budgets[12:]))}; sink == phase 15's per key, "
+        f"{len(paced_sink)} matches each once; nfa_step launches {paced_launches}")
+    del paced_sink, whole_sink, engine_matches
+
+    # -- 20. the kernel line, the card line, the ok line ----------------------
     log(f"chip_smoke ran {time.perf_counter() - T_START:.1f}s")
     kernels = [{
         "name": "nfa_step",
@@ -1610,6 +1999,9 @@ def main() -> int:
             "plain_ms": wm_plain_ms, "bound_ms": wm_bound_ms, "bound_by": "bytes",
             "library_ms": None,
         },
+        "auto": {"launches": auto_launches, "max_abs_err": auto_err},
+        "controllers": {"launches": ctl_launches, "resized": resized_rows},
+        "paced_driver": {"launches": paced_launches},
     }, {
         "name": "gc_mark",
         "route": "cuda",
@@ -1624,6 +2016,8 @@ def main() -> int:
         "library_ms": None,
         "marks": mark_rows,
         "flushes": flush_rows,
+        "auto": {"launches": auto_gc_launches},
+        "controllers": {"launches": ctl_gc_launches},
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

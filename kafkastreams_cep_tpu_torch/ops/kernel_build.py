@@ -12,7 +12,9 @@ in csrc/_build/ (listed in .gitignore), keyed by a hash of the source and
 the flags, and beside it the compiler's report (ptxas's registers and
 spills). Each library exports plain C functions and is loaded with
 ctypes, so no PyTorch header is compiled. A missing compiler or a failed
-build raises RuntimeError.
+build raises RuntimeError. Every compiler run of this process is logged
+in `BUILDS` as (stem, target, seconds); a cache hit runs nothing and logs
+nothing.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 from typing import List, Optional, Tuple
 
@@ -31,6 +34,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+#: (stem, target, seconds) of every compiler run of this process.
+BUILDS: List[Tuple[str, str, float]] = []
+
 CPU_FLAGS = (
     "-x", "c++", "-std=c++20", "-O1", "-ffp-contract=off", "-shared",
     "-fPIC", "-pthread", "-DNFA_CPU_EMU",
@@ -71,10 +77,12 @@ def compile_source(src: str, stem: str, target: str = "sm_90a",
         cu = Path(tmp) / f"{stem}_{key}.cu"
         cu.write_text(src)
         tmp_lib = Path(tmp) / lib.name
+        t0 = time.perf_counter()
         proc = subprocess.run(
             cmd + list(flags) + ["-I", str(CSRC), "-o", str(tmp_lib), str(cu)],
             capture_output=True, text=True,
         )
+        BUILDS.append((stem, target, time.perf_counter() - t0))
         if proc.returncode != 0:
             raise RuntimeError(
                 f"building the {stem} kernel failed ({target}):\n{proc.stderr[-4000:]}"

@@ -21,6 +21,7 @@ never uses it.
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import threading
 from pathlib import Path
 from typing import Dict, Optional, Tuple
@@ -50,6 +51,12 @@ def kernel_source(query: CompiledQuery, config: EngineConfig,
     """The complete kernel source for one (query, config)."""
     src = Path(source).read_text()
     return src.replace('#include "nfa_query.cuh"\n', query_header(query, config))
+
+
+def kernel_signature(query: CompiledQuery, config: EngineConfig) -> str:
+    """A digest of the generated source: two (query, config) pairs share a
+    kernel build exactly when their signatures are equal."""
+    return hashlib.sha256(kernel_source(query, config).encode()).hexdigest()[:20]
 
 
 def build_library(

@@ -19,9 +19,33 @@ asynchronous probe of the ring cursor and never synchronizes the
 advance. `EngineConfig.on_overflow` is "drop" (drops counted, and loud in
 `cep_overflow_dropped_total`), "raise" (`CEPOverflowError` at the next
 drain, carrying the drained matches) or "block" (a forced drain before
-any advance that could overflow). The port decodes an auto-drained table
-on the calling thread and hands it out ahead of the next `drain()`'s own
-matches, so every key's matches keep their order.
+any advance that could overflow).
+
+Decode worker (the JAX engine's `_submit_decode`): every pulled table --
+a drain's, an auto-drain's, a micro-drain's -- is decoded on one FIFO
+worker thread. On the card the pull starts the table's copy into pinned
+host memory without waiting and records a CUDA event; the worker waits on
+that event, not on the device, so the copy and the decode overlap the
+next advance. `drain()` joins the worker in submission order: matches of
+earlier engine-initiated pulls land ahead of the drain's own in every
+key's list, and exact replay's boundary runs after the join. An error on
+the worker re-raises from the join; nothing decodes a table a second way.
+`resize` and `close` shut the worker down (its results stay queued for
+the next drain); a restored engine starts without one.
+
+Micro-drain dial (`target_emit_ms`, the JAX engine's): with it set, a
+deferred advance pulls the ring once half the emit budget has passed
+since the last pull, unless the freshest landed probe saw an empty ring;
+the pull reads the region ++ window view, so it forces no group flush
+(`flushes` stays advances / gc_group), and counts in
+`cep_auto_drains_total{trigger="micro_drain"}`. The dial is a sync by
+design, only when armed and due; unset (the default), a deferred advance
+stays free of host syncs. `DrainController` (parallel/drain_sched.py)
+arms and steers it.
+
+Kernel builds: `compile_watch` (obs/compile.py) counts the step kernel's
+signatures -- one per (query, config) the engine installs an advance for,
+at construction and at each `resize` -- as `cep_compiles_total{fn}`.
 
 Durability: `snapshot()` / `restore()` write and read the JAX engine's
 CRC-sealed frame byte for byte (state/serde.py), across capacities (a
@@ -76,9 +100,9 @@ Event time: `pack(..., watermarks=)` threads the gate's release clocks
 into the step as a "wm" column; the gate itself (time/gate.py) lives in
 the processor (streams/device_processor.py).
 
-Left for later slices (see ROADMAP.md): the capacity autosizer, Arrow
-sinks, the decode worker thread, compile telemetry and the mesh. The JAX
-engine's options for them are not parameters here, so passing one raises
+Left for later slices (see ROADMAP.md): Arrow sinks and the mesh. The
+JAX engine's options for them (and `drain_mode`, `compile_telemetry`,
+`compile_cost_estimates`) are not parameters here, so passing one raises
 TypeError (`sink_format="arrow"` raises ValueError).
 
 The device is explicit: `device=None` means "cuda", and a missing card
@@ -88,6 +112,7 @@ which is also what CPU tensors get.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import threading
 import time
 import warnings
@@ -101,6 +126,7 @@ from ..core.event import Event
 from ..core.sequence import Sequence, Staged
 from ..faults import injection as _flt
 from ..faults.injection import CEPOverflowError, TransientFault, with_retry
+from ..obs.compile import CompileWatch
 from ..obs.registry import MetricsRegistry, next_instance_id
 from ..ops.engine import (
     DROP_COUNTER_KEYS,
@@ -120,6 +146,7 @@ from ..ops.profiling import BatchTimings
 from ..ops.replay import device_to_oracle, oracle_to_device, supports_replay
 from ..ops.runtime import materialize_sequence, rebase_watermarks, sequence_provenance
 from ..ops.schema import EventSchema
+from ..ops.step_kernel import NfaStep, kernel_signature
 from ..ops.tables import CompiledQuery, compile_query
 from ..pattern.stages import Stages
 from ..state import serde
@@ -170,6 +197,7 @@ class BatchedDeviceNFA:
         sink_format: str = "objects",
         auto_drain: bool = True,
         exact_replay: bool = True,
+        target_emit_ms: Optional[float] = None,
         profile_sync: bool = False,
         profile_every: Optional[int] = None,
         registry: Optional[MetricsRegistry] = None,
@@ -244,10 +272,14 @@ class BatchedDeviceNFA:
         #: Set after a region-pressure drain that pulled nothing; cleared
         #: when a probe next observes a real match.
         self._region_backoff = False
-        #: Decoded matches of engine-initiated drains (auto-drain,
-        #: backpressure) with their pull/decode walls and bytes, FIFO,
-        #: handed out ahead of the next `drain()`'s.
-        self._auto_out: List[Tuple[Dict[Any, List[Any]], Dict[str, float]]] = []
+        #: Micro-drain dial (module doc): None disarms it; 0 pulls on
+        #: every deferred advance. `_last_pull_t` is the last pull's wall.
+        self.target_emit_ms = target_emit_ms
+        self._last_pull_t = time.perf_counter()
+        #: The decode worker (module doc) and its futures, FIFO: each
+        #: yields (matches, pull/decode walls and bytes).
+        self._decode_pool: Optional[concurrent.futures.ThreadPoolExecutor] = None
+        self._decode_futs: List[concurrent.futures.Future] = []
         #: Drop-counter totals already reported: the overflow policy acts
         #: on deltas (a restored engine carries historic totals).
         self._drop_base: Dict[str, int] = {k: 0 for k in DROP_COUNTER_KEYS}
@@ -283,6 +315,9 @@ class BatchedDeviceNFA:
         #: unless the caller passes `registry=` to aggregate.
         self.metrics = registry if registry is not None else MetricsRegistry()
         self.timings = BatchTimings(registry=self.metrics)
+        #: The step kernel's signatures (module doc).
+        self.compile_watch = CompileWatch(self.metrics)
+        self._watch_advance(self._advance)
         if not 0.0 <= float(provenance_sample) <= 1.0:
             raise ValueError(f"provenance_sample must be in [0, 1], got {provenance_sample}")
         #: Provenance sampling (module doc): the stride accumulator, the
@@ -641,6 +676,8 @@ class BatchedDeviceNFA:
             )
             ring_full = occ + step_cap > self.config.matches
             if ring_full or region_pressure:
+                # The pulled table decodes on the worker, overlapping the
+                # advance dispatched below.
                 trigger = "ring_full" if ring_full else "region_pressure"
                 self._m_auto_drains.labels(trigger=trigger).inc()
                 if not self._pull_and_decode(trigger) and region_pressure and not ring_full:
@@ -693,6 +730,20 @@ class BatchedDeviceNFA:
             t_adv - t0, int(np.prod(tuple(xs["valid"].shape))),
             post_s=time.perf_counter() - t_adv,
         )
+        if (
+            self.target_emit_ms is not None
+            and not decode
+            and (time.perf_counter() - self._last_pull_t) * 1e3 >= self.target_emit_ms / 2
+        ):
+            # The micro-drain (module doc), gated on the freshest probed
+            # true cursor like the region-pressure trigger: a probe that
+            # saw an empty ring means the pull would be a no-op sync. A
+            # pull retires the probes in flight, so on a busy stream every
+            # due advance pulls; a quiet one goes probe-silent.
+            _, _, probed_pos = self._occupancy_bound()
+            if probed_pos is None or probed_pos > 0:
+                self._m_auto_drains.labels(trigger="micro_drain").inc()
+                self._pull_and_decode("micro_drain")
         return self.drain() if decode else {}
 
     def drain(self) -> Dict[Any, List[Any]]:
@@ -704,20 +755,21 @@ class BatchedDeviceNFA:
         Ends with the overflow-policy check (`_check_drop_counters`)."""
         t0 = time.perf_counter()
         out: Dict[Any, List[Any]] = {}
-        pending, self._auto_out = self._auto_out, []
         self._pend_accum = 0
-        raw = self._pull_raw()
+        self._pull_and_decode("drain")
         if _flt.ACTIVE is not None:
             # `engine.mid_drain` crash site: the ring was pulled and
-            # cleared on the device but not decoded -- a crash here loses
-            # every in-flight match unless the pipeline above recovers
-            # from its last commit.
+            # cleared on the device but the worker has not handed its
+            # matches back -- a crash here loses every in-flight match
+            # unless the pipeline above recovers from its last commit.
             _flt.ACTIVE.fire("engine.mid_drain")
-        if raw is not None:
-            pending.append(self._decode_raw(raw, "drain"))
+        # Join the worker: one thread, so futures complete in submission
+        # order and earlier pulls' matches land first in every key's list.
         pull_s = decode_s = 0.0
         n_bytes = 0
-        for decoded, meta in pending:
+        futs, self._decode_futs = self._decode_futs, []
+        for fut in futs:
+            decoded, meta = fut.result()
             for k, v in decoded.items():
                 out.setdefault(k, []).extend(v)
             pull_s += meta["pull_s"]
@@ -860,6 +912,9 @@ class BatchedDeviceNFA:
         if all(getattr(config, f) == getattr(self.config, f) for f in self._SHAPE_FIELDS):
             self.config = config
             return False
+        # Pulled tables in flight keep decoding to the end; their results
+        # stay queued for the next drain.
+        self._shutdown_worker()
         self._flush_group()
 
         def to_host(tree):
@@ -879,8 +934,9 @@ class BatchedDeviceNFA:
                 matches=config.matches, where="resize (replay snapshot)",
             )
         advance = build_batched_advance(self.query, config, self.engine)
-        if self.engine == "cuda" and self.device.type == "cuda":
-            advance.library()  # the nvcc build: raises before anything changes
+        # On the card the nvcc build runs here: it raises before anything
+        # changes.
+        self._watch_advance(advance)
 
         def graft(src_state, src_pool):
             tgt_s = {k: v.numpy().copy() for k, v in
@@ -908,7 +964,30 @@ class BatchedDeviceNFA:
         self._m_resizes.inc()
         return True
 
+    def close(self) -> None:
+        """Shut the decode worker down (pending decodes finish; their
+        matches stay queued for a `drain()`)."""
+        self._shutdown_worker()
+
     # ------------------------------------------------------------ internals
+    def _watch_advance(self, advance: Any) -> None:
+        """Count the step kernel's signature in `compile_watch`; on the
+        card build (or load) it now, timed, so a failed build raises
+        here. The plain step (engine="torch") has no kernel."""
+        if not isinstance(advance, NfaStep):
+            return
+        seconds = None
+        if self.device.type == "cuda":
+            t0 = time.perf_counter()
+            advance.library()
+            seconds = time.perf_counter() - t0
+        self.compile_watch.observe("nfa_step", kernel_signature(self.query, advance.config), seconds)
+
+    def _shutdown_worker(self) -> None:
+        if self._decode_pool is not None:
+            self._decode_pool.shutdown(wait=True)
+            self._decode_pool = None
+
     def _check_drop_counters(self, drained: Optional[Dict] = None) -> None:
         """Drain-boundary overflow-policy check: pull the three drop
         counters (the drain is already a sync point), make any delta loud
@@ -956,36 +1035,61 @@ class BatchedDeviceNFA:
                 time.sleep(cfg.block_backoff_s * (attempt + 1))
 
     def _pull_and_decode(self, trigger: str) -> bool:
-        """An engine-initiated drain: pull the ring and queue its decoded
-        matches for the next `drain()`. Returns whether anything was
-        pending."""
-        raw = self._pull_raw()
+        """Pull the ring and queue its table on the decode worker; the
+        matches come out of the next `drain()`. Returns whether anything
+        was pending."""
+        raw = self._pull_raw(trigger=trigger)
         if raw is None:
             return False
-        self._auto_out.append(self._decode_raw(raw, trigger))
+        self._submit_decode(raw)
         return True
 
-    def _pull_raw(self) -> Optional[Dict[str, Any]]:
-        """Pull and clear the ring. Mid-group the flat drain reads the
-        region ++ window view, so a drain keeps the GC cadence; with exact
-        replay armed it flushes the group first instead, so the interval's
-        snapshot (taken at a drain) resolves every node id against its own
-        pool."""
+    def _pull_raw(self, trigger: str = "drain") -> Optional[Dict[str, Any]]:
+        """Pull and clear the ring; `trigger` names the dial that pulled
+        (drain | ring_full | region_pressure | micro_drain | backpressure)
+        and rides the table to the worker. Mid-group the flat drain reads
+        the region ++ window view, so a pull keeps the GC cadence; with
+        exact replay armed it flushes the group first instead, so the
+        interval's snapshot (taken at a drain) resolves every node id
+        against its own pool."""
+        self._last_pull_t = time.perf_counter()
         if self.exact_replay:
             self._flush_group()
-            return self._pull_raw_flat(self.pool)
-        return self._pull_raw_flat(self._window_pool_view())
+            raw = self._pull_raw_flat(self.pool)
+        else:
+            raw = self._pull_raw_flat(self._window_pool_view())
+        if raw is not None:
+            raw["trigger"] = trigger
+        return raw
 
-    def _decode_raw(
-        self, raw: Dict[str, Any], trigger: str,
+    def _submit_decode(self, raw: Dict[str, Any]) -> None:
+        """Queue a pulled table on the single worker thread. The event
+        registry is captured by reference: packs add to it in place and
+        `_prune_events` rebinds a new dict, so a decode in flight sees
+        every event its chains name."""
+        if self._decode_pool is None:
+            self._decode_pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="cep-decode")
+        self._decode_futs.append(self._decode_pool.submit(self._decode_job, raw, self._events))
+
+    def _decode_job(
+        self, raw: Dict[str, Any], events: Dict[int, Event],
     ) -> Tuple[Dict[Any, List[Any]], Dict[str, float]]:
-        """Decode a pulled table (provenance sampled under `trigger`, the
-        drain that pulled it); returns the matches and the pull's and
-        decode's walls and bytes."""
+        """On the worker: wait for the table's copy (its CUDA event), then
+        decode it (provenance sampled under the pull's trigger). Returns
+        the matches and the pull's (copy wait included) and decode's
+        walls and bytes."""
         t0 = time.perf_counter()
-        decoded = self._decode_flat(raw, trigger)
-        return decoded, {"pull_s": raw["pull_s"], "decode_s": time.perf_counter() - t0,
-                         "bytes": raw["bytes"]}
+        event = raw.pop("event", None)
+        if event is not None:
+            event.synchronize()
+        raw.pop("source", None)  # the device table, alive until the copy landed
+        if isinstance(raw["table"], torch.Tensor):
+            raw["table"] = raw["table"].numpy()
+        t1 = time.perf_counter()
+        decoded = self._decode_flat(raw, raw.get("trigger", "drain"), events)
+        return decoded, {"pull_s": raw["pull_s"] + (t1 - t0),
+                         "decode_s": time.perf_counter() - t1, "bytes": raw["bytes"]}
 
     # ------------------------------------------------------------ exact replay
     def _ledger_append(self, xs: Dict[str, torch.Tensor]) -> None:
@@ -1203,19 +1307,24 @@ class BatchedDeviceNFA:
         Occupancy is the freshest landed cursor probe plus the per-advance
         caps since it (the pure worst-case accumulator while none has
         landed). A probe whose event has not completed is left for later:
-        reading it would synchronize."""
+        reading it would synchronize. A probe that a ring clear retired
+        (an older drain epoch) still reads the live-lane count, which no
+        pull changes: with a pull at every advance (micro-drains, a
+        processor that drains every flush) no probe outlives its epoch,
+        and the autosizer would never see the lanes. (The JAX engine drops
+        such probes whole.)"""
         while self._pos_probes:
             epoch, acc, host, event = self._pos_probes[0]
             if event is not None and not event.query():
                 break
             self._pos_probes.popleft()
+            pos, fill, lanes = host.tolist()
+            self.lane_obs = lanes
+            self._m_lane_occupancy.set(lanes)
             if epoch == self._drain_epoch:
-                pos, fill, lanes = host.tolist()
                 self._pos_obs = (acc, pos, fill)
-                self.lane_obs = lanes
                 self._m_pend_occupancy.set(pos)
                 self._m_region_fill.set(fill)
-                self._m_lane_occupancy.set(lanes)
                 if pos > 0:
                     self._region_backoff = False  # a real match re-arms it
         if self._pos_obs is not None:
@@ -1293,32 +1402,50 @@ class BatchedDeviceNFA:
         while Cb < max(int(probe[2].max()), 1):
             Cb <<= 1
         Cb = min(Cb, pool_view["node_event"].shape[0])
-        table = build_chain_flatten(Mb, Cb)(pool_view).cpu().numpy()
+        source = build_chain_flatten(Mb, Cb)(pool_view)
+        event = None
+        if source.device.type == "cuda":
+            # The copy into pinned memory is queued, not waited on: the
+            # worker waits on the event. The ring clear below runs after
+            # it on the same stream.
+            table = torch.empty(source.shape, dtype=source.dtype, pin_memory=True)
+            table.copy_(source, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+        else:
+            table = source.numpy()
         self.pool = drain_pend(self.pool)
         self._ring_cleared()
-        return {"counts": counts, "table": table, "pull_s": time.perf_counter() - t0,
-                "bytes": int(probe.nbytes + table.nbytes)}
+        return {"counts": counts, "table": table, "event": event, "source": source,
+                "pull_s": time.perf_counter() - t0,
+                "bytes": int(probe.nbytes + source.numel() * source.element_size())}
 
-    def _decode_flat(self, raw: Dict[str, Any], trigger: str = "drain") -> Dict[Any, List[Any]]:
-        """Decode the flat [3, Mb, Cb, K] table into per-key `Sequence`s
-        (`SinkMatch`es with sink_format="json"): hops are newest-first,
-        hops with gidx < 0 (a GC-dropped put) are skipped while the chain
-        goes on, and an all-dead chain decodes to nothing. Sampled matches
-        get their provenance here."""
+    def _decode_flat(
+        self, raw: Dict[str, Any], trigger: str = "drain",
+        events: Optional[Dict[int, Event]] = None,
+    ) -> Dict[Any, List[Any]]:
+        """Decode the flat [3, Mb, Cb, K] table (host numpy) into per-key
+        `Sequence`s (`SinkMatch`es with sink_format="json") against the
+        event registry `events` (default: the engine's): hops are
+        newest-first, hops with gidx < 0 (a GC-dropped put) are skipped
+        while the chain goes on, and an all-dead chain decodes to nothing.
+        Sampled matches get their provenance here."""
+        if events is None:
+            events = self._events
         table = raw["table"]
         counts = np.ascontiguousarray(raw["counts"], np.int32)
         # [3, Mb, Cb, K] -> per-plane [K, Mb, Cb] strided views (no copy).
         gidx, name, live = (np.moveaxis(table[i], -1, 0) for i in range(3))
         if self.sink_format == "json":
-            out = self._decode_flat_json(counts, gidx, name, live)
+            out = self._decode_flat_json(counts, gidx, name, live, events)
             if self.provenance_sample > 0.0 and out:
-                self._sample_bytes_provenance(trigger, counts, gidx, name, live, out)
+                self._sample_bytes_provenance(trigger, counts, gidx, name, live, out, events)
             return out
         if not self.native:
-            out = self._decode_flat_python(counts, gidx, name, live)
+            out = self._decode_flat_python(counts, gidx, name, live, events)
         else:
             per_key = self._native_decoder().decode_matches_flat(
-                counts, gidx, name, live, self.query.name_of_id, self._events,
+                counts, gidx, name, live, self.query.name_of_id, events,
                 Staged, Sequence)
             out = {self.keys[k]: seqs for k, seqs in enumerate(per_key) if seqs}
         self._attach_provenance(out, trigger)
@@ -1331,16 +1458,16 @@ class BatchedDeviceNFA:
             self._decoder = load_decoder()
         return self._decoder
 
-    def _decode_flat_json(self, counts, gidx, name, live) -> Dict[Any, List[SinkMatch]]:
+    def _decode_flat_json(self, counts, gidx, name, live, events) -> Dict[Any, List[SinkMatch]]:
         """The sink-to-bytes decode: JSON payloads and ident frames from
         the native decoder (or `sink_match_from_sequence` of the Python
         walk), counted in `cep_sink_matches_total`/`cep_sink_bytes_total`."""
         if not self.native:
             out = {k: [sink_match_from_sequence(s, "json") for s in v]
-                   for k, v in self._decode_flat_python(counts, gidx, name, live).items()}
+                   for k, v in self._decode_flat_python(counts, gidx, name, live, events).items()}
         else:
             per_key = self._native_decoder().decode_matches_json(
-                counts, gidx, name, live, self.query.name_of_id, self._events,
+                counts, gidx, name, live, self.query.name_of_id, events,
                 Staged, Sequence, json_fragment)
             out = {self.keys[k]: [SinkMatch("json", *item) for item in items]
                    for k, items in enumerate(per_key) if items}
@@ -1371,6 +1498,7 @@ class BatchedDeviceNFA:
 
     def _sample_bytes_provenance(
         self, trigger: str, counts, gidx, name, live, out: Dict[Any, List[SinkMatch]],
+        events: Dict[int, Event],
     ) -> None:
         """Provenance for the JSON decode: the stride accumulator advances
         per match as on the object path, and each sampled SinkMatch
@@ -1406,7 +1534,7 @@ class BatchedDeviceNFA:
                 if sm is None:
                     continue
                 chain.reverse()
-                seq = materialize_sequence(chain, self.query.name_of_id, self._events)
+                seq = materialize_sequence(chain, self.query.name_of_id, events)
                 prov = sequence_provenance(seq, query=qname, trigger=trigger)
                 seq.provenance = prov
                 sm.sequence = seq
@@ -1427,9 +1555,13 @@ class BatchedDeviceNFA:
             out.append(entry)
         return out
 
-    def _decode_flat_python(self, counts, gidx, name, live) -> Dict[Any, List[Sequence]]:
+    def _decode_flat_python(
+        self, counts, gidx, name, live, events: Optional[Dict[int, Event]] = None,
+    ) -> Dict[Any, List[Sequence]]:
         """The Python walk over the flat table: the reference for the
         native decoder."""
+        if events is None:
+            events = self._events
         K, Mb, _ = gidx.shape
         out: Dict[Any, List[Sequence]] = {}
         for k in np.flatnonzero(counts[:K]).tolist():
@@ -1448,7 +1580,7 @@ class BatchedDeviceNFA:
                 if not chain:
                     continue
                 chain.reverse()
-                seqs.append(materialize_sequence(chain, self.query.name_of_id, self._events))
+                seqs.append(materialize_sequence(chain, self.query.name_of_id, events))
             if seqs:
                 out[self.keys[k]] = seqs
         return out

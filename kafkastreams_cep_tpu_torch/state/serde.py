@@ -1,8 +1,11 @@
-"""Bytes-level checkpoint frames for the device engine and its processor.
+"""Bytes-level checkpoint frames for the host stores, the device engine and
+its processor.
 
-A copy of the engine-checkpoint parts of the JAX package's
-`state/serde.py`, byte-compatible with it: CRC-32C sealed frames
-(`seal_frame` / `open_frame`), the length-prefixed field writer and reader,
+A copy of the JAX package's `state/serde.py`, byte-compatible with it:
+CRC-32C sealed frames (`seal_frame` / `open_frame`), the length-prefixed
+field writer and reader, the host runtime's `CheckpointCodec` (per-key
+NFA states with stages referenced by id against the recompiled query,
+lineage buffers, fold registers, and a query's three stores as one blob),
 typed array trees (name, dtype, shape, C-order bytes: the engine's state
 and pool), the event registry, and the cross-shape graft that `restore`
 and `resize` use. A frame sealed by either package opens in the other.
@@ -17,9 +20,12 @@ What differs from the JAX module:
     package's module paths to the port's copies, so a JAX snapshot
     restores without importing the JAX package; any other path of that
     package is refused;
-  * the host runtime's stage tables are not copied (the port has no host
-    runtime). The event-time gate frames (`encode_event_time_state`,
-    `wrap_event_time`) are the JAX package's, byte for byte.
+  * events are framed by `put_event` / `get_event` (the JAX codec's
+    `_put_event` / `_get_event` and its `_EventOnly` subclass, as
+    functions), which `CheckpointCodec` calls with its own serializers
+    and the event registry with the defaults. The event-time
+    gate frames (`encode_event_time_state`, `wrap_event_time`) are the
+    JAX package's, byte for byte.
 """
 from __future__ import annotations
 
@@ -27,11 +33,16 @@ import importlib
 import io
 import pickle
 import struct
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..core.dewey import DeweyVersion
 from ..core.event import Event
+from ..pattern.stages import Stage, Stages
+from .aggregates import AggregatesStore
+from .buffer import BufferNode, BufferStore, SharedVersionedBuffer
+from .nfa_store import NFAStates, NFAStore
 
 MAGIC = b"KCT5"  # format tag + version (5: interval pinning -- pool carries
                  # pend_min, state carries per-lane chain roots; 4: paged
@@ -359,25 +370,27 @@ class _Reader:
 # ---------------------------------------------------------------------------
 # Events
 # ---------------------------------------------------------------------------
-def put_event(w: _Writer, event: Optional[Event]) -> None:
-    """One event's frame (the JAX `CheckpointCodec._put_event`)."""
+def put_event(w: _Writer, event: Optional[Event],
+              serialize: Callable[[Any], bytes] = dumps) -> None:
+    """One event's frame (the JAX `CheckpointCodec._put_event`); key and
+    value through `serialize`."""
     if event is None:
         w.u8(0)
         return
     w.u8(1)
-    w.blob(dumps(event.key))
-    w.blob(dumps(event.value))
+    w.blob(serialize(event.key))
+    w.blob(serialize(event.value))
     w.i64(event.timestamp)
     w.text(event.topic)
     w.i32(event.partition)
     w.i64(event.offset)
 
 
-def get_event(r: _Reader) -> Optional[Event]:
+def get_event(r: _Reader, deserialize: Callable[[bytes], Any] = loads) -> Optional[Event]:
     if r.u8() == 0:
         return None
-    key = loads(r.blob())
-    value = loads(r.blob())
+    key = deserialize(r.blob())
+    value = deserialize(r.blob())
     ts = r.i64()
     topic = r.text()
     partition = r.i32()
@@ -405,6 +418,220 @@ def decode_event_registry(data: bytes) -> Dict[int, Event]:
         out[gidx] = get_event(r)
     r.expect_end()
     return out
+
+
+# ---------------------------------------------------------------------------
+# Host stores (the host runtime's changelogs and snapshots)
+# ---------------------------------------------------------------------------
+class CheckpointCodec:
+    """Codec bound to one compiled query (stages re-linked by index).
+
+    The stage table must be the same compile output shape on encode and
+    decode -- the reference makes the same assumption when it rebuilds
+    stages from ids against the recompiled pattern
+    (ComputationStageSerde.java:90-101). User keys and values go through
+    `serialize` / `deserialize` (pickle by default; `loads` maps the JAX
+    package's module paths to the port's).
+    """
+
+    def __init__(
+        self,
+        stages: Stages,
+        serialize: Callable[[Any], bytes] = dumps,
+        deserialize: Callable[[bytes], Any] = loads,
+        strict_windows: bool = False,
+    ) -> None:
+        self.stages = stages
+        self._stage_list: List[Stage] = list(stages)
+        self._index_of: Dict[int, int] = {id(s): i for i, s in enumerate(self._stage_list)}
+        self._ser = serialize
+        self._de = deserialize
+        self.strict_windows = strict_windows
+
+    # ---------------------------------------------------------------- stages
+    def _stage_ref(self, stage: Stage) -> Tuple[int, int]:
+        """(compiled index, epsilon-target index | -1) for a runtime stage."""
+        idx = self._index_of.get(id(stage))
+        if idx is not None:
+            return idx, -1
+        # Synthesized epsilon: identity is a compiled stage (same id/name),
+        # target is its single PROCEED edge.
+        target = stage.edges[0].target
+        tgt_idx = self._index_of.get(id(target))
+        src_idx = next(
+            (i for i, s in enumerate(self._stage_list)
+             if s.id == stage.id and s.name == stage.name and s.type == stage.type),
+            None,
+        )
+        if src_idx is None or tgt_idx is None:
+            raise ValueError(f"stage {stage!r} does not belong to this query")
+        return src_idx, tgt_idx
+
+    def _resolve_stage(self, idx: int, eps_target: int) -> Stage:
+        stage = self._stage_list[idx]
+        if eps_target < 0:
+            return stage
+        target = self._stage_list[eps_target]
+        eps = Stage.new_epsilon(stage, target)
+        if self.strict_windows:
+            eps.window_ms = target.window_ms if target.window_ms != -1 else stage.window_ms
+        return eps
+
+    # ------------------------------------------------------------- NFAStates
+    def encode_nfa_states(self, snap: NFAStates) -> bytes:
+        """Frame: run queue (stage ids + versions + embedded last events),
+        runs counter, offset high-water marks
+        (NFAStateValueSerde.java:79-116)."""
+        w = _Writer()
+        w._buf.write(MAGIC)
+        w.i32(len(snap.computation_stages))
+        for cs in snap.computation_stages:
+            src, eps = self._stage_ref(cs.stage)
+            w.i32(src)
+            w.i32(eps)
+            w.i32(len(cs.version.digits))
+            for d in cs.version.digits:
+                w.i32(d)
+            w.i64(cs.sequence)
+            w.i64(cs.timestamp)
+            w.u8(1 if cs.is_branching else 0)
+            w.u8(1 if cs.is_ignored else 0)
+            w.i64(cs.last_node if cs.last_node is not None else -1)
+            put_event(w, cs.last_event, self._ser)
+        w.i64(snap.runs)
+        w.i32(len(snap.latest_offsets))
+        for topic, offset in snap.latest_offsets.items():
+            w.text(topic)
+            w.i64(offset)
+        return seal_frame(w.getvalue())
+
+    def decode_nfa_states(self, data: bytes) -> NFAStates:
+        from ..nfa.nfa import ComputationStage
+
+        r = _Reader(open_frame(data))
+        read_magic(r)
+        queue = []
+        for _ in range(r.i32()):
+            src = r.i32()
+            eps = r.i32()
+            digits = tuple(r.i32() for _ in range(r.i32()))
+            sequence = r.i64()
+            timestamp = r.i64()
+            is_branching = bool(r.u8())
+            is_ignored = bool(r.u8())
+            last_node = r.i64()
+            last_event = get_event(r, self._de)
+            queue.append(ComputationStage(
+                stage=self._resolve_stage(src, eps),
+                version=DeweyVersion(digits),
+                sequence=sequence,
+                last_event=last_event,
+                timestamp=timestamp,
+                is_branching=is_branching,
+                is_ignored=is_ignored,
+                last_node=None if last_node < 0 else last_node,
+            ))
+        runs = r.i64()
+        offsets = {}
+        for _ in range(r.i32()):
+            topic = r.text()
+            offsets[topic] = r.i64()
+        r.expect_end()
+        return NFAStates(queue, runs, offsets)
+
+    # ---------------------------------------------------------------- buffer
+    def encode_buffer(self, buffer: SharedVersionedBuffer) -> bytes:
+        """Node frame: id, stage name, embedded event, parent id
+        (MatchedEventSerde.java:86-118 analog, minus refcounts --
+        reclamation is mark-sweep here)."""
+        w = _Writer()
+        w._buf.write(MAGIC)
+        w.i64(buffer._next_id)
+        w.i32(len(buffer._nodes))
+        for node_id, node in buffer._nodes.items():
+            w.i64(node_id)
+            w.text(node.stage_name)
+            put_event(w, node.event, self._ser)
+            w.i64(node.parent if node.parent is not None else -1)
+        return seal_frame(w.getvalue())
+
+    def decode_buffer(self, data: bytes) -> SharedVersionedBuffer:
+        r = _Reader(open_frame(data))
+        read_magic(r)
+        buffer: SharedVersionedBuffer = SharedVersionedBuffer()
+        buffer._next_id = r.i64()
+        for _ in range(r.i32()):
+            node_id = r.i64()
+            stage_name = r.text()
+            event = get_event(r, self._de)
+            parent = r.i64()
+            buffer._nodes[node_id] = BufferNode(stage_name, event, None if parent < 0 else parent)
+        r.expect_end()
+        return buffer
+
+    # ------------------------------------------------------------ aggregates
+    def encode_aggregates(self, store: AggregatesStore) -> bytes:
+        """(record key, name, run id) -> value frames
+        (AggregateKeySerde.java:107-121 analog)."""
+        w = _Writer()
+        w._buf.write(MAGIC)
+        entries = list(store.items())
+        w.i32(len(entries))
+        for (key, name, sequence), value in entries:
+            w.blob(self._ser(key))
+            w.text(name)
+            w.i64(sequence)
+            w.blob(self._ser(value))
+        return seal_frame(w.getvalue())
+
+    def decode_aggregates(self, data: bytes) -> AggregatesStore:
+        r = _Reader(open_frame(data))
+        read_magic(r)
+        store = AggregatesStore()
+        for _ in range(r.i32()):
+            key = self._de(r.blob())
+            name = r.text()
+            sequence = r.i64()
+            value = self._de(r.blob())
+            store.put(key, name, sequence, value)
+        r.expect_end()
+        return store
+
+    # ---------------------------------------------------- query-level stores
+    def encode_query_stores(
+        self, nfa_store: NFAStore, buffers: BufferStore, aggregates: AggregatesStore,
+    ) -> bytes:
+        """One checkpoint blob for a query's three stores -- the changelog
+        record equivalent (README.md:350-355 store naming scheme)."""
+        w = _Writer()
+        w._buf.write(MAGIC)
+        nfa_entries = list(nfa_store.items())
+        w.i32(len(nfa_entries))
+        for key, snap in nfa_entries:
+            w.blob(self._ser(key))
+            w.blob(self.encode_nfa_states(snap))
+        buf_entries = list(buffers.items())
+        w.i32(len(buf_entries))
+        for key, buffer in buf_entries:
+            w.blob(self._ser(key))
+            w.blob(self.encode_buffer(buffer))
+        w.blob(self.encode_aggregates(aggregates))
+        return seal_frame(w.getvalue())
+
+    def decode_query_stores(self, data: bytes) -> Tuple[NFAStore, BufferStore, AggregatesStore]:
+        r = _Reader(open_frame(data))
+        read_magic(r)
+        nfa_store = NFAStore()
+        for _ in range(r.i32()):
+            key = self._de(r.blob())
+            nfa_store.put(key, self.decode_nfa_states(r.blob()))
+        buffers = BufferStore()
+        for _ in range(r.i32()):
+            key = self._de(r.blob())
+            buffers.set_for_key(key, self.decode_buffer(r.blob()))
+        aggregates = self.decode_aggregates(r.blob())
+        r.expect_end()
+        return nfa_store, buffers, aggregates
 
 
 # ---------------------------------------------------------------------------

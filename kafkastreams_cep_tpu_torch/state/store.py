@@ -1,16 +1,19 @@
 """Generic key-value state stores and delegating wrappers.
 
-A copy of the JAX package's `state/store.py`, cut to what the emission
-gate's watermark store needs, plus `restore_store` (the JAX package's
-`state/builders.py`), which replays a store's changelog. Re-design of the reference store-adapter
-layer (reference: core/.../cep/state/internal/WrappedStateStore.java:25-75
-and the Kafka Streams store stack its builders assemble:
-AbstractStoreBuilder.java:52-71): a dict-backed `InMemoryKeyValueStore` at
-the bottom and `ChangeLoggingKeyValueStore` appending every mutation to a
-changelog topic of a `RecordLog` (streams/log.py).
+A copy of the JAX package's `state/store.py` without `CheckpointFile`
+(no port runtime checkpoints to a file), plus `restore_store` (the JAX
+package's `state/builders.py`, which re-exports it here), the one routine
+that replays a store's changelog. Re-design of the reference
+store-adapter layer (reference:
+core/.../cep/state/internal/WrappedStateStore.java:25-75 and the Kafka
+Streams store stack its builders assemble:
+AbstractStoreBuilder.java:52-71): a dict-backed `InMemoryKeyValueStore`
+at the bottom, `ChangeLoggingKeyValueStore` appending every mutation to
+a changelog topic of a `RecordLog` (streams/log.py), and
+`CachingKeyValueStore` batching writes until `flush()`.
 
 Live objects stay in memory and serialization happens once, at the
-changelog boundary.
+changelog boundary, through the codecs of state/serde.py.
 """
 from __future__ import annotations
 
@@ -205,6 +208,53 @@ class ChangeLoggingKeyValueStore(WrappedStateStore):
             else:
                 self.inner.put(key, self.value_serde[1](value_bytes))
         return n
+
+
+class CachingKeyValueStore(WrappedStateStore):
+    """Write-back cache: mutations buffer in memory and push down on
+    `flush()` (so a change-logged inner store batches its changelog
+    appends per flush instead of per record)."""
+
+    _TOMBSTONE = object()
+
+    def __init__(self, inner: StateStore) -> None:
+        super().__init__(inner)
+        self._cache: Dict[Any, Any] = {}
+
+    def get(self, key: Any) -> Optional[Any]:
+        if key in self._cache:
+            val = self._cache[key]
+            return None if val is self._TOMBSTONE else val
+        return self.inner.get(key)
+
+    def put(self, key: Any, value: Any) -> None:
+        self._cache[key] = value
+
+    def delete(self, key: Any) -> Optional[Any]:
+        old = self.get(key)
+        self._cache[key] = self._TOMBSTONE
+        return old
+
+    def items(self) -> Iterator[Tuple[Any, Any]]:
+        merged: Dict[Any, Any] = dict(self.inner.items())
+        for k, v in self._cache.items():
+            if v is self._TOMBSTONE:
+                merged.pop(k, None)
+            else:
+                merged[k] = v
+        return iter(merged.items())
+
+    def approximate_num_entries(self) -> int:
+        return sum(1 for _ in self.items())
+
+    def flush(self) -> None:
+        for k, v in self._cache.items():
+            if v is self._TOMBSTONE:
+                self.inner.delete(k)
+            else:
+                self.inner.put(k, v)
+        self._cache.clear()
+        self.inner.flush()
 
 
 def restore_store(typed_store: Any) -> int:

@@ -1,29 +1,49 @@
-"""Streams API: topology construction for CEP queries on the card.
+"""Streams API: topology construction for CEP queries.
 
 The port's `ComplexStreamsBuilder` (the JAX package's
 `streams/builder.py`, reference: core/.../cep/ComplexStreamsBuilder.java:
 61-107, CEPStream.java:37-74). `ComplexStreamsBuilder().stream(topics)`
-returns a `CEPStream`; each `query(name, pattern, runtime="cuda")`
-registers a `DeviceCEPProcessor` (the batched engine and its step kernel)
-plus the query's exactly-once emission gate, and returns an
+returns a `CEPStream`; each `query(name, pattern, runtime=...)` registers
+a processor plus the query's exactly-once emission gate, and returns an
 `OutputStream` whose matches reach `out.records`, `for_each` callbacks
 and, through `.to(topic)`, a sink topic of the builder's `RecordLog`.
 
-`runtime="cuda"` is the only runtime: the JAX package's "host", "tpu" and
-"auto" raise. `device=`, `engine=`, `config=`, `batch_size=`,
-`initial_keys=`, `sink_format=`, `native=`, `auto_drain=`,
-`provenance_sample=` and `watermark_gen=` pass through to the processor
-and its engine. A config with `reorder_capacity > 0` arms the
-processor's event-time gate; `Topology.tick_event_time`,
-`flush_event_time` and `event_time_health` drive and read it.
+Runtimes:
+  * "cuda" (the port's default): `DeviceCEPProcessor`, the batched
+    engine and its step kernel on the card. `device=`, `engine=`,
+    `config=`, `batch_size=`, `initial_keys=`, `sink_format=`, `native=`,
+    `auto_drain=`, `target_emit_ms=`, `provenance_sample=` and
+    `watermark_gen=` pass through to the processor and its engine. A
+    config with `reorder_capacity > 0` arms the processor's event-time
+    gate.
+  * "host": the per-record `CEPProcessor` (streams/processor.py) over the
+    three host stores (state/builders.py). Its event-time knobs are query
+    kwargs (`reorder_capacity`, `lateness_ms`, `late_policy`,
+    `reorder_overflow` or its alias `on_overflow`, `watermark_gen`).
+  * "auto": the query starts on the host runtime and promotes itself to
+    "cuda" once `promote_after` distinct keys were seen
+    (streams/auto_router.py; `buffer_max`, `autosize`); the host
+    event-time knobs translate into the device `EngineConfig`, and a
+    custom `watermark_gen` pins the host for good.
+  The JAX package's default is "host" and its device runtime is "tpu";
+  the port's default stays "cuda", and "tpu" raises. The host and auto
+  runtimes run the host phase under `config.strict_windows` when a
+  `config=` is given (the JAX package runs it under reference windows
+  whatever the config, so its auto runtime's two phases disagree on a
+  strict-window config); without one, both packages agree.
 
-Crash consistency, with a builder `log`: each query's
-`DeviceStateStore` appends the processor's snapshot to
-`<app_id>-<query>-streamscep-devicestate-changelog` and its emission
-watermark to its own changelog at `Topology.flush_stores()` (the commit);
-after a crash a topology built afresh on the same log runs
-`restore_stores()` and replays the input from the committed offsets, and
-the emission gate dedupes what the sink already holds.
+`Topology.tick_event_time`, `flush_event_time` and `event_time_health`
+drive and read the event-time gates of every runtime.
+
+Crash consistency, with a builder `log`: at `Topology.flush_stores()`
+(the commit) a "cuda" query's `DeviceStateStore` appends the processor's
+snapshot to `<app_id>-<query>-streamscep-devicestate-changelog`; a
+"host" or "auto" query's three stores append to their own changelogs as
+they are written, and `EventTimeStateStore` appends its gate's state;
+every query's emission watermark goes last. After a crash a topology
+built afresh on the same log runs `restore_stores()` and replays the
+input from the committed offsets, and the emission gate dedupes what the
+sink already holds.
 
 Observability, as in the JAX package: `stamp_ingest` (the driver's poll)
 records each record's ingest wall, read back at sink emission into
@@ -36,25 +56,40 @@ from __future__ import annotations
 
 import time
 from collections import OrderedDict, deque
+from dataclasses import replace
 from typing import Any, Callable, Dict, List, Optional, Sequence as Seq, Union
 
 from ..obs.registry import default_registry
 from ..obs.trace import TraceContext
+from ..ops.engine import EngineConfig
 from ..ops.profiling import LATENCY_BUCKETS
 from ..pattern.pattern import Pattern
+from ..state import serde as state_serde
+from ..state.builders import QueryStoreBuilders
 from ..state.naming import (
+    aggregates_store,
     changelog_topic,
     device_state_store,
     emitted_store,
+    event_buffer_store,
+    event_time_store,
+    nfa_states_store,
     normalize_query_name,
 )
 from ..state.nfa_store import EmissionStore
 from ..state.store import ChangeLoggingKeyValueStore, InMemoryKeyValueStore, restore_store
+from .auto_router import AutoRoutingProcessor
 from .device_processor import DeviceCEPProcessor, DeviceStateStore
 from .emission import EmissionGate, encode_sink_key
+from .processor import CEPProcessor
 from .serde import Queried, SinkMatch, match_lineage, sequence_to_json
 
-RUNTIMES = ("cuda",)
+RUNTIMES = ("cuda", "host", "auto")
+
+#: The host runtime's event-time knobs (query kwargs).
+HOST_EVENT_TIME_OPTS = (
+    "reorder_capacity", "lateness_ms", "late_policy", "reorder_overflow", "watermark_gen",
+)
 
 
 class Record:
@@ -70,10 +105,13 @@ class Record:
 
 
 class QueryNode:
-    """One registered query: device processor + emission gate + sinks.
+    """One registered query: processor + stores + emission gate + sinks.
 
-    Matches surface when a micro-batch of `batch_size` records fills or on
-    `Topology.flush()`."""
+    runtime="cuda": the micro-batching device driver; matches surface when
+    a micro-batch of `batch_size` records fills or on `Topology.flush()`.
+    runtime="host": the per-record host driver over the three host
+    stores. runtime="auto": host first, promoted to "cuda" on key growth
+    (module doc)."""
 
     def __init__(
         self,
@@ -87,8 +125,8 @@ class QueryNode:
     ) -> None:
         if runtime not in RUNTIMES:
             raise ValueError(
-                f"runtime {runtime!r} is not ported: the port runs queries on "
-                f"the card only (runtime='cuda')"
+                f"unknown runtime {runtime!r} (the port's runtimes are {RUNTIMES}; "
+                "the JAX package's 'tpu' is 'cuda' here)"
             )
         self.name = normalize_query_name(name)
         self.pattern = pattern
@@ -119,21 +157,164 @@ class QueryNode:
             labels=("query",),
             buckets=LATENCY_BUCKETS,
         ).labels(query=self.name)
-        self.processor = DeviceCEPProcessor(
-            name,
-            pattern,
-            schema=queried.schema if queried is not None else None,
-            registry=registry,
-            **device_opts,
-        )
-        # The checkpoint changelog (a snapshot at every commit) and the
-        # emission watermark, both driven by flush/restore_stores.
-        self.stores: Dict[str, Any] = {emit_name: self.emission_store}
-        if log is not None:
-            ds_name = device_state_store(self.name)
-            self.stores[ds_name] = DeviceStateStore(
-                self, log, changelog_topic(app_id, ds_name), registry=registry,
+        schema = queried.schema if queried is not None else None
+        if runtime == "cuda":
+            self.store_builders = None
+            self.processor: Any = DeviceCEPProcessor(
+                name, pattern, schema=schema, registry=registry, **device_opts,
             )
+            # The checkpoint changelog (a snapshot at every commit) and the
+            # emission watermark, both driven by flush/restore_stores.
+            self.stores: Dict[str, Any] = {emit_name: self.emission_store}
+            if log is not None:
+                ds_name = device_state_store(self.name)
+                self.stores[ds_name] = DeviceStateStore(
+                    self, log, changelog_topic(app_id, ds_name), registry=registry,
+                )
+            return
+        config = device_opts.get("config")
+        strict_windows = bool(config.strict_windows) if config is not None else False
+        # Compile once; the builders share the compiled stages with the
+        # processor (QueryStoreBuilders.java:50-56).
+        self.store_builders = QueryStoreBuilders(name, pattern, strict_windows=strict_windows)
+        self.stores = self.store_builders.build_all(log, app_id)
+        self.stores[emit_name] = self.emission_store
+        # The host runtime's event-time knobs ride the query kwargs;
+        # `on_overflow` is an alias of `reorder_overflow` (an explicit
+        # reorder_overflow wins).
+        et_opts = {k: device_opts[k] for k in HOST_EVENT_TIME_OPTS if k in device_opts}
+        if "on_overflow" in device_opts:
+            et_opts.setdefault("reorder_overflow", device_opts["on_overflow"])
+        self.processor = CEPProcessor(
+            name,
+            self.store_builders.stages,
+            nfa_store=self.stores[nfa_states_store(name)],
+            buffer=self.stores[event_buffer_store(name)],
+            aggregates=self.stores[aggregates_store(name)],
+            strict_windows=strict_windows,
+            registry=registry,
+            **et_opts,
+        )
+        if runtime == "auto":
+            self.processor = self._auto_router(name, pattern, schema, registry, device_opts)
+        if log is not None and self.processor.gate is not None:
+            et_name = event_time_store(self.name)
+            self.stores[et_name] = EventTimeStateStore(
+                self, log, changelog_topic(app_id, et_name), registry=registry,
+            )
+
+    def _auto_router(self, name, pattern, schema, registry, device_opts) -> AutoRoutingProcessor:
+        """Wrap the host processor in the auto router. The host event-time
+        knobs translate into the device EngineConfig, so both phases apply
+        the same late/reorder policy; a custom `watermark_gen` cannot be
+        replayed into the device gate without re-deciding late/admit, so
+        it pins the host for the query's lifetime."""
+        device_opts = dict(device_opts)
+        auto_opts = {
+            k: device_opts.pop(k)
+            for k in ("promote_after", "buffer_max", "autosize")
+            if k in device_opts
+        }
+        dev_opts = {
+            k: v for k, v in device_opts.items()
+            if k not in HOST_EVENT_TIME_OPTS + ("on_overflow",)
+        }
+        base_cfg = dev_opts.pop("config", None) or EngineConfig()
+        et_cfg: Dict[str, Any] = {
+            k: device_opts[k] for k in ("reorder_capacity", "lateness_ms", "late_policy")
+            if k in device_opts
+        }
+        if "reorder_overflow" in device_opts:
+            et_cfg["on_overflow"] = device_opts["reorder_overflow"]
+        elif "on_overflow" in device_opts:
+            et_cfg["on_overflow"] = device_opts["on_overflow"]
+        if et_cfg:
+            base_cfg = replace(base_cfg, **et_cfg)
+        dev_opts["config"] = base_cfg
+        if "watermark_gen" in device_opts:
+            auto_opts["promote_after"] = 1 << 62
+        return AutoRoutingProcessor(
+            name, pattern, self.processor, schema=schema, registry=registry,
+            device_opts=dev_opts, **auto_opts,
+        )
+
+
+class EventTimeStateStore:
+    """Changelog durability for a host or auto query's event-time gate.
+
+    The host trio's changelogs restore through `restore_stores()`, but an
+    EventTimeGate lives outside them -- and its arrival marks must never
+    be MORE durable than the buffered records they dedup (a crash would
+    then silently lose every buffered record: the mark rejects the replay
+    while the buffer restored empty). This store snapshots the
+    processor's combined event-time state (gate contents + arrival
+    marks, `CEPProcessor.event_time_state()`) into
+    `<app>-<query>-streamscep-eventtime-changelog` at every commit flush
+    and restores the newest snapshot that validates, CRC-rejected tails
+    counted in `cep_checkpoint_corrupt_total`.
+
+    Commit atomicity caveat: like the reference trio itself (three
+    separate changelogs per query), a commit's appends are not one
+    atomic frame -- a torn flush can land the trio's records without
+    this store's snapshot. The store is registered AFTER the trio, so
+    iteration order makes the event-time snapshot the LAST append of a
+    flush: a tear restores OLDER arrival marks over NEWER run state,
+    which re-offers the window's records (duplicate-leaning,
+    deduplicated at the sink by the emission gate) instead of the
+    loss-leaning inverse. The device runtime does without this store:
+    its single-blob snapshot carries gate and engine of one commit."""
+
+    def __init__(self, node: "QueryNode", log: Any, topic: str,
+                 registry: Optional[Any] = None) -> None:
+        self.name = event_time_store(node.name)
+        self.node = node
+        self.log = log
+        self.topic = topic
+        self.metrics = registry if registry is not None else default_registry()
+        self._m_corrupt = self.metrics.counter(
+            "cep_checkpoint_corrupt_total",
+            "Checkpoint payloads rejected by CRC/framing validation",
+        )
+
+    @property
+    def persistent(self) -> bool:
+        return True
+
+    def flush(self) -> None:
+        if self.log is None:
+            return
+        self.log.append(
+            self.topic, None,
+            state_serde.encode_event_time_state(self.node.processor.event_time_state()),
+        )
+
+    def restore_from_changelog(self) -> int:
+        if self.log is None:
+            return 0
+        recs = self.log.read(self.topic)
+        for rec in reversed(recs):
+            if rec.value is None:
+                continue
+            try:
+                state = state_serde.decode_event_time_state(rec.value)
+            except state_serde.CheckpointError:
+                # Corrupt bytes: walk back to the previous generation.
+                self._m_corrupt.inc()
+                continue
+            try:
+                self.node.processor.restore_event_time(state)
+            except (ValueError, KeyError) as exc:
+                # A CRC-valid snapshot the configured gate cannot absorb is
+                # a configuration mismatch (a changed watermark generator),
+                # not corruption: restoring an empty gate over committed
+                # offsets would lose every buffered record.
+                raise ValueError(
+                    f"{self.name}: event-time snapshot does not match the "
+                    f"configured watermark generator ({exc}); restore with "
+                    "the original event-time config"
+                ) from exc
+            return len(recs)
+        return len(recs)
 
 
 class CEPStream:
@@ -229,7 +410,8 @@ class Topology:
         self._ingest_stamps: "OrderedDict[tuple, tuple]" = OrderedDict()
         self.ingest_stamps_max = max(
             [self.INGEST_STAMPS_MAX]
-            + [2 * node.processor.batch_size for _s, node, _o in queries])
+            + [2 * max(1, int(node.device_opts.get("batch_size", 64)))
+               for _s, node, _o in queries])
         self._tracer: Optional[Any] = None
         self._explain: deque = deque(maxlen=self.EXPLAIN_RING)
 
@@ -353,18 +535,67 @@ class Topology:
         for stream, node, out in self.queries:
             if topic not in stream.topics:
                 continue
-            results = node.processor.process(
-                key, value, timestamp=timestamp, topic=topic, partition=partition,
-                offset=offset,
-            )
+            if node.runtime == "cuda":
+                # Device results span every key of the flushed micro-batch.
+                results = node.processor.process(
+                    key, value, timestamp=timestamp, topic=topic, partition=partition,
+                    offset=offset,
+                )
+            elif node.runtime == "auto" or node.processor.gate is not None:
+                # The auto router speaks the keyed surface in both phases;
+                # a gated host query's arrival can release OTHER keys'
+                # records, so each match carries its own key.
+                results = node.processor.process_keyed(
+                    key, value, timestamp=timestamp, topic=topic, partition=partition,
+                    offset=offset,
+                )
+            else:
+                outputs.extend(self._emit_host(node, out, key, value, timestamp, topic,
+                                               partition, offset))
+                continue
             outputs.extend(self._emit_device(node, out, results))
         return outputs
 
+    def _emit_host(self, node: QueryNode, out: OutputStream, key, value, timestamp: int,
+                   topic: str, partition: int, offset: int) -> List[Record]:
+        """The ungated host runtime: the record's own matches, with the
+        record's metadata."""
+        emitted: List[Record] = []
+        for seq in node.processor.process(
+            key, value, timestamp=timestamp, topic=topic, partition=partition, offset=offset,
+        ):
+            # Dedup gates the durable sink only: in-memory consumers did
+            # not survive a crash, so a replayed match still reaches them.
+            digest = node.gate.admit(key, seq)
+            record = Record(key, seq, timestamp, topic, partition, offset)
+            out.records.append(record)
+            emitted.append(record)
+            for fn in node.downstream:
+                fn(key, seq)
+            if digest is not None:
+                trace = self._observe_match_latency(node, topic, partition, key, offset, seq)
+                self._sink(node, record, digest, trace=trace)
+        return emitted
+
+    def is_host_poison(self, exc: BaseException) -> bool:
+        """Whether `exc` is what a host processor's user predicate or fold
+        raised (its `last_error`): a poison record, which `LogDriver`
+        dead-letters. Anything else that escapes `process` is not."""
+        for _stream, node, _out in self.queries:
+            host = node.processor if node.runtime == "host" else getattr(
+                node.processor, "host", None)
+            if host is not None and host.last_error is exc:
+                return True
+        return False
+
     def flush(self) -> List[Record]:
-        """Flush every query's pending micro-batch."""
+        """Flush every query's pending micro-batch (no-op for host
+        queries)."""
         outputs: List[Record] = []
         for _stream, node, out in self.queries:
-            outputs.extend(self._emit_device(node, out, node.processor.flush()))
+            flush = getattr(node.processor, "flush", None)
+            if flush is not None:
+                outputs.extend(self._emit_device(node, out, flush()))
         return outputs
 
     def tick_event_time(self, now_ms: int) -> List[Record]:
@@ -417,6 +648,7 @@ class Topology:
         return [
             (node.name, key, event, exc)
             for _stream, node, _out in self.queries
+            if hasattr(node.processor, "take_poisoned")
             for key, event, exc in node.processor.take_poisoned()
         ]
 

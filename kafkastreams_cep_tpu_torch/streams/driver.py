@@ -1,11 +1,15 @@
 """Log pump driver: consume source topics, drive the topology, commit.
 
 A copy of the JAX package's `streams/driver.py` over the port's
-`runtime="cuda"` topology, without adaptive pacing (`pacing=`; its
-`AdmissionPacer` is not ported). Unlike the JAX driver, `poll` does not
-dead-letter what `Topology.process` raises: the port's processor
-quarantines the poison its schema cannot pack, so an error that escapes
-is the engine's and propagates, with nothing committed.
+topology, adaptive pacing (`pacing=`, parallel/drain_sched.py's
+`AdmissionPacer`) included. Poison: a record that does not deserialize,
+a record whose value a "cuda" query's schema cannot pack (the processor
+quarantines it) and a record on which a host query's user predicate or
+fold raised (`Topology.is_host_poison`) are dead-lettered. Unlike the
+JAX driver, `poll` dead-letters nothing else that `Topology.process`
+raises: such an error is the engine's (a failed build, launch or decode
+of a flush the record started) and propagates, with nothing
+committed.
 
 The Kafka-Streams-runtime role the reference delegates to its platform
 (reference: the poll/process/commit loop of Kafka Streams' StreamThread
@@ -28,6 +32,7 @@ from ..faults import injection as _flt
 from ..faults.injection import with_retry
 from ..obs.registry import MetricsRegistry, default_registry
 from ..obs.trace import SpanTracer
+from ..parallel.drain_sched import AdmissionPacer
 from ..state.store import default_deserializer, default_serializer
 from .builder import Topology
 from .log import RecordLog
@@ -113,6 +118,7 @@ class LogDriver:
         on_poison: str = "quarantine",
         max_restore_attempts: int = 3,
         partitions: Optional[Mapping[str, Sequence[int]]] = None,
+        pacing: Any = None,
     ) -> None:
         self.topology = topology
         self.log = log if log is not None else topology.log
@@ -143,6 +149,13 @@ class LogDriver:
             if partitions is not None else None
         )
         self.metrics = registry if registry is not None else default_registry()
+        #: Adaptive ingest pacing: when armed, a poll without
+        #: `max_records` sizes its own budget from the measured admission
+        #: rate (`cep_driver_poll_batch{group}`) instead of draining the
+        #: whole backlog. True for the defaults, or an AdmissionPacer.
+        if pacing is True:
+            pacing = AdmissionPacer(registry=self.metrics, group=group)
+        self.pacer = pacing if pacing else None
         # Children bound once to this driver's group (labels() locks per
         # resolution; poll() is the cadence path).
         self._m_polls = self.metrics.counter(
@@ -326,6 +339,10 @@ class LogDriver:
             raise RuntimeError("LogDriver is closed")
         processed = 0
         budget = max_records
+        if budget is None and self.pacer is not None:
+            # Paced pump: about target_poll_ms worth of records at the
+            # observed admission rate (an explicit max_records wins).
+            budget = self.pacer.suggest_batch()
         for topic in self.topology.source_topics:
             scoped = (
                 self._partition_scope.get(topic)
@@ -378,20 +395,31 @@ class LogDriver:
                         trace=getattr(rec, "trace", None),
                         broker=broker,
                     )
-                    # Not guarded: the processor quarantines the poison
-                    # its schema cannot pack (dead-lettered below), so an
-                    # error that escapes is the engine's -- a failed
-                    # build, launch or decode of a flush this record
-                    # started -- and dead-lettering it would drop the
-                    # whole batch that flush was driving.
-                    self.topology.process(
-                        topic,
-                        key,
-                        value,
-                        timestamp=rec.timestamp,
-                        partition=partition,
-                        offset=rec.offset,
-                    )
+                    # Only a host query's predicate error is dead-lettered
+                    # here: a "cuda" query quarantines the poison its
+                    # schema cannot pack (dead-lettered below), so any
+                    # other error is the engine's -- a failed build,
+                    # launch or decode of a flush this record started --
+                    # and dead-lettering it would drop the whole batch that
+                    # flush was driving.
+                    try:
+                        self.topology.process(
+                            topic,
+                            key,
+                            value,
+                            timestamp=rec.timestamp,
+                            partition=partition,
+                            offset=rec.offset,
+                        )
+                    except Exception as exc:
+                        if not self.topology.is_host_poison(exc):
+                            raise
+                        self._dead_letter(
+                            topic, partition, rec.offset,
+                            rec.key, rec.value, rec.timestamp,
+                            "predicate", exc,
+                            trace=getattr(rec, "trace", None),
+                        )
                     processed += 1
                 if records:
                     self._positions[(topic, partition)] = records[-1].offset + 1
@@ -414,6 +442,8 @@ class LogDriver:
             self.commit()
             if _flt.ACTIVE is not None:
                 _flt.ACTIVE.fire("driver.post_commit")
+        if self.pacer is not None:
+            self.pacer.observe(processed)
         self._m_polls.inc()
         self._m_records.inc(processed)
         self._last_poll_wall = time.time()

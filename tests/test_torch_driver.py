@@ -180,7 +180,12 @@ def test_driver_dead_letters_equal_jax(runs):
 def test_driver_metric_names_are_jax_names_and_latency_counts_every_match(runs):
     port, jax = runs["port"], runs["jax"]
     names = set().union(*(r.names() for r in port["regs"]))
-    assert names <= set().union(*(r.names() for r in jax["regs"]))
+    # The JAX engines here run without compile telemetry: its CompileWatch
+    # names come from a watch of their own.
+    from kafkastreams_cep_tpu.obs.compile import CompileWatch as JaxCompileWatch
+
+    jax_names = set().union(*(r.names() for r in jax["regs"]))
+    assert names <= jax_names | set(JaxCompileWatch(JaxRegistry()).registry.names())
     for name in ("cep_driver_polls_total", "cep_driver_commits_total",
                  "cep_driver_dead_letters_total", "cep_match_latency_seconds",
                  "cep_reorder_released_total", "cep_span_seconds"):
