@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Builds the step kernel from csrc/ with nvcc (one build per compiled query
-and capacity, the flagship's grown shape, phase 18's arm shape and the
-fold query of phase 13 included; the event-time phases reuse the
+and capacity, the flagship's grown shape, phase 18's arm shape, the
+fold query of phase 13 and the stacked and single queries of phases
+20-21 included; the event-time phases and phase 22 reuse the
 flagship's build, and the shapes phase 18's autosizer grows to build
 inside that phase, timed), the GC mark
 kernel (csrc/gc_mark.cu, one build) and the native
@@ -168,10 +169,38 @@ then:
      phase 15's per key (other poll sizes interleave the keys
      otherwise), each match once; prints records/s and the budgets the
      pacer chose;
- 20. prints the kernel line (with the `wm`, `auto`, `controllers` and
-     `paced_driver` runs' numbers under nfa_step and gc_mark, the grown
-     shapes' times and bounds among them), the card line, and last the
-     ok line.
+ 20. BASELINE config 4, N concurrent queries over one stream
+     (bench.py:916-990): the four letter queries of models/stacked.py in
+     one `StackedQueryEngine(engine="cuda")` over 1024 keys, T = 64, 2
+     warm batches (each an advance and a drain, then a
+     `CapacityAutosizer` tick; the engine starts at the EngineConfig
+     defaults with `pin_interval`) and 8 pre-packed timed batches
+     deferred, one drain; then each query on its own engine, run the same
+     way. Checks: per key and query the stacked matches equal the
+     independent engines', drops 0, both kernels launched, the step
+     kernel bitwise to the plain step on the first timed batch's state.
+     Prints events/s of both (stream events counted once) and the
+     kernel's time and bound there;
+ 21. the wide stack: eight rotations of the flagship pattern stacked (72
+     stages and 120 predicates: the kernel's two-word stage and
+     predicate masks) at eight times the flagship's capacity (lanes 2560,
+     nodes 65,536, the flagship's Dewey width) over 512 keys, 4 batches
+     of T = 64, each advanced and drained. Checks: per key and query the
+     matches equal eight independent flagship-capacity engines', drops 0,
+     the kernel bitwise to the plain step on batch 3; prints ptxas's
+     registers and spills for that build, the kernel's time and bound;
+ 22. `DeviceNFA` on the flagship stream, one key, T = 256 x 12 batches
+     (bench.py:400-440's shape), each advance drained: events/s; the
+     matches, `runs` and live runs equal the host oracle's (nfa/), the
+     matches, state and pool equal a plain-step `DeviceNFA` on the card;
+     a snapshot after batch 6 restored into a fresh engine gives the same
+     later matches and final state; the kernel at K = 1 timed against the
+     plain step on batch 7; the stock golden through a `DeviceNFA` (4
+     matches);
+ 23. prints the kernel line (with the `wm`, `auto`, `controllers`,
+     `paced_driver`, `config4_stacked`, `wide_stack` and `single_key`
+     runs' numbers under nfa_step and gc_mark, the grown shapes' times
+     and bounds among them), the card line, and last the ok line.
 
 Each phase that drives the main path zeroes the kernels' launch counts
 just before and reads them just after, and fails if a kernel was not
@@ -307,6 +336,8 @@ def main() -> int:
     from kafkastreams_cep_tpu_torch.models import skip_any
     from kafkastreams_cep_tpu_torch.models.cases import CASES, STOCK_FIELDS, branchy_case
     from kafkastreams_cep_tpu_torch.models.chunked import CHUNKED, CHUNKED_T, scatter_live_lanes
+    from kafkastreams_cep_tpu_torch.models import cases as cases_models
+    from kafkastreams_cep_tpu_torch.models import stacked as stacked_models
     from kafkastreams_cep_tpu_torch import native
     from kafkastreams_cep_tpu_torch.models.stocks import (
         GOLDEN_EVENTS, GOLDEN_MATCHES, stocks_pattern,
@@ -353,6 +384,32 @@ def main() -> int:
     fold_q = P.compile_query(P.compile_pattern(fold_pattern), None)
     fold_cfg = P.EngineConfig(lanes=256, nodes=4096, matches=2048, matches_per_step=256)
     builds["branchy_fold"] = (fold_q, fold_cfg, None)
+    # Phase 20's config 4 (the stacked letter queries and each on its own,
+    # at the EngineConfig defaults the autosizer starts from) and phase
+    # 21's wide stack (eight rotations of the flagship pattern, eight times
+    # its capacity) and each rotation on its own at the flagship's. Phase
+    # 22's DeviceNFA runs the flagship's and the stock golden's builds.
+    c4_cfg = P.EngineConfig(pin_interval=True)
+    c4_q = P.compile_multi_query(stacked_models.letter_queries())
+    builds["config4_stacked"] = (c4_q, c4_cfg, None)
+    c4_solo = {}
+    for qname, pattern in stacked_models.letter_queries():
+        c4_solo[qname] = P.compile_query(P.compile_pattern(pattern), None)
+        builds[f"config4_{qname}"] = (c4_solo[qname], c4_cfg, None)
+    wide_q = P.compile_multi_query(stacked_models.rotated_skip_any_queries())
+    # digits = the flagship's own Dewey width (a run's version grows only
+    # through its own query's 9 stages); the default would be 72 + 2.
+    wide_cfg = replace(flag_cfg, lanes=8 * flag_cfg.lanes, nodes=8 * flag_cfg.nodes,
+                       matches=8 * flag_cfg.matches,
+                       matches_per_step=8 * flag_cfg.matches_per_step,
+                       nodes_per_step=8 * flag_cfg.nodes_per_step,
+                       digits=flag_cfg.dewey_width(flag_q))
+    builds["wide_stack"] = (wide_q, wide_cfg, None)
+    rot_q = {}
+    for qname, pattern in stacked_models.rotated_skip_any_queries():
+        rot_q[qname] = P.compile_query(P.compile_pattern(pattern), None)
+        builds[f"rotation_{qname}"] = (rot_q[qname], flag_cfg, None)
+
     def timed_build(fn, *args):
         t = time.perf_counter()
         out = fn(*args)
@@ -377,10 +434,13 @@ def main() -> int:
         f"{gc_build_s:.1f}; g++ seconds: " + ", ".join(
             f"{n} {sec:.2f} ({path.name})" for n, (path, sec) in nat_builds.items())
         + f"; Python headers: {native.python_include()}")
-    for name, path in (("skip_any8", libs["skip_any8"]), ("gc_mark", gc_path)):
-        for line in path.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"ptxas[{name}]: {line.strip()}")
+    ptxas = {}
+    for name, path in (("skip_any8", libs["skip_any8"]), ("wide_stack", libs["wide_stack"]),
+                       ("gc_mark", gc_path)):
+        ptxas[name] = [line.strip() for line in path.with_suffix(".log").read_text().splitlines()
+                       if "registers" in line or "spill" in line or "smem" in line]
+        for line in ptxas[name]:
+            log(f"ptxas[{name}]: {line}")
     gc_lib = gk.load_library(gc_path)
     flag_lib = sk.load_library(libs["skip_any8"])
     blocks, threads = ctypes.c_int(), ctypes.c_int()
@@ -1975,7 +2035,243 @@ def main() -> int:
         f"{len(paced_sink)} matches each once; nfa_step launches {paced_launches}")
     del paced_sink, whole_sink, engine_matches
 
-    # -- 20. the kernel line, the card line, the ok line ----------------------
+    # Kernel vs plain step on one (state, xs) of a new path, timed both
+    # ways, with the byte bound of the launch.
+    def kernel_point(lib, q, cfg, state, xs, reps=20, plain_reps=2):
+        plain_step = build_plain_step(q, cfg)
+        s1, y1 = plain_step(state, xs)
+        s2, y2 = sk.launch(lib, q, cfg, state, xs)
+        torch.cuda.synchronize()
+        err = max(max_abs_diff(s1, s2), max_abs_diff(y1, y2))
+        ptrs_, T_, K_, s_out_, ys_, keep_ = sk.prepare(
+            q, cfg, state, xs, int(lib.nfa_step_scratch_words()))
+        ms = cuda_ms(lambda: sk.call(lib, ptrs_, T_, K_, dev), reps=reps)
+        p_ms = cuda_ms(lambda: plain_step(state, xs), reps=plain_reps)
+        moved = bytes_moved(state, s_out_, ys_, keep_)
+        del s1, y1, s2, y2, s_out_, ys_, keep_
+        return {"max_abs_err": err, "ms": ms, "plain_ms": p_ms,
+                "bound_ms": moved / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                "bytes": moved}
+
+    def per_query(acc, out):
+        for k, by_q in out.items():
+            for qname, seqs in by_q.items():
+                acc.setdefault((k, qname), []).extend(P.sequence_to_json(s) for s in seqs)
+
+    # -- 20. config 4: four letter queries over one stream, 1024 keys --------
+    # bench.py:916-990: the stacked engine at the EngineConfig defaults with
+    # pin_interval, settled by a CapacityAutosizer over the 2 warm batches
+    # (an advance and drain, then a tick, each), then 8 pre-packed batches
+    # deferred and one drain; against each query on its own engine, run
+    # the same way, in the same process.
+    c4_keys = [f"k{i}" for i in range(stacked_models.CONFIG4_KEYS)]
+    c4_T = stacked_models.CONFIG4_T
+    rng = random.Random(13)
+    c4_streams = {k: cases_models.letters_stream(rng, c4_T * n_batches) for k in c4_keys}
+
+    def c4_run(eng, split):
+        """(matches per (key, query), timed seconds, autosizer state,
+        state and xs of the first timed batch)."""
+        bat = eng.engine if split else eng
+        packed = [eng.pack({k: s[b * c4_T:(b + 1) * c4_T] for k, s in c4_streams.items()})
+                  for b in range(n_batches)]
+        auto = P.parallel.CapacityAutosizer(bat)
+        got = {}
+
+        def take(out):
+            if split:
+                per_query(got, out)
+            else:
+                for k, seqs in out.items():
+                    got.setdefault(k, []).extend(P.sequence_to_json(s) for s in seqs)
+
+        for b in range(n_warm):
+            take(eng.advance_packed(packed[b]))
+            auto.observe(events=c4_T * len(c4_keys), t=c4_T)
+        point = (bat.state, packed[n_warm])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in range(n_warm, n_batches):
+            eng.advance_packed(packed[b], decode=False)
+        take(eng.drain())
+        torch.cuda.synchronize()
+        return got, time.perf_counter() - t0, auto.state(), point
+
+    sk.NfaStep.launches = gk.GcMark.launches = 0
+    c4_eng = P.StackedQueryEngine(stacked_models.letter_queries(), keys=c4_keys, config=c4_cfg,
+                                  device=dev, engine="cuda")
+    c4_got, c4_s, c4_auto, (c4_state, c4_xs) = c4_run(c4_eng, split=True)
+    c4_launches = launched("config 4 (stacked)", sk.NfaStep.launches)
+    c4_gc_launches = gk.GcMark.launches
+    if c4_gc_launches <= 0:
+        raise AssertionError("config 4 (stacked): gc_mark was not launched")
+    no_drops("config 4 (stacked)", c4_eng.engine)
+    c4_point = kernel_point(c4_eng.engine._advance.library(), c4_eng.query, c4_eng.config,
+                            c4_state, c4_xs)
+    c4_final_cfg = c4_eng.config
+    del c4_eng, c4_state, c4_xs
+    solo_s, solo_launches = 0.0, 0
+    for qname, q in c4_solo.items():
+        sk.NfaStep.launches = 0
+        solo = P.BatchedDeviceNFA(q, keys=c4_keys, config=c4_cfg, device=dev, engine="cuda")
+        got, secs, _auto, _point = c4_run(solo, split=False)
+        solo_launches += launched(f"config 4 ({qname} alone)", sk.NfaStep.launches)
+        no_drops(f"config 4 ({qname} alone)", solo)
+        solo_s += secs
+        for k in c4_keys:
+            if c4_got.get((k, qname), []) != got.get(k, []):
+                raise AssertionError(f"config 4: {qname} on key {k} differs from its own engine")
+        del solo, got
+    c4_matches = sum(len(v) for v in c4_got.values())
+    if c4_matches == 0:
+        raise AssertionError("config 4: no matches")
+    c4_events = n_timed * c4_T * len(c4_keys)  # stream events counted once
+    log(f"config 4 (4 letter queries stacked, {len(c4_keys)} keys, T={c4_T}, {n_warm} warm + "
+        f"{n_timed} timed batches deferred, settled shape lanes {c4_final_cfg.lanes} nodes "
+        f"{c4_final_cfg.nodes} matches {c4_final_cfg.matches}): {c4_events / c4_s:.0f} events/s "
+        f"stacked vs {c4_events / solo_s:.0f} as 4 independent engines (same stream events, "
+        f"the 4 timed passes summed); {c4_matches} matches, per key and query == the "
+        f"independent engines, drops 0; kernel == plain on the first timed batch "
+        f"({c4_point['ms']:.4f} ms vs plain {c4_point['plain_ms']:.3f} ms, bound "
+        f"{c4_point['bound_ms']:.4f} ms); nfa_step launches {c4_launches} stacked, "
+        f"{solo_launches} independent; gc_mark {c4_gc_launches}; autosizer {json.dumps(c4_auto)}")
+    del c4_streams, c4_got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 21. the wide stack: 72 stages, 120 predicates, 512 keys -------------
+    wide_keys = [f"k{i}" for i in range(512)]
+    wide_batches = 4
+    rng = random.Random(7)
+    wide_streams = {k: skip_any.skip_any8_stream(rng, T * wide_batches) for k in wide_keys}
+    wide_chunks = [{k: s[b * T:(b + 1) * T] for k, s in wide_streams.items()}
+                   for b in range(wide_batches)]
+    torch.cuda.reset_peak_memory_stats()
+    sk.NfaStep.launches = gk.GcMark.launches = 0
+    wide_eng = P.StackedQueryEngine(stacked_models.rotated_skip_any_queries(), keys=wide_keys,
+                                    config=wide_cfg, device=dev, engine="cuda")
+    wide_bytes = sum(v.numel() * v.element_size() for tree in (wide_eng.engine.state,
+                                                                wide_eng.engine.pool)
+                     for v in tree.values())
+    wide_got, wide_point_in = {}, None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b, chunk in enumerate(wide_chunks):
+        if b == 2:
+            xs_w = wide_eng.pack(chunk)
+            wide_point_in = (wide_eng.engine.state, xs_w)
+            per_query(wide_got, wide_eng.advance_packed(xs_w))
+        else:
+            per_query(wide_got, wide_eng.advance(chunk))
+    torch.cuda.synchronize()
+    wide_s = time.perf_counter() - t0
+    wide_launches = launched("wide stack", sk.NfaStep.launches)
+    wide_gc_launches = gk.GcMark.launches
+    no_drops("wide stack", wide_eng.engine)
+    wide_live = int(wide_eng.engine.state["active"].sum(0).max())
+    wide_peak = torch.cuda.max_memory_allocated()
+    wide_point = kernel_point(wide_eng.engine._advance.library(), wide_q, wide_cfg,
+                              *wide_point_in, reps=5, plain_reps=1)
+    del wide_eng, wide_point_in, xs_w
+    gc.collect()
+    torch.cuda.empty_cache()
+    for qname, q in rot_q.items():
+        solo = P.BatchedDeviceNFA(q, keys=wide_keys, config=flag_cfg, device=dev, engine="cuda")
+        got = {}
+        for chunk in wide_chunks:
+            for k, seqs in solo.advance(chunk).items():
+                got.setdefault(k, []).extend(P.sequence_to_json(s) for s in seqs)
+        no_drops(f"wide stack ({qname} alone)", solo)
+        for k in wide_keys:
+            if wide_got.get((k, qname), []) != got.get(k, []):
+                raise AssertionError(f"wide stack: {qname} on key {k} differs from its own engine")
+        del solo, got
+    wide_matches = sum(len(v) for v in wide_got.values())
+    if wide_matches == 0:
+        raise AssertionError("wide stack: no matches")
+    log(f"wide stack (8 flagship rotations: {wide_q.n_stages} stages, {wide_q.n_preds} "
+        f"predicates, masks of 2 words; {len(wide_keys)} keys, T={T}, {wide_batches} batches, "
+        f"lanes {wide_cfg.lanes} nodes {wide_cfg.nodes}): {wide_matches} matches, per key and "
+        f"query == 8 independent engines, drops 0, up to {wide_live} live lanes in a key; "
+        f"state + pool {wide_bytes / 1e9:.3f} GB, peak allocated {wide_peak / 1e9:.2f} GB; "
+        f"{len(wide_keys) * T * wide_batches / wide_s:.0f} events/s (pack and drain included); "
+        f"kernel == plain on batch 3 ({wide_point['ms']:.4f} ms vs plain "
+        f"{wide_point['plain_ms']:.3f} ms, {wide_point['bytes']} B -> bound "
+        f"{wide_point['bound_ms']:.4f} ms); ptxas {ptxas['wide_stack']}; nfa_step launches "
+        f"{wide_launches}, gc_mark {wide_gc_launches}")
+    del wide_streams, wide_chunks, wide_got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 22. DeviceNFA: the flagship stream on one key, T = 256 x 12 ---------
+    from kafkastreams_cep_tpu_torch.nfa import NFA as HostNFA
+    from kafkastreams_cep_tpu_torch.state.aggregates import AggregatesStore as HostAggs
+    from kafkastreams_cep_tpu_torch.state.buffer import SharedVersionedBuffer as HostBuffer
+
+    single_T, single_batches = 256, 12
+    single_stream = skip_any.skip_any8_stream(random.Random(7), single_T * single_batches)
+    single_chunks = [single_stream[b * single_T:(b + 1) * single_T] for b in range(single_batches)]
+
+    def single_run(dn, chunks):
+        out = []
+        for c in chunks:
+            out += [P.sequence_to_json(s) for s in dn.advance(c)]
+        return out
+
+    sk.NfaStep.launches = gk.GcMark.launches = 0
+    dn = P.DeviceNFA(flag_q, config=flag_cfg, device=dev, engine="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    single_got = single_run(dn, single_chunks)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    single_launches = launched("DeviceNFA", sk.NfaStep.launches)
+    single_gc_launches = gk.GcMark.launches
+    if single_gc_launches <= 0:
+        raise AssertionError("DeviceNFA: gc_mark was not launched")
+    no_drops("DeviceNFA", dn)
+    oracle = HostNFA.build(P.compile_pattern(skip_any.skip_any8_pattern()), HostAggs(),
+                           HostBuffer(), strict_windows=flag_cfg.strict_windows)
+    want = [P.sequence_to_json(s) for e in single_stream for s in oracle.match_pattern(e)]
+    if single_got != want or not want:
+        raise AssertionError(f"DeviceNFA: {len(single_got)} matches, the oracle {len(want)}")
+    if dn.runs != oracle.runs or dn.n_live != len(oracle.computation_stages):
+        raise AssertionError("DeviceNFA: runs or live runs differ from the oracle's")
+    plain_dn = P.DeviceNFA(flag_q, config=flag_cfg, device=dev, engine="torch")
+    if single_run(plain_dn, single_chunks) != single_got:
+        raise AssertionError("DeviceNFA: the plain step's matches differ")
+    same_engine("DeviceNFA vs the plain step", dn, plain_dn)
+    # A snapshot after batch 6, restored into a fresh engine on the card.
+    half = single_batches // 2
+    first = P.DeviceNFA(flag_q, config=flag_cfg, device=dev, engine="cuda")
+    got_a = single_run(first, single_chunks[:half])
+    blob = first.snapshot()
+    second = P.DeviceNFA.restore(flag_q, blob, config=flag_cfg, device=dev, engine="cuda")
+    got_b = single_run(second, single_chunks[half:])
+    if got_a + got_b != single_got:
+        raise AssertionError("DeviceNFA: the snapshot round trip changed the matches")
+    same_engine("DeviceNFA restored vs uninterrupted", dn, second)
+    # The kernel at K = 1 on batch 7's inputs from the restored state.
+    probe = P.DeviceNFA.restore(flag_q, blob, config=flag_cfg, device=dev, engine="cuda")
+    single_point = kernel_point(probe._advance.library(), flag_q, flag_cfg, probe.state,
+                                probe._pack(single_chunks[half], None), reps=50)
+    gold = P.DeviceNFA(gold_q, config=gold_cfg, device=dev, engine="cuda")
+    gold_out = []
+    for i, e in enumerate(GOLDEN_EVENTS):
+        gold_out += gold.match_pattern(P.Event("K1", e, i, "t", 0, i))
+    if [P.sequence_to_json(s) for s in gold_out] != GOLDEN_MATCHES:
+        raise AssertionError("DeviceNFA: the stock golden differs")
+    log(f"DeviceNFA (flagship pattern, one key, T={single_T} x {single_batches}): "
+        f"{len(single_stream) / single_s:.0f} events/s (pack, step, post and a drain per "
+        f"advance); {len(single_got)} matches == the host oracle's (runs {dn.runs}, "
+        f"{dn.n_live} live) == a plain-step DeviceNFA's, state and pool bitwise; snapshot after "
+        f"batch {half} ({len(blob)} B) restored: matches and final state equal; kernel at "
+        f"K=1 {single_point['ms']:.4f} ms vs plain {single_point['plain_ms']:.3f} ms, bound "
+        f"{single_point['bound_ms']:.5f} ms ({single_point['bytes']} B); stock golden 4 matches; "
+        f"nfa_step launches {single_launches}, gc_mark {single_gc_launches}")
+    del dn, plain_dn, first, second, probe, gold, oracle
+
+    # -- 23. the kernel line, the card line, the ok line ----------------------
     log(f"chip_smoke ran {time.perf_counter() - T_START:.1f}s")
     kernels = [{
         "name": "nfa_step",
@@ -2002,6 +2298,12 @@ def main() -> int:
         "auto": {"launches": auto_launches, "max_abs_err": auto_err},
         "controllers": {"launches": ctl_launches, "resized": resized_rows},
         "paced_driver": {"launches": paced_launches},
+        "config4_stacked": {"launches": c4_launches, "library_ms": None,
+                            "independent_launches": solo_launches, **c4_point},
+        "wide_stack": {"launches": wide_launches, "stages": wide_q.n_stages,
+                       "predicates": wide_q.n_preds, "ptxas": ptxas["wide_stack"],
+                       "library_ms": None, **wide_point},
+        "single_key": {"launches": single_launches, "library_ms": None, **single_point},
     }, {
         "name": "gc_mark",
         "route": "cuda",
@@ -2018,6 +2320,9 @@ def main() -> int:
         "flushes": flush_rows,
         "auto": {"launches": auto_gc_launches},
         "controllers": {"launches": ctl_gc_launches},
+        "config4_stacked": {"launches": c4_gc_launches},
+        "wide_stack": {"launches": wide_gc_launches},
+        "single_key": {"launches": single_gc_launches},
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

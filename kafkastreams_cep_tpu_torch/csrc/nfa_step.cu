@@ -128,7 +128,20 @@ enum { F_SRC, F_EPS, F_VLEN, F_SEQ, F_NODE, F_ROOT, F_TS, F_BR, F_IG, F_VER };
 constexpr int NREC = F_VER + D + 2 * A;
 constexpr int S = 3 * L;
 static_assert(S <= 64, "slot masks are 64-bit");
+#if NFA_WIDE_MASKS
+// Wide masks: a query past 64 stages or 64 predicates (stacked queries,
+// ops/tables.py compile_multi_query). Each stage set is an SMask of SW
+// 64-bit words and each predicate set a PMask of PW words (the header's
+// Mask<W>, held in registers; a word is read by selects). The blocks
+// marked NFA_WIDE_MASKS are resolved by ops/step_kernel.py when it
+// splices in the header: a query of at most 64 stages and 64 predicates
+// gets the single-word code, and its source is what it was before wide
+// masks existed.
+static_assert(N_ST <= 64 * SW, "stage masks hold SW words");
+static_assert(NP <= 64 * PW, "predicate masks hold PW words");
+#else
 static_assert(N_ST <= 64, "stage masks are 64-bit");
+#endif  // NFA_WIDE_MASKS
 constexpr int WARPS = 16;                 // keys per block, one warp each
 constexpr int NTHREADS = 32 * WARPS;      // one block per SM: <= 128 registers
 constexpr int XW = (CI + 31) / 32;        // xi words each thread holds of a row
@@ -199,9 +212,15 @@ __global__ void __launch_bounds__(NTHREADS, 1) nfa_step_kernel(Args a) {
     const int v = s_tab[t][min(max(id, 0), N_ST - 1)];
     return (unsigned)id < (unsigned)N_ST ? v : 0;
   };
+#if NFA_WIDE_MASKS
+  auto has = [](const SMask& mask, int id) -> bool {
+    return (unsigned)id < (unsigned)N_ST && ((mask.word(id >> 6) >> (id & 63)) & 1ull);
+  };
+#else
   auto has = [](unsigned long long mask, int id) -> bool {
     return (unsigned)id < (unsigned)N_ST && ((mask >> (id & 63)) & 1ull);
   };
+#endif  // NFA_WIDE_MASKS
   // Window expiry of an active lane at clock clk.
   auto expired_at = [&](int src, int eps, int ts, int clk) -> bool {
     const int w_src = tab(TB_WINDOW, src);
@@ -300,6 +319,24 @@ __global__ void __launch_bounds__(NTHREADS, 1) nfa_step_kernel(Args a) {
       const int gidx = col(XI_GIDX);
       const int wm = col(XI_WM);
       const int clk = ev.ts > wm ? ev.ts : wm;
+#if NFA_WIDE_MASKS
+      PMask stateless_bits = {};
+      {
+        unsigned nz[XW];
+#pragma unroll
+        for (int w = 0; w < XW; ++w) nz[w] = __ballot_sync(FULL, x[w] != 0);
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          const int c = XI_SPRED + p;
+          if (STATELESS_MASK.bit(p) && ((nz[c >> 5] >> (c & 31)) & 1u))
+            stateless_bits.w[p >> 6] |= 1ull << (p & 63);
+        }
+      }
+      // The stages whose consume / ignore / proceed predicate holds, for
+      // the stateless predicates (the same for every lane of the key).
+      SMask ev_cons = {}, ev_ign = {}, ev_proc = {};
+      stages_on(stateless_bits, ev_cons, ev_ign, ev_proc);
+#else
       uint64_t stateless_bits = 0;
       {
         unsigned nz[XW];
@@ -316,6 +353,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) nfa_step_kernel(Args a) {
       // the stateless predicates (the same for every lane of the key).
       unsigned long long ev_cons = 0, ev_ign = 0, ev_proc = 0;
       stages_on(stateless_bits, ev_cons, ev_ign, ev_proc);
+#endif  // NFA_WIDE_MASKS
 
       const int* cur = table0 + parity * TABLE_WORDS;
       int* nxt = table0 + (parity ^ 1) * TABLE_WORDS;
@@ -366,7 +404,11 @@ __global__ void __launch_bounds__(NTHREADS, 1) nfa_step_kernel(Args a) {
           }
         }
         // ... plus the lane's own stateful predicates.
+#if NFA_WIDE_MASKS
+        SMask cons = ev_cons, ign = ev_ign, proc = ev_proc;
+#else
         unsigned long long cons = ev_cons, ign = ev_ign, proc = ev_proc;
+#endif  // NFA_WIDE_MASKS
         if (is_lane) stages_on(stateful_pred_bits(ev, regs, rset), cons, ign, proc);
 
         // ---- window expiry -------------------------------------------------
@@ -767,7 +809,13 @@ extern "C" void nfa_eval_exprs(int n, int stage, const int* ts, const int* topic
     float* rg = regs + (size_t)i * A;
     bool rs[A > 0 ? A : 1];
     for (int a = 0; a < A; ++a) rs[a] = rset[(size_t)i * A + a] != 0;
+#if NFA_WIDE_MASKS
+    // bits is [n, PW] here.
+    const PMask pb = stateful_pred_bits(ev, rg, rs);
+    for (int w = 0; w < PW; ++w) bits[(size_t)i * PW + w] = pb.w[w];
+#else
     bits[i] = stateful_pred_bits(ev, rg, rs);
+#endif  // NFA_WIDE_MASKS
     apply_folds(ev, true, stage, rg, rs);
     for (int a = 0; a < A; ++a) rset[(size_t)i * A + a] = rs[a];
   }

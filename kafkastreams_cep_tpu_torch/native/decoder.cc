@@ -262,6 +262,10 @@ struct Materializer {
   PyObject* sequence_type = nullptr;  // borrowed
   Py_ssize_t n_names = 0;
   std::vector<int32_t> canon;
+  // Stacked-query attribution (ops/tables.py compile_multi_query): the
+  // per-name-id query table, or null for a single query.
+  const int32_t* qid_of_name = nullptr;
+  Py_ssize_t n_qids = 0;
   PyObject* s_topic = nullptr;
   PyObject* s_partition = nullptr;
   PyObject* s_offset = nullptr;
@@ -279,8 +283,9 @@ struct Materializer {
   };
   std::vector<Group> groups;  // scratch reused across matches
 
+  // `qid_b` is caller-owned so the qid buffer outlives this object.
   bool init(PyObject* name_of_id_, PyObject* registry_, PyObject* staged_,
-            PyObject* sequence_) {
+            PyObject* sequence_, PyObject* qid_obj, Buf* qid_b) {
     if (!PyList_Check(name_of_id_) || !PyDict_Check(registry_) ||
         !PyType_Check(staged_) || !PyType_Check(sequence_)) {
       PyErr_SetString(PyExc_TypeError,
@@ -291,6 +296,19 @@ struct Materializer {
     registry = registry_;
     staged_type = staged_;
     sequence_type = sequence_;
+
+    if (qid_obj != Py_None) {
+      if (PyObject_GetBuffer(qid_obj, &qid_b->buf, PyBUF_C_CONTIGUOUS) < 0) {
+        return false;
+      }
+      qid_b->held = true;
+      if (qid_b->buf.ndim != 1 || qid_b->buf.itemsize != 4) {
+        PyErr_SetString(PyExc_ValueError, "qid_of_name_id must be int32 [N]");
+        return false;
+      }
+      qid_of_name = static_cast<const int32_t*>(qid_b->buf.buf);
+      n_qids = qid_b->buf.shape[0];
+    }
 
     // name_id -> canonical group id: ids whose name strings compare equal
     // share a group (grouping is by NAME, not id).
@@ -519,7 +537,17 @@ struct Materializer {
     }
     Py_DECREF(by_name);
     Py_DECREF(matched);
-    if (!fail && PyList_Append(per_key, seq) < 0) fail = true;
+    if (!fail && qid_of_name != nullptr) {
+      // Stacked-query attribution: chains never span queries, so any
+      // chain node's name id identifies the owner.
+      int32_t nm0 = static_cast<int32_t>(chain[0] >> 32);
+      long qid = (nm0 >= 0 && nm0 < n_qids) ? qid_of_name[nm0] : -1;
+      PyObject* pair = Py_BuildValue("(lO)", qid, seq);
+      if (pair == nullptr || PyList_Append(per_key, pair) < 0) fail = true;
+      Py_XDECREF(pair);
+    } else if (!fail && PyList_Append(per_key, seq) < 0) {
+      fail = true;
+    }
     Py_DECREF(seq);
     return !fail;
   }
@@ -648,12 +676,13 @@ struct Materializer {
 // are [K, M, C] int32 planes (strided views of the [3, M, C, K] table),
 // hops newest-first; live == 0 ends a chain, a live hop with gidx < 0 is
 // a GC-dropped put (skipped while the chain continues). `fragment_fn`
-// null: Sequence objects; else JSON sink tuples.
+// null: Sequence objects (or (qid, Sequence) pairs when `qid_obj` is a
+// table); else JSON sink tuples.
 PyObject* decode_flat_impl(PyObject* counts_obj, PyObject* g_obj,
                            PyObject* n_obj, PyObject* l_obj,
                            PyObject* name_of_id, PyObject* registry,
                            PyObject* staged_type, PyObject* sequence_type,
-                           PyObject* fragment_fn) {
+                           PyObject* fragment_fn, PyObject* qid_obj) {
   Buf counts_b;
   if (PyObject_GetBuffer(counts_obj, &counts_b.buf, PyBUF_C_CONTIGUOUS) < 0) {
     return nullptr;
@@ -673,8 +702,10 @@ PyObject* decode_flat_impl(PyObject* counts_obj, PyObject* g_obj,
 
   const auto* counts = static_cast<const int32_t*>(counts_b.buf.buf);
 
+  Buf qid_b;
   Materializer mat;
-  if (!mat.init(name_of_id, registry, staged_type, sequence_type)) {
+  if (!mat.init(name_of_id, registry, staged_type, sequence_type, qid_obj,
+                &qid_b)) {
     mat.fini();
     return nullptr;
   }
@@ -720,17 +751,22 @@ PyObject* decode_flat_impl(PyObject* counts_obj, PyObject* g_obj,
 }
 
 // decode_matches_flat(counts, gidx, name, live, name_of_id, registry,
-//                     staged_type, sequence_type) -> [list[Sequence]] * K
+//                     staged_type, sequence_type[, qid_of_name_id])
+//   -> [list[Sequence]] * K, or [list[(qid, Sequence)]] * K when the
+//      optional per-name-id query-attribution table is given (a stacked
+//      multi-query decode, ops/tables.py compile_multi_query).
 PyObject* decode_matches_flat(PyObject*, PyObject* args) {
   PyObject *counts_obj, *g_obj, *n_obj, *l_obj;
   PyObject *name_of_id, *registry, *staged_type, *sequence_type;
-  if (!PyArg_ParseTuple(args, "OOOOOOOO", &counts_obj, &g_obj, &n_obj, &l_obj,
-                        &name_of_id, &registry, &staged_type,
-                        &sequence_type)) {
+  PyObject* qid_obj = Py_None;
+  if (!PyArg_ParseTuple(args, "OOOOOOOO|O", &counts_obj, &g_obj, &n_obj,
+                        &l_obj, &name_of_id, &registry, &staged_type,
+                        &sequence_type, &qid_obj)) {
     return nullptr;
   }
   return decode_flat_impl(counts_obj, g_obj, n_obj, l_obj, name_of_id,
-                          registry, staged_type, sequence_type, nullptr);
+                          registry, staged_type, sequence_type, nullptr,
+                          qid_obj);
 }
 
 // decode_matches_json(counts, gidx, name, live, name_of_id, registry,
@@ -747,13 +783,15 @@ PyObject* decode_matches_json(PyObject*, PyObject* args) {
     return nullptr;
   }
   return decode_flat_impl(counts_obj, g_obj, n_obj, l_obj, name_of_id,
-                          registry, staged_type, sequence_type, fragment_fn);
+                          registry, staged_type, sequence_type, fragment_fn,
+                          Py_None);
 }
 
 PyMethodDef methods[] = {
     {"decode_matches_flat", decode_matches_flat, METH_VARARGS,
      "Build Sequence objects from a chain-flattened drain table "
-     "([K, M, C] gidx/name/live planes); returns a list of K lists."},
+     "([K, M, C] gidx/name/live planes); returns a list of K lists "
+     "(of (qid, Sequence) pairs given a qid_of_name_id table)."},
     {"decode_matches_json", decode_matches_json, METH_VARARGS,
      "Serialize matches from a chain-flattened drain table straight to "
      "JSON sink bytes; returns a list of K lists of "

@@ -13,7 +13,9 @@ module, which writes the header the kernel includes ("nfa_query.cuh"):
     memory at block start, and every yes/no fact about a stage (its
     consume op, proceed kind, begin/final flags, and which predicate each
     edge tests) as 64-bit stage masks, bit s for stage s, which the
-    descent tests in registers;
+    descent tests in registers -- past 64 stages or 64 predicates (a
+    stacked query) each mask is a `Mask<W>` of W 64-bit words instead
+    (`wide_masks`);
   * the stateful predicates and the fold updates as C, emitted by running
     the query's own closures against `CudaEnv`: its accessors return
     `CExpr` values whose Python operators build C expressions under jnp's
@@ -259,11 +261,59 @@ def predicate_stages(query: CompiledQuery, p: int) -> Dict[str, int]:
             "proc": _mask(query.proceed_pred == p)}
 
 
+def wide_masks(query: CompiledQuery) -> bool:
+    """Whether the query needs multi-word stage or predicate masks: the
+    kernel's NFA_WIDE_MASKS blocks (ops/step_kernel.py resolves them)."""
+    return query.n_stages > 64 or query.n_preds > 64
+
+
+def mask_words(n: int) -> int:
+    """64-bit words of a mask over n ids (at least one)."""
+    return max(1, -(-n // 64))
+
+
+def _word(mask: int, i: int) -> int:
+    """64-bit word i of a mask."""
+    return (mask >> (64 * i)) & ((1 << 64) - 1)
+
+
+def _mask_literal(type_name: str, mask: int, n_words: int) -> str:
+    words = ", ".join(f"{_word(mask, i):#x}ull" for i in range(n_words))
+    return f"({type_name}{{{{{words}}}}})"
+
+
+#: The multi-word mask of the wide header: W words in registers, a word
+#: read by selects (no local memory), `&` word by word.
+_MASK_TYPE = """template <int W>
+struct Mask {
+  unsigned long long w[W];
+  __device__ __forceinline__ unsigned long long word(int i) const {
+    unsigned long long v = w[0];
+#pragma unroll
+    for (int j = 1; j < W; ++j) v = i == j ? w[j] : v;
+    return v;
+  }
+  __device__ __forceinline__ bool bit(int i) const { return (word(i >> 6) >> (i & 63)) & 1ull; }
+};
+template <int W>
+__device__ __forceinline__ Mask<W> operator&(const Mask<W>& a, const Mask<W>& b) {
+  Mask<W> r;
+#pragma unroll
+  for (int j = 0; j < W; ++j) r.w[j] = a.w[j] & b.w[j];
+  return r;
+}
+using SMask = Mask<SW>;
+using PMask = Mask<PW>;
+"""
+
+
 def query_header(query: CompiledQuery, config: EngineConfig) -> str:
-    """The generated "nfa_query.cuh" for one (query, config)."""
+    """The generated "nfa_query.cuh" for one (query, config). A query of
+    at most 64 stages and 64 predicates gets single-word masks (the
+    header it always had); a wider one gets `Mask<W>` masks."""
     P = query.n_preds
-    if P > 64:
-        raise ValueError(f"{P} predicates exceed the kernel's 64-bit predicate mask")
+    wide = wide_masks(query)
+    SW, PW = mask_words(len(query.consume_op)), mask_words(P)
     ints, floats = field_layout(query)
     env = CudaEnv(query)
     tab = stage_tables(query)
@@ -288,7 +338,13 @@ def query_header(query: CompiledQuery, config: EngineConfig) -> str:
         f"constexpr int XI_FIELDS = {len(XI_FIXED)};",
         "constexpr int XI_SPRED = XI_FIELDS + NI;",
         "constexpr int CI = XI_SPRED + NP;",
-        f"constexpr unsigned long long STATELESS_MASK = {stateless:#x}ull;",
+    ]
+    if wide:
+        lines += [f"constexpr int SW = {SW}, PW = {PW};", _MASK_TYPE.rstrip("\n"),
+                  f"#define STATELESS_MASK {_mask_literal('PMask', stateless, PW)}"]
+    else:
+        lines.append(f"constexpr unsigned long long STATELESS_MASK = {stateless:#x}ull;")
+    lines += [
         f"#define STRICT_WINDOWS {1 if config.strict_windows else 0}",
         f"#define HAS_FOLDS {1 if flat_folds(query) else 0}",
         "__constant__ int c_tab[N_TAB][N_ST] = {",
@@ -297,13 +353,25 @@ def query_header(query: CompiledQuery, config: EngineConfig) -> str:
         lines.append("  {" + ", ".join(str(int(v)) for v in row) + "},")
     lines.append("};")
     for name, m in stage_masks(query).items():
-        lines.append(f"constexpr unsigned long long {name} = {m:#x}ull;")
+        if wide:
+            lines.append(f"#define {name} {_mask_literal('SMask', m, SW)}")
+        else:
+            lines.append(f"constexpr unsigned long long {name} = {m:#x}ull;")
     lines += [
         "// The stages whose consume / ignore / proceed predicate is among `bits`.",
-        "__device__ __forceinline__ void stages_on(unsigned long long bits,",
+        "__device__ __forceinline__ void stages_on("
+        + ("const PMask& bits," if wide else "unsigned long long bits,"),
+        "    SMask& cons, SMask& ign, SMask& proc) {" if wide else
         "    unsigned long long& cons, unsigned long long& ign, unsigned long long& proc) {",
     ]
     for p in range(P):
+        if wide:
+            sets = [f"{var}.w[{i}] |= {_word(m, i):#x}ull;"
+                    for var, m in predicate_stages(query, p).items()
+                    for i in range(SW) if _word(m, i)]
+            if sets:
+                lines.append(f"  if ((bits.w[{p >> 6}] >> {p & 63}) & 1ull) {{ {' '.join(sets)} }}")
+            continue
         sets = [f"{var} |= {m:#x}ull;" for var, m in predicate_stages(query, p).items() if m]
         if sets:
             lines.append(f"  if ((bits >> {p}) & 1ull) {{ {' '.join(sets)} }}")
@@ -319,14 +387,18 @@ def query_header(query: CompiledQuery, config: EngineConfig) -> str:
         "  float ff[NF > 0 ? NF : 1];",
         "};",
         "// Stateful predicates against the lane's event-start registers.",
-        "__device__ __forceinline__ unsigned long long stateful_pred_bits(",
+        f"__device__ __forceinline__ {'PMask' if wide else 'unsigned long long'} stateful_pred_bits(",
         "    const Ev& ev, const float* regs, const bool* rset) {",
-        "  unsigned long long bits = 0;",
+        "  PMask bits = {};" if wide else "  unsigned long long bits = 0;",
     ]
     for p in range(P):
         if query.pred_stateful[p]:
             code = as_bool_code(query.predicates[p](env))
-            lines.append(f"  if {code if code.startswith('(') else '(' + code + ')'} bits |= 1ull << {p};")
+            cond = code if code.startswith('(') else '(' + code + ')'
+            if wide:
+                lines.append(f"  if {cond} bits.w[{p >> 6}] |= 1ull << {p & 63};")
+            else:
+                lines.append(f"  if {cond} bits |= 1ull << {p};")
     lines += [
         "  return bits;",
         "}",

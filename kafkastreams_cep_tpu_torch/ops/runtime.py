@@ -1,6 +1,8 @@
-"""Host helpers of the device runtime: watermark rebase, match
-materialization and match provenance (the JAX package's `ops/runtime.py`
-helpers, which the port keeps its own copy of)."""
+"""Host helpers of the device runtime: watermark rebase, the host pool
+walk (`decode_chains`), match materialization and match provenance (the
+JAX package's `ops/runtime.py` helpers, which the port keeps its own copy
+of). The JAX module's single-key `DeviceNFA` lives in ops/device_nfa.py
+and is re-exported here."""
 from __future__ import annotations
 
 from typing import Any, Dict, List, Tuple
@@ -102,3 +104,47 @@ def sequence_provenance(
         first_timestamp=min(ts) if ts else -1,
         last_timestamp=max(ts) if ts else -1,
     )
+
+
+def decode_chains(
+    start_nodes: np.ndarray,
+    node_name: np.ndarray,
+    node_event: np.ndarray,
+    node_pred: np.ndarray,
+) -> List[List[Tuple[int, int]]]:
+    """Vectorized predecessor walk: all match chains at once, one numpy
+    gather per chain depth level (the host analog of the reference's peek
+    loop, SharedVersionedBufferStoreImpl.java:176-201). Returns, per start
+    node, the chain as (stage-name-id, event-gidx) pairs oldest-first."""
+    n = len(start_nodes)
+    cur = start_nodes.astype(np.int64)
+    midx = np.arange(n)
+    levels: List[Tuple[np.ndarray, np.ndarray, np.ndarray]] = []
+    while True:
+        live = cur >= 0
+        if not live.any():
+            break
+        li = cur[live]
+        levels.append((midx[live], node_name[li], node_event[li]))
+        nxt = np.full_like(cur, -1)
+        nxt[live] = node_pred[li]
+        cur = nxt
+
+    chains: List[List[Tuple[int, int]]] = [[] for _ in range(n)]
+    for m_ids, names_l, gidxs in reversed(levels):
+        for m, nm, g in zip(m_ids.tolist(), names_l.tolist(), gidxs.tolist()):
+            if g < 0:
+                # A dropped put (node-pool overflow): the hop is skipped;
+                # node_drops already counts it.
+                continue
+            chains[m].append((nm, g))
+    return chains
+
+
+def __getattr__(name: str) -> Any:
+    # DeviceNFA imports the batched engine, which imports this module.
+    if name == "DeviceNFA":
+        from .device_nfa import DeviceNFA
+
+        return DeviceNFA
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

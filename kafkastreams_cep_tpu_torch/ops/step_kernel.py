@@ -28,7 +28,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from .codegen import XI_FIXED, field_layout, query_header
+from .codegen import XI_FIXED, field_layout, query_header, wide_masks
 from .engine import WM_NONE, EngineConfig, node_window_cap
 from .kernel_build import CSRC, compile_source
 from .step import COUNTER_FIELDS, build_plain_step
@@ -36,20 +36,46 @@ from .tables import CompiledQuery
 
 KERNEL_SOURCE = CSRC / "nfa_step.cu"
 
-#: The kernel's envelope: its slot masks (3 slots per descent level),
-#: predicate masks and stage masks are 64-bit.
+#: The kernel's envelope: its slot masks (3 slots per descent level) are
+#: 64-bit; its stage and predicate masks are one 64-bit word up to 64
+#: stages and 64 predicates and `Mask<W>` words past that (the kernel's
+#: NFA_WIDE_MASKS blocks), up to 256 of each: 4 words per live set in
+#: registers, and the stage table's `__constant__`/shared copy is
+#: N_TAB x 256 int32 = 5 KB (of 64 KB constant, 48 KB static shared).
 MAX_SLOTS = 64
-MAX_PREDS = 64
-MAX_STAGES = 64
+MAX_PREDS = 256
+MAX_STAGES = 256
+#: The kernel's conditional blocks that `kernel_source` resolves.
+_WIDE_IF, _WIDE_ELSE, _WIDE_END = "#if NFA_WIDE_MASKS", "#else", "#endif  // NFA_WIDE_MASKS"
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
+def resolve_wide_blocks(src: str, wide: bool) -> str:
+    """Keep one branch of each `#if NFA_WIDE_MASKS` / `#else` / `#endif
+    // NFA_WIDE_MASKS` block of the kernel source (no directive lines),
+    so a query with single-word masks compiles the source it always did."""
+    out, branch = [], None
+    for line in src.splitlines(keepends=True):
+        text = line.strip()
+        if branch is None and text == _WIDE_IF:
+            branch = "wide"
+        elif branch == "wide" and text == _WIDE_ELSE:
+            branch = "narrow"
+        elif branch is not None and text == _WIDE_END:
+            branch = None
+        elif branch is None or (branch == "wide") == wide:
+            out.append(line)
+    if branch is not None:
+        raise ValueError("unterminated NFA_WIDE_MASKS block in the kernel source")
+    return "".join(out)
+
+
 def kernel_source(query: CompiledQuery, config: EngineConfig,
                   source: Path = KERNEL_SOURCE) -> str:
     """The complete kernel source for one (query, config)."""
-    src = Path(source).read_text()
+    src = resolve_wide_blocks(Path(source).read_text(), wide_masks(query))
     return src.replace('#include "nfa_query.cuh"\n', query_header(query, config))
 
 
@@ -202,7 +228,8 @@ def check_envelope(query: CompiledQuery) -> None:
             f"lane; the kernel's slot masks hold {MAX_SLOTS}"
         )
     if query.n_preds > MAX_PREDS:
-        raise ValueError(f"{query.n_preds} predicates exceed the kernel's {MAX_PREDS}-bit mask")
+        raise ValueError(
+            f"{query.n_preds} predicates exceed the kernel's {MAX_PREDS}-bit predicate masks")
     if query.n_stages > MAX_STAGES:
         raise ValueError(
             f"{query.n_stages} stages exceed the kernel's {MAX_STAGES}-bit stage masks"

@@ -343,3 +343,150 @@ def compile_query(stages: Stages, schema: Optional[EventSchema] = None) -> Compi
         host_stages=stages,
         stage_list=stage_list,
     )
+
+
+def compile_multi_query(
+    named_queries: List[Tuple[str, Any]],
+    schema: Optional[EventSchema] = None,
+) -> CompiledQuery:
+    """Stack Q compiled queries into ONE device table set (SURVEY.md §2.8
+    "multiple concurrent queries = stacked transition tables").
+
+    The reference runs N independent processor nodes over one topic
+    (reference: core/.../kstream/internals/CEPStreamImpl.java:80-93), so N
+    queries cost N per-record NFA walks. Here the per-query stage tables
+    concatenate with offset stage/predicate/name/register ids, one begin
+    lane per query seeds the shared lane pool, and a single device advance
+    serves every query -- the event columns are packed once and the kernel's
+    unrolled lookups span the union stage table.
+
+    All queries must share one event schema (they observe the same packed
+    columns -- pass `schema`, or let one be created here); aggregate fold
+    names must be distinct across queries (each register slot is one fold
+    cell; a cross-query name collision raises). Match routing back to the
+    owning query rides `qid_of_name_id` (chains never span queries).
+    """
+    from ..pattern.compiler import compile_pattern as _compile_pattern
+    from ..pattern.pattern import Pattern
+
+    if not named_queries:
+        raise ValueError("compile_multi_query needs at least one query")
+    shared_schema = schema if schema is not None else EventSchema()
+    names: List[str] = []
+    compiled: List[CompiledQuery] = []
+    for qname, q in named_queries:
+        names.append(str(qname))
+        if isinstance(q, CompiledQuery):
+            if q.schema is not shared_schema:
+                raise ValueError(
+                    "stacked CompiledQuery must be compiled against the "
+                    "shared schema object (pass Stages/Pattern instead)"
+                )
+            compiled.append(q)
+        elif isinstance(q, Stages):
+            compiled.append(compile_query(q, shared_schema))
+        elif isinstance(q, Pattern):
+            compiled.append(compile_query(_compile_pattern(q), shared_schema))
+        else:
+            raise TypeError(f"cannot stack {type(q).__name__}")
+
+    agg_slots: Dict[str, int] = {}
+    agg_defaults: Dict[str, float] = {}
+    predicates: List[Callable] = []
+    pred_stateful: List[bool] = []
+    name_of_id: List[str] = []
+    qid_of_name: List[int] = []
+    folds: List[List[Tuple[int, Callable]]] = []
+    begin_stages: List[int] = []
+    stage_list: List[Stage] = []
+
+    tabs: Dict[str, List[np.ndarray]] = {
+        k: []
+        for k in (
+            "consume_op", "consume_pred", "consume_target", "ignore_pred",
+            "proceed_kind", "proceed_pred", "proceed_target", "window_ms",
+            "name_id", "pure_name_id", "is_begin", "is_final", "is_fwd",
+            "fwd_final",
+        )
+    }
+    stage_off = 0
+    pure_off = 0
+    for qi, cq in enumerate(compiled):
+        pred_off = len(predicates)
+        name_off = len(name_of_id)
+        agg_off = len(agg_slots)
+
+        def off_ids(t: np.ndarray, off: int) -> np.ndarray:
+            return np.where(t >= 0, t + off, t).astype(t.dtype)
+
+        tabs["consume_op"].append(cq.consume_op)
+        tabs["consume_pred"].append(off_ids(cq.consume_pred, pred_off))
+        tabs["consume_target"].append(off_ids(cq.consume_target, stage_off))
+        tabs["ignore_pred"].append(off_ids(cq.ignore_pred, pred_off))
+        tabs["proceed_kind"].append(cq.proceed_kind)
+        tabs["proceed_pred"].append(off_ids(cq.proceed_pred, pred_off))
+        tabs["proceed_target"].append(off_ids(cq.proceed_target, stage_off))
+        tabs["window_ms"].append(cq.window_ms)
+        tabs["name_id"].append(cq.name_id + name_off)
+        tabs["pure_name_id"].append(cq.pure_name_id + pure_off)
+        tabs["is_begin"].append(cq.is_begin)
+        tabs["is_final"].append(cq.is_final)
+        tabs["is_fwd"].append(cq.is_fwd)
+        tabs["fwd_final"].append(cq.fwd_final)
+
+        predicates.extend(cq.predicates)
+        pred_stateful.extend(bool(b) for b in cq.pred_stateful)
+        name_of_id.extend(cq.name_of_id)
+        qid_of_name.extend([qi] * len(cq.name_of_id))
+        for agg_name, slot in cq.agg_slots.items():
+            if agg_name in agg_slots:
+                raise ValueError(
+                    f"aggregate name {agg_name!r} appears in more than one "
+                    "stacked query; fold registers are per-name cells -- "
+                    "rename the fold in one of the queries"
+                )
+            agg_slots[agg_name] = agg_off + slot
+            agg_defaults[agg_name] = cq.agg_defaults.get(agg_name, 0.0)
+        for stage_folds in cq.folds:
+            folds.append([(agg_off + slot, fn) for slot, fn in stage_folds])
+        begin_stages.append(stage_off + cq.begin_stage)
+        stage_list.extend(cq.stage_list)
+
+        stage_off += cq.n_stages
+        pure_off += int(cq.pure_name_id.max()) + 1 if cq.n_stages else 0
+
+    return CompiledQuery(
+        schema=shared_schema,
+        n_stages=stage_off,
+        n_preds=len(predicates),
+        n_aggs=max(1, len(agg_slots)),
+        max_depth=max(cq.max_depth for cq in compiled),
+        consume_op=np.concatenate(tabs["consume_op"]),
+        consume_pred=np.concatenate(tabs["consume_pred"]),
+        consume_target=np.concatenate(tabs["consume_target"]),
+        ignore_pred=np.concatenate(tabs["ignore_pred"]),
+        proceed_kind=np.concatenate(tabs["proceed_kind"]),
+        proceed_pred=np.concatenate(tabs["proceed_pred"]),
+        proceed_target=np.concatenate(tabs["proceed_target"]),
+        window_ms=np.concatenate(tabs["window_ms"]),
+        name_id=np.concatenate(tabs["name_id"]),
+        pure_name_id=np.concatenate(tabs["pure_name_id"]),
+        is_begin=np.concatenate(tabs["is_begin"]),
+        is_final=np.concatenate(tabs["is_final"]),
+        is_fwd=np.concatenate(tabs["is_fwd"]),
+        fwd_final=np.concatenate(tabs["fwd_final"]),
+        pred_stateful=np.asarray(pred_stateful, bool),
+        predicates=predicates,
+        folds=folds,
+        agg_slots=agg_slots,
+        agg_defaults=agg_defaults,
+        name_of_id=name_of_id,
+        begin_stage=begin_stages[0],
+        # Exact-replay needs ONE host stage graph; a stacked query keeps
+        # detection-only semantics (ops/replay.py supports_replay -> False).
+        host_stages=None,
+        stage_list=stage_list,
+        begin_stages=begin_stages,
+        qid_of_name_id=np.asarray(qid_of_name, np.int32),
+        query_names=names,
+    )

@@ -100,6 +100,13 @@ Event time: `pack(..., watermarks=)` threads the gate's release clocks
 into the step as a "wm" column; the gate itself (time/gate.py) lives in
 the processor (streams/device_processor.py).
 
+Stacked queries (ops/tables.py `compile_multi_query`): the matches of a
+stacked table set decode to `(qid, Sequence)` pairs, the query read off
+the chain's stage-name id (`qid_of_name_id`), in the native decoder and
+the Python walk alike; parallel/stacked.py splits them by query. Such a
+table set has no host stages, so exact replay stays off, and the JSON
+sink is refused (its bytes carry no query).
+
 Left for later slices (see ROADMAP.md): Arrow sinks and the mesh. The
 JAX engine's options for them (and `drain_mode`, `compile_telemetry`,
 `compile_cost_estimates`) are not parameters here, so passing one raises
@@ -214,6 +221,11 @@ class BatchedDeviceNFA:
         else:
             assert isinstance(stages_or_query, Stages)
             self.query = compile_query(stages_or_query, schema)
+        if sink_format != "objects" and self.query.qid_of_name_id is not None:
+            raise ValueError(
+                f"sink_format {sink_format!r} does not support stacked "
+                "multi-query engines (qid attribution needs the object path)"
+            )
         self.config = config if config is not None else EngineConfig()
         self.device = resolve_device(device)
         if engine is None:
@@ -1242,8 +1254,8 @@ class BatchedDeviceNFA:
             remedy = "Re-enable exact_replay (default) to recover exactness."
         else:
             remedy = ("This engine cannot replay (no host-stage oracle for this "
-                      "compiled query); run the affected query on its own engine "
-                      "for oracle-exact folds.")
+                      "compiled query, e.g. stacked multi-query); run the "
+                      "affected query on its own engine for oracle-exact folds.")
         warnings.warn(
             "seq_collisions > 0 with exact replay unavailable: fold registers "
             "have diverged from the reference's per-run semantics for at least "
@@ -1444,9 +1456,11 @@ class BatchedDeviceNFA:
         if not self.native:
             out = self._decode_flat_python(counts, gidx, name, live, events)
         else:
+            qid_tab = self.query.qid_of_name_id
             per_key = self._native_decoder().decode_matches_flat(
                 counts, gidx, name, live, self.query.name_of_id, events,
-                Staged, Sequence)
+                Staged, Sequence,
+                None if qid_tab is None else np.ascontiguousarray(qid_tab, np.int32))
             out = {self.keys[k]: seqs for k, seqs in enumerate(per_key) if seqs}
         self._attach_provenance(out, trigger)
         return out
@@ -1478,18 +1492,25 @@ class BatchedDeviceNFA:
         return out
 
     # ------------------------------------------------------------- provenance
-    def _attach_provenance(self, decoded: Dict[Any, List[Sequence]], trigger: str) -> None:
+    def _attach_provenance(self, decoded: Dict[Any, List[Any]], trigger: str) -> None:
         """Attach a `MatchProvenance` to every 1/provenance_sample-th
-        decoded Sequence and keep it in the ring."""
+        decoded Sequence and keep it in the ring. A stacked query's
+        `(qid, Sequence)` pair is named by its query."""
         if self.provenance_sample <= 0.0 or not decoded:
             return
-        qname = self.query_name or "q"
+        names = self.query.query_names
         for key, seqs in decoded.items():
-            for seq in seqs:
+            for item in seqs:
                 self._prov_acc += self.provenance_sample
                 if self._prov_acc < 1.0:
                     continue
                 self._prov_acc -= 1.0
+                if isinstance(item, tuple):
+                    qid, seq = item
+                    qname = (names[qid] if names is not None and 0 <= qid < len(names)
+                             else f"q{qid}")
+                else:
+                    seq, qname = item, self.query_name or "q"
                 prov = sequence_provenance(seq, query=qname, trigger=trigger)
                 seq.provenance = prov
                 with self._prov_lock:
@@ -1559,9 +1580,11 @@ class BatchedDeviceNFA:
         self, counts, gidx, name, live, events: Optional[Dict[int, Event]] = None,
     ) -> Dict[Any, List[Sequence]]:
         """The Python walk over the flat table: the reference for the
-        native decoder."""
+        native decoder. A stacked query's matches come out as
+        `(qid, Sequence)` pairs (chains never span queries)."""
         if events is None:
             events = self._events
+        qid_tab = self.query.qid_of_name_id
         K, Mb, _ = gidx.shape
         out: Dict[Any, List[Sequence]] = {}
         for k in np.flatnonzero(counts[:K]).tolist():
@@ -1569,7 +1592,7 @@ class BatchedDeviceNFA:
             # Python lists per key: list reads cost far less than numpy
             # scalar indexing in the hop loop.
             g_rows, n_rows, l_rows = (a[k, :n].tolist() for a in (gidx, name, live))
-            seqs: List[Sequence] = []
+            seqs: List[Any] = []
             for j in range(n):
                 chain: List[Tuple[int, int]] = []
                 for g, nm, lv in zip(g_rows[j], n_rows[j], l_rows[j]):
@@ -1580,7 +1603,8 @@ class BatchedDeviceNFA:
                 if not chain:
                     continue
                 chain.reverse()
-                seqs.append(materialize_sequence(chain, self.query.name_of_id, events))
+                seq = materialize_sequence(chain, self.query.name_of_id, events)
+                seqs.append(seq if qid_tab is None else (int(qid_tab[chain[0][0]]), seq))
             if seqs:
                 out[self.keys[k]] = seqs
         return out

@@ -734,13 +734,15 @@ def encode_array_tree(tree: Dict[str, Any]) -> bytes:
     w._buf.write(MAGIC)
     w.i32(len(tree))
     for name in sorted(tree):
-        arr = np.ascontiguousarray(tree[name])
+        # The shape of the array as given (a scalar leaf stays 0-d: the
+        # contiguous copy below would make it (1,)).
+        arr = np.asarray(tree[name])
         w.text(name)
         w.text(str(arr.dtype))
         w.i32(arr.ndim)
         for dim in arr.shape:
             w.i64(dim)
-        w.blob(memoryview(arr).cast("B") if arr.size else b"")
+        w.blob(memoryview(np.ascontiguousarray(arr)).cast("B") if arr.size else b"")
     return seal_frame(w.getvalue())
 
 
