@@ -409,6 +409,17 @@ def main() -> int:
     for qname, pattern in stacked_models.rotated_skip_any_queries():
         rot_q[qname] = P.compile_query(P.compile_pattern(pattern), None)
         builds[f"rotation_{qname}"] = (rot_q[qname], flag_cfg, None)
+    # The widest masks, at tests/test_torch_step.py's shapes: letter queries
+    # stacked to 256 stages and 193 predicates (4 words of each), and
+    # seventeen flagship rotations, 153 stages and 255 predicates (3 and 4).
+    builds["stack256"] = (
+        P.compile_multi_query(stacked_models.boundary_queries(256)),
+        P.EngineConfig(lanes=128, nodes=2048, matches=1024, matches_per_step=128,
+                       nodes_per_step=128), cases_models.letters_stream)
+    builds["rotations17"] = (
+        P.compile_multi_query(stacked_models.rotated_skip_any_queries(17)),
+        replace(flag_cfg, lanes=512, matches_per_step=128, nodes_per_step=512),
+        skip_any.skip_any8_stream)
 
     def timed_build(fn, *args):
         t = time.perf_counter()
@@ -436,6 +447,7 @@ def main() -> int:
         + f"; Python headers: {native.python_include()}")
     ptxas = {}
     for name, path in (("skip_any8", libs["skip_any8"]), ("wide_stack", libs["wide_stack"]),
+                       ("stack256", libs["stack256"]), ("rotations17", libs["rotations17"]),
                        ("gc_mark", gc_path)):
         ptxas[name] = [line.strip() for line in path.with_suffix(".log").read_text().splitlines()
                        if "registers" in line or "spill" in line or "smem" in line]
@@ -509,6 +521,15 @@ def main() -> int:
     xs["valid"][:, 3] = False
     compare("skip_any8_lanes96", q, cfg, [(scatter_live_lanes(state, 12), xs)])
     log("kernel == plain on the card: an entry state that is not a prefix, an all-padding key")
+    envelope = {}
+    for name, seed in (("stack256", 5), ("rotations17", 7)):
+        q, cfg, stream = builds[name]
+        err, live = compare(name, q, cfg, trajectory(name, q, cfg, stream, 8, CHUNKED_T, 2, seed))
+        envelope[name] = dict(stages=q.n_stages, predicates=q.n_preds,
+                              mask_words=[-(-q.n_stages // 64), -(-q.n_preds // 64)],
+                              max_abs_err=err, ptxas=ptxas[name])
+        log(f"kernel == plain on the card: {name} ({q.n_stages} stages, {q.n_preds} predicates; "
+            f"K=8, T={CHUNKED_T}, 2 batches; up to {live} of {cfg.lanes} live lanes in a key)")
     del chunked_pairs
 
     K, T = skip_any.FLAGSHIP_KEYS, skip_any.FLAGSHIP_T
@@ -1191,10 +1212,10 @@ def main() -> int:
     del obj_sink, sink, order
 
     # -- 12. the GC mark kernel against the plain walk ------------------------
-    def capture_flushes(cfg, at, n):
-        """The inputs of the group flushes numbered in `at` (1-based) of an
-        engine run of n drained batches; the run itself goes on as usual."""
-        eng = new_engine(cfg)
+    def watch_flushes(eng, at):
+        """Wrap eng's group flush so that the inputs of its calls numbered in
+        `at` (1-based, from now) are kept; the run itself goes on as usual.
+        Returns the unwrapped flush and the inputs by call number."""
         flush, count, captured = eng._flush, [0], {}
 
         def capture(state, pool, ys, roots):
@@ -1204,6 +1225,13 @@ def main() -> int:
             return flush(state, pool, ys, roots)
 
         eng._flush = capture
+        return flush, captured
+
+    def capture_flushes(cfg, at, n):
+        """The inputs of the group flushes numbered in `at` of an engine run
+        of n drained batches."""
+        eng = new_engine(cfg)
+        flush, captured = watch_flushes(eng, at)
         run_batches(eng, 0, n, {})
         return flush, captured
 
@@ -1230,47 +1258,62 @@ def main() -> int:
             engine_mod.gc_mark = gk.gc_mark
 
     mark_rows, flush_rows, gc_err = [], [], 0.0
+
+    def check_flush(label, flush, inputs, b, pin_interval):
+        """Every gc_mark launch of one captured flush bitwise == `_walk` on
+        the same (seed, frontier, pred), each timed beside its byte bound;
+        then the whole flush == the same flush with the plain walk. Rows go
+        to mark_rows and flush_rows; returns this flush's mark rows."""
+        nonlocal gc_err
+        walks = marks_of(flush, inputs)
+        names = ["lane"] if pin_interval else ["page", "lane"]
+        if len(walks) != len(names):
+            raise AssertionError(f"{label} flush {b}: {len(walks)} marks, expected {len(names)}")
+        rows = []
+        for name, (m, f, pr) in zip(names, walks):
+            got = gk.launch(gc_lib, m, f, pr)
+            want = gk._walk(m, f, pr)
+            torch.cuda.synchronize()
+            gc_err = max(gc_err, float((got.int() - want.int()).abs().max()))
+            if not torch.equal(got, want):
+                bad = int((got != want).sum())
+                raise AssertionError(f"gc_mark != _walk on {label} batch {b} {name} walk: "
+                                     f"{bad} marks differ")
+            BW, Kk = pr.shape
+            newly = int((got[:BW] & ~m[:BW]).sum())
+            moved = 2 * m.numel() + f.numel() * 4 + newly * 4
+            ms = cuda_ms(lambda: gk.launch(gc_lib, m, f, pr), reps=20)
+            p_ms = cuda_ms(lambda: gk._walk(m, f, pr), reps=2)
+            smem = int(gc_lib.gc_mark_scratch_words(BW, Kk)) == 0
+            rows.append(dict(label=label, batch=b, walk=name, BW=BW, F=f.shape[0], K=Kk,
+                             scratch="shared" if smem else "global", newly=newly, ms=ms,
+                             plain_ms=p_ms, bytes=moved,
+                             bound_ms=moved / HBM_BYTES_PER_S * 1e3))
+            log(f"gc_mark == _walk bitwise ({label}, flush {b}, {name} walk, BW={BW}, "
+                f"F={f.shape[0]}, K={Kk}, {'shared' if smem else 'global'}-memory bitmaps, "
+                f"{newly} newly marked): kernel {ms:.4f} ms, plain {p_ms:.3f} ms, bytes "
+                f"{moved} -> bound {moved / HBM_BYTES_PER_S * 1e3:.4f} ms "
+                f"({moved / HBM_BYTES_PER_S * 1e3 / ms:.1%} of it)")
+        k_flush = cuda_ms(lambda: flush(*inputs), reps=5)
+        p_flush = cuda_ms(lambda: plain_walk_flush(flush, inputs), reps=2)
+        a = flush(*inputs)
+        b_ = plain_walk_flush(flush, inputs)
+        torch.cuda.synchronize()
+        for tree_a, tree_b in zip(a, b_):
+            if any(not torch.equal(tree_a[n], tree_b[n]) for n in tree_a):
+                raise AssertionError(f"the flush with gc_mark != with _walk ({label}, {b})")
+        mark_rows.extend(rows)
+        flush_rows.append(dict(label=label, batch=b, ms=k_flush, plain_ms=p_flush))
+        log(f"group flush ({label}, flush {b}): {k_flush:.3f} ms with gc_mark, "
+            f"{p_flush:.3f} ms with the plain walk; state and pool equal")
+        return rows
+
     page_cfg = replace(flag_cfg, pin_interval=False)
     for label, cfg, at, n in (("pin_interval", flag_cfg, (3, 10), n_batches),
                               ("pin_interval=False", page_cfg, (3,), 3)):
         flush, captured = capture_flushes(cfg, at, n)
         for b in at:
-            inputs = captured[b]
-            walks = marks_of(flush, inputs)
-            names = ["lane"] if cfg.pin_interval else ["page", "lane"]
-            for name, (m, f, pr) in zip(names, walks):
-                got = gk.launch(gc_lib, m, f, pr)
-                want = gk._walk(m, f, pr)
-                torch.cuda.synchronize()
-                gc_err = max(gc_err, float((got.int() - want.int()).abs().max()))
-                if not torch.equal(got, want):
-                    bad = int((got != want).sum())
-                    raise AssertionError(f"gc_mark != _walk on {label} batch {b} {name} walk: "
-                                         f"{bad} marks differ")
-                BW, Kk = pr.shape
-                newly = int((got[:BW] & ~m[:BW]).sum())
-                moved = 2 * m.numel() + f.numel() * 4 + newly * 4
-                ms = cuda_ms(lambda: gk.launch(gc_lib, m, f, pr), reps=20)
-                p_ms = cuda_ms(lambda: gk._walk(m, f, pr), reps=2)
-                mark_rows.append(dict(label=label, batch=b, walk=name, BW=BW, F=f.shape[0],
-                                      newly=newly, ms=ms, plain_ms=p_ms, bytes=moved,
-                                      bound_ms=moved / HBM_BYTES_PER_S * 1e3))
-                log(f"gc_mark == _walk bitwise ({label}, flush {b}, {name} walk, BW={BW}, "
-                    f"F={f.shape[0]}, K={Kk}, {newly} newly marked): kernel {ms:.4f} ms, "
-                    f"plain {p_ms:.3f} ms, bytes {moved} -> bound "
-                    f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms "
-                    f"({moved / HBM_BYTES_PER_S * 1e3 / ms:.1%} of it)")
-            k_flush = cuda_ms(lambda: flush(*inputs), reps=5)
-            p_flush = cuda_ms(lambda: plain_walk_flush(flush, inputs), reps=2)
-            a = flush(*inputs)
-            b_ = plain_walk_flush(flush, inputs)
-            torch.cuda.synchronize()
-            for tree_a, tree_b in zip(a, b_):
-                if any(not torch.equal(tree_a[n], tree_b[n]) for n in tree_a):
-                    raise AssertionError(f"the flush with gc_mark != with _walk ({label}, {b})")
-            flush_rows.append(dict(label=label, batch=b, ms=k_flush, plain_ms=p_flush))
-            log(f"group flush ({label}, flush {b}): {k_flush:.3f} ms with gc_mark, "
-                f"{p_flush:.3f} ms with the plain walk; state and pool equal")
+            check_flush(label, flush, captured[b], b, cfg.pin_interval)
         del captured, flush
     gc_main = mark_rows[0]
 
@@ -2071,7 +2114,8 @@ def main() -> int:
 
     def c4_run(eng, split):
         """(matches per (key, query), timed seconds, autosizer state,
-        state and xs of the first timed batch)."""
+        state and xs of the first timed batch, the stacked run's flush
+        and the inputs of its second timed group flush)."""
         bat = eng.engine if split else eng
         packed = [eng.pack({k: s[b * c4_T:(b + 1) * c4_T] for k, s in c4_streams.items()})
                   for b in range(n_batches)]
@@ -2089,18 +2133,20 @@ def main() -> int:
             take(eng.advance_packed(packed[b]))
             auto.observe(events=c4_T * len(c4_keys), t=c4_T)
         point = (bat.state, packed[n_warm])
+        # Installed after the autosizer's resizes, which rebuild the flush.
+        watched = watch_flushes(bat, (2,)) if split else None
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for b in range(n_warm, n_batches):
             eng.advance_packed(packed[b], decode=False)
         take(eng.drain())
         torch.cuda.synchronize()
-        return got, time.perf_counter() - t0, auto.state(), point
+        return got, time.perf_counter() - t0, auto.state(), point, watched
 
     sk.NfaStep.launches = gk.GcMark.launches = 0
     c4_eng = P.StackedQueryEngine(stacked_models.letter_queries(), keys=c4_keys, config=c4_cfg,
                                   device=dev, engine="cuda")
-    c4_got, c4_s, c4_auto, (c4_state, c4_xs) = c4_run(c4_eng, split=True)
+    c4_got, c4_s, c4_auto, (c4_state, c4_xs), (c4_flush, c4_fl_in) = c4_run(c4_eng, split=True)
     c4_launches = launched("config 4 (stacked)", sk.NfaStep.launches)
     c4_gc_launches = gk.GcMark.launches
     if c4_gc_launches <= 0:
@@ -2109,12 +2155,14 @@ def main() -> int:
     c4_point = kernel_point(c4_eng.engine._advance.library(), c4_eng.query, c4_eng.config,
                             c4_state, c4_xs)
     c4_final_cfg = c4_eng.config
-    del c4_eng, c4_state, c4_xs
+    c4_marks = check_flush("config4_stacked", c4_flush, c4_fl_in[2], 2,
+                           c4_final_cfg.pin_interval)
+    del c4_eng, c4_state, c4_xs, c4_flush, c4_fl_in
     solo_s, solo_launches = 0.0, 0
     for qname, q in c4_solo.items():
         sk.NfaStep.launches = 0
         solo = P.BatchedDeviceNFA(q, keys=c4_keys, config=c4_cfg, device=dev, engine="cuda")
-        got, secs, _auto, _point = c4_run(solo, split=False)
+        got, secs, _auto, _point, _watched = c4_run(solo, split=False)
         solo_launches += launched(f"config 4 ({qname} alone)", sk.NfaStep.launches)
         no_drops(f"config 4 ({qname} alone)", solo)
         solo_s += secs
@@ -2134,7 +2182,9 @@ def main() -> int:
         f"independent engines, drops 0; kernel == plain on the first timed batch "
         f"({c4_point['ms']:.4f} ms vs plain {c4_point['plain_ms']:.3f} ms, bound "
         f"{c4_point['bound_ms']:.4f} ms); nfa_step launches {c4_launches} stacked, "
-        f"{solo_launches} independent; gc_mark {c4_gc_launches}; autosizer {json.dumps(c4_auto)}")
+        f"{solo_launches} independent; gc_mark {c4_gc_launches} (== _walk on timed flush 2, "
+        f"{c4_marks[-1]['ms']:.4f} ms, bound {c4_marks[-1]['bound_ms']:.4f} ms); autosizer "
+        f"{json.dumps(c4_auto)}")
     del c4_streams, c4_got
     gc.collect()
     torch.cuda.empty_cache()
@@ -2154,6 +2204,7 @@ def main() -> int:
                                                                 wide_eng.engine.pool)
                      for v in tree.values())
     wide_got, wide_point_in = {}, None
+    wide_flush, wide_fl_in = watch_flushes(wide_eng.engine, (3,))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for b, chunk in enumerate(wide_chunks):
@@ -2172,7 +2223,10 @@ def main() -> int:
     wide_peak = torch.cuda.max_memory_allocated()
     wide_point = kernel_point(wide_eng.engine._advance.library(), wide_q, wide_cfg,
                               *wide_point_in, reps=5, plain_reps=1)
-    del wide_eng, wide_point_in, xs_w
+    # Its BW (nodes + the group window) puts gc_mark's bitmaps in global
+    # scratch, the branch no other shape on this card takes.
+    wide_marks = check_flush("wide_stack", wide_flush, wide_fl_in[3], 3, wide_cfg.pin_interval)
+    del wide_eng, wide_point_in, xs_w, wide_flush, wide_fl_in
     gc.collect()
     torch.cuda.empty_cache()
     for qname, q in rot_q.items():
@@ -2198,7 +2252,9 @@ def main() -> int:
         f"kernel == plain on batch 3 ({wide_point['ms']:.4f} ms vs plain "
         f"{wide_point['plain_ms']:.3f} ms, {wide_point['bytes']} B -> bound "
         f"{wide_point['bound_ms']:.4f} ms); ptxas {ptxas['wide_stack']}; nfa_step launches "
-        f"{wide_launches}, gc_mark {wide_gc_launches}")
+        f"{wide_launches}, gc_mark {wide_gc_launches} (== _walk on flush 3, BW "
+        f"{wide_marks[-1]['BW']}, {wide_marks[-1]['scratch']}-memory bitmaps, "
+        f"{wide_marks[-1]['ms']:.4f} ms, bound {wide_marks[-1]['bound_ms']:.4f} ms)")
     del wide_streams, wide_chunks, wide_got
     gc.collect()
     torch.cuda.empty_cache()
@@ -2220,6 +2276,7 @@ def main() -> int:
 
     sk.NfaStep.launches = gk.GcMark.launches = 0
     dn = P.DeviceNFA(flag_q, config=flag_cfg, device=dev, engine="cuda")
+    single_flush, single_fl_in = watch_flushes(dn, (7,))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     single_got = single_run(dn, single_chunks)
@@ -2237,6 +2294,11 @@ def main() -> int:
         raise AssertionError(f"DeviceNFA: {len(single_got)} matches, the oracle {len(want)}")
     if dn.runs != oracle.runs or dn.n_live != len(oracle.computation_stages):
         raise AssertionError("DeviceNFA: runs or live runs differ from the oracle's")
+    # gc_mark runs on the card whatever the step engine is, so the
+    # plain-step DeviceNFA below does not check it: flush 7 against _walk.
+    single_marks = check_flush("single_key", single_flush, single_fl_in[7], 7,
+                               flag_cfg.pin_interval)
+    del single_flush, single_fl_in
     plain_dn = P.DeviceNFA(flag_q, config=flag_cfg, device=dev, engine="torch")
     if single_run(plain_dn, single_chunks) != single_got:
         raise AssertionError("DeviceNFA: the plain step's matches differ")
@@ -2268,7 +2330,9 @@ def main() -> int:
         f"batch {half} ({len(blob)} B) restored: matches and final state equal; kernel at "
         f"K=1 {single_point['ms']:.4f} ms vs plain {single_point['plain_ms']:.3f} ms, bound "
         f"{single_point['bound_ms']:.5f} ms ({single_point['bytes']} B); stock golden 4 matches; "
-        f"nfa_step launches {single_launches}, gc_mark {single_gc_launches}")
+        f"nfa_step launches {single_launches}, gc_mark {single_gc_launches} (== _walk on "
+        f"flush 7, K=1, {single_marks[-1]['ms']:.4f} ms, bound "
+        f"{single_marks[-1]['bound_ms']:.5f} ms)")
     del dn, plain_dn, first, second, probe, gold, oracle
 
     # -- 23. the kernel line, the card line, the ok line ----------------------
@@ -2304,6 +2368,7 @@ def main() -> int:
                        "predicates": wide_q.n_preds, "ptxas": ptxas["wide_stack"],
                        "library_ms": None, **wide_point},
         "single_key": {"launches": single_launches, "library_ms": None, **single_point},
+        "envelope": envelope,
     }, {
         "name": "gc_mark",
         "route": "cuda",
@@ -2320,9 +2385,10 @@ def main() -> int:
         "flushes": flush_rows,
         "auto": {"launches": auto_gc_launches},
         "controllers": {"launches": ctl_gc_launches},
-        "config4_stacked": {"launches": c4_gc_launches},
-        "wide_stack": {"launches": wide_gc_launches},
-        "single_key": {"launches": single_gc_launches},
+        "config4_stacked": {"launches": c4_gc_launches, "library_ms": None, **c4_marks[-1]},
+        "wide_stack": {"launches": wide_gc_launches, "library_ms": None, **wide_marks[-1]},
+        "single_key": {"launches": single_gc_launches, "library_ms": None,
+                       **single_marks[-1]},
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -12,9 +12,12 @@
   each query distinct, so a match attributed to the wrong query shows.
   The flagship stream feeds it: each 16 ms block carries the letters in
   order, so every rotation completes across two blocks.
-* `boundary_queries(n_stages)`: strict three- and four-letter queries
-  stacked to exactly 64 or 65 stages -- the last single-word stage mask,
-  and the first query that straddles the word boundary.
+  With n > 8 the rotations repeat under new names: seventeen make 153
+  stages and 255 predicates, the widest predicate mask the kernel takes.
+* `boundary_queries(n_stages)`: strict letter queries stacked to exactly
+  n_stages stages -- 64, the last single-word stage mask; 65, the first
+  query that straddles the word boundary; 256, the kernel's widest
+  stage mask (and 193 predicates).
 
 Builders take the package they build with (default: this one), so a
 test can build the same queries with the JAX package for the reference
@@ -58,7 +61,8 @@ def rotated_skip_any(i: int, dsl: Any = None):
     matches `SKIP_ANY_STAGES[(i + j) % 8]`, 16 ms windows, stages 2-8
     skip-till-any."""
     m = _pkg(dsl)
-    letters = SKIP_ANY_STAGES[i:] + SKIP_ANY_STAGES[:i]
+    r = i % len(SKIP_ANY_STAGES)
+    letters = SKIP_ANY_STAGES[r:] + SKIP_ANY_STAGES[:r]
     b = m.QueryBuilder().select(f"r{i}-0").where(m.value() == letters[0]).within(ms=16)
     for j in range(1, len(letters)):
         b = (
@@ -77,12 +81,15 @@ def rotated_skip_any_queries(n: int = len(SKIP_ANY_STAGES), dsl: Any = None):
 
 def boundary_queries(n_stages: int, dsl: Any = None) -> List[Tuple[str, Any]]:
     """Distinct strict letter queries over "ABCD" stacked to exactly
-    `n_stages` stages (a query of n letters has n + 1 stages): three-letter
-    queries, and a longer last one where four stages would not come out
-    even. 64 gives sixteen three-letter queries; 65 fifteen and a
-    four-letter one whose final stage is stage 64, the first of the
-    second mask word."""
-    seqs = ("".join(p) for p in itertools.product("ABCD", repeat=3) if len(set(p)) > 1)
+    `n_stages` stages (a query of n letters has n + 1 stages): the sixty
+    three-letter queries, then four-letter ones, and a longer last one
+    where the stages would not come out even. 64 gives sixteen
+    three-letter queries; 65 fifteen and a four-letter one whose final
+    stage is stage 64, the first of the second mask word; 256 (the
+    kernel's widest masks, 4 words) all sixty, two four-letter queries
+    and a five-letter one: 193 predicates, past three words too."""
+    seqs = ("".join(p) for n in (3, 4) for p in itertools.product("ABCD", repeat=n)
+            if len(set(p)) > 1)
     out: List[Tuple[str, Any]] = []
     left = n_stages
     while left > 0:

@@ -44,9 +44,15 @@ import torch
 from ..core.event import Event
 from ..core.sequence import Sequence, Staged
 from ..faults import injection as _flt
-from ..faults.injection import CEPOverflowError, TransientFault, with_retry
+from ..faults.injection import TransientFault, with_retry
 from ..obs.registry import MetricsRegistry, next_instance_id
-from ..parallel.batched import resolve_device
+from ..parallel.batched import (
+    check_drop_counters,
+    fold_group_window,
+    pruned_events,
+    replay_ledger_overflowed,
+    resolve_device,
+)
 from ..parallel.key_shard import ENGINES, build_batched_advance, init_batched_pool, init_batched_state
 from ..pattern.stages import Stages
 from ..state import serde
@@ -58,7 +64,6 @@ from .engine import (
     build_append_post,
     build_chain_flatten,
     build_flush_post,
-    concat_group_window,
     drain_pend,
     drain_probe,
     eval_stateless_preds,
@@ -106,7 +111,6 @@ class DeviceNFA:
             raise ValueError(f"unknown engine {engine!r} (expected one of {ENGINES})")
         self.engine = engine
         self.native = bool(native)
-        self._decoder = None
         # Single-key engines share the batched driver's gauge naming; the
         # registry is private unless one is passed.
         self.metrics = registry if registry is not None else MetricsRegistry()
@@ -293,7 +297,8 @@ class DeviceNFA:
         serde.upgrade_checkpoint_trees(tree, pool_tree)
 
         def load(src: Dict[str, np.ndarray], ref: Dict[str, torch.Tensor]):
-            # The frame's encoder writes a scalar leaf as shape (1,).
+            # A scalar leaf is 0-d in the JAX encoder's frames and in this
+            # one's; the port's older frames hold it as shape (1,). Both read.
             out = {}
             for name, leaf in ref.items():
                 arr = np.asarray(src[name])
@@ -357,31 +362,12 @@ class DeviceNFA:
         if len(self._interval_events) + len(events) <= self.REPLAY_LEDGER_MAX_EVENTS:
             self._interval_events.extend(events)
             return
-        if not self._interval_overflow:
-            warnings.warn(
-                "exact-replay event ledger exceeded "
-                f"{self.REPLAY_LEDGER_MAX_EVENTS} events without a drain; this "
-                "interval degrades to collision detection only",
-                RuntimeWarning,
-            )
-        self._interval_overflow = True
         self._interval_events = []
-        if self.config.on_overflow == "raise":
-            raise CEPOverflowError(
-                "exact-replay event ledger overflowed "
-                f"({self.REPLAY_LEDGER_MAX_EVENTS} events without a drain); "
-                "drain() more often or raise the bound"
-            )
+        replay_ledger_overflowed(self, f"{self.REPLAY_LEDGER_MAX_EVENTS} events")
 
     def _flush_group(self) -> None:
         """Fold the accumulated group window back into the node region."""
-        if not self._group_ys:
-            return
-        ys_cat, roots_cat = concat_group_window(self._group_ys, self._group_roots)
-        self._group_ys = []
-        self._group_roots = []
-        self.state, self.pool = self._flush(self.state, self.pool, ys_cat, roots_cat)
-        self.flushes += 1
+        fold_group_window(self)
 
     def _decode_matches(self) -> List[Sequence]:
         """Pull and clear the pending ring: the flat drain into the native
@@ -399,7 +385,9 @@ class DeviceNFA:
             Cb = _pow2_at_least(depth, self.pool["node_event"].shape[0])
             table = build_chain_flatten(Mb, Cb)(self.pool).cpu().numpy()
             gidx, name, live = (np.moveaxis(table[i], -1, 0) for i in range(3))
-            out = self._native_decoder().decode_matches_flat(
+            from ..native import load_decoder
+
+            out = load_decoder().decode_matches_flat(
                 np.ascontiguousarray(probe[0], np.int32), gidx, name, live,
                 self.query.name_of_id, self._events, Staged, Sequence)[0]
         self.pool = drain_pend(self.pool)
@@ -419,33 +407,10 @@ class DeviceNFA:
         return [materialize_sequence(chain, self.query.name_of_id, self._events)
                 for chain in chains if chain]
 
-    def _native_decoder(self):
-        if self._decoder is None:
-            from ..native import load_decoder
-
-            self._decoder = load_decoder()
-        return self._decoder
-
     def _check_drop_counters(self, drained: Optional[List] = None) -> None:
-        """Drain-boundary overflow-policy check (EngineConfig.on_overflow):
-        deltas land in `cep_overflow_dropped_total{counter}`; "raise" and
-        "block" escalate, the drained matches riding the exception."""
-        vals = torch.stack([self.state[k][0] for k in DROP_COUNTER_KEYS]).tolist()
-        overflow = {}
-        for name, v in zip(DROP_COUNTER_KEYS, vals):
-            delta = int(v) - self._drop_base.get(name, 0)
-            if delta > 0:
-                overflow[name] = delta
-                self._drop_base[name] = int(v)
-                self._m_dropped.labels(counter=name).inc(delta)
-        if overflow and self.config.on_overflow in ("raise", "block"):
-            exc = CEPOverflowError(
-                f"engine capacity overflow since the last drain: {overflow} "
-                f"(policy {self.config.on_overflow!r}; size EngineConfig "
-                "lanes/nodes/matches)"
-            )
-            exc.matches = drained if drained is not None else []
-            raise exc
+        """The overflow policy (parallel/batched.py `check_drop_counters`)."""
+        totals = torch.stack([self.state[k][0] for k in DROP_COUNTER_KEYS]).tolist()
+        check_drop_counters(self, totals, drained if drained is not None else [])
 
     def _replay_boundary(self, matches: List[Sequence]) -> List[Sequence]:
         """At a drain: if the fold-divergence detector fired in the
@@ -514,8 +479,4 @@ class DeviceNFA:
     def _prune_events(self) -> None:
         """Bound the host event registry to the pool-referenced events,
         once it outgrows its threshold (the pull is a sync point)."""
-        if len(self._events) <= self.events_prune_threshold:
-            return
-        ev = self.pool["node_event"]
-        live_gidx = set(torch.unique(ev[ev >= 0]).cpu().tolist())
-        self._events = {g: e for g, e in self._events.items() if g in live_gidx}
+        self._events = pruned_events(self._events, self.pool, self.events_prune_threshold)

@@ -184,6 +184,81 @@ def resolve_device(device: Any = None) -> torch.device:
     return dev
 
 
+# The drain and flush policy that BatchedDeviceNFA and the single-key
+# DeviceNFA (ops/device_nfa.py) share; each engine passes itself.
+
+def check_drop_counters(eng: Any, totals: Seq[int], drained: Any) -> None:
+    """Drain-boundary overflow-policy check: `totals` are eng's drop
+    counters in DROP_COUNTER_KEYS order (one pull; the drain is already a
+    sync point). Any delta past `eng._drop_base` is made loud in
+    `cep_overflow_dropped_total{counter}`; under on_overflow "raise"
+    (always) or "block" (a drop under backpressure broke the loss-free
+    promise) a CEPOverflowError escalates, carrying the drained matches
+    (the ring was already pulled and cleared)."""
+    overflow: Dict[str, int] = {}
+    for name, v in zip(DROP_COUNTER_KEYS, totals):
+        delta = int(v) - eng._drop_base.get(name, 0)
+        if delta > 0:
+            overflow[name] = delta
+            eng._drop_base[name] = int(v)
+            eng._m_dropped.labels(counter=name).inc(delta)
+    if overflow and eng.config.on_overflow in ("raise", "block"):
+        exc = CEPOverflowError(
+            f"engine capacity overflow since the last drain: {overflow} "
+            f"(policy {eng.config.on_overflow!r}; size EngineConfig "
+            "lanes/nodes/matches or use on_overflow='block')"
+        )
+        exc.matches = drained
+        raise exc
+
+
+def replay_ledger_overflowed(eng: Any, bound: str) -> None:
+    """The exact-replay ledger went past its bound (`bound` names it): the
+    interval degrades to collision detection, with one warning per
+    interval, and under on_overflow="raise" a CEPOverflowError."""
+    if not eng._interval_overflow:
+        warnings.warn(
+            f"exact-replay event ledger exceeded {bound} without a drain; "
+            "this interval degrades to collision detection only -- "
+            "drain() more often to keep replay armed",
+            RuntimeWarning,
+        )
+    eng._interval_overflow = True
+    if eng.config.on_overflow == "raise":
+        raise CEPOverflowError(
+            f"exact-replay event ledger overflowed ({bound} without a drain); "
+            "drain() more often or raise the bound"
+        )
+
+
+def fold_group_window(eng: Any) -> bool:
+    """The group flush: fold eng's accumulated group window back into the
+    node region. False when the group is empty."""
+    if not eng._group_ys:
+        return False
+    ys_cat, roots_cat = concat_group_window(eng._group_ys, eng._group_roots)
+    eng._group_ys = []
+    eng._group_roots = []
+    eng.state, eng.pool = eng._flush(eng.state, eng.pool, ys_cat, roots_cat)
+    eng.flushes += 1
+    return True
+
+
+def pruned_events(events: Dict[int, Event], pool: Dict[str, torch.Tensor], threshold: int,
+                  hwm: Optional[int] = None) -> Dict[int, Event]:
+    """The host event registry bounded, once it outgrows `threshold`, to
+    the pool-referenced events (and any packed past `hwm`): a new dict,
+    or `events` itself below the threshold. The distinct referenced ids
+    are found on the device: only they cross to the host, not the whole
+    node plane."""
+    if len(events) <= threshold:
+        return events
+    ev = pool["node_event"]
+    live_gidx = set(torch.unique(ev[ev >= 0]).cpu().tolist())
+    return {g: e for g, e in events.items()
+            if g in live_gidx or (hwm is not None and g > hwm)}
+
+
 class BatchedDeviceNFA:
     """K independent per-key NFAs advanced as one [T, K] program."""
 
@@ -1001,29 +1076,10 @@ class BatchedDeviceNFA:
             self._decode_pool = None
 
     def _check_drop_counters(self, drained: Optional[Dict] = None) -> None:
-        """Drain-boundary overflow-policy check: pull the three drop
-        counters (the drain is already a sync point), make any delta loud
-        in `cep_overflow_dropped_total{counter}`, and escalate under
-        on_overflow "raise" (always) or "block" (a drop under
-        backpressure broke the loss-free promise)."""
-        vals = torch.stack([self.state[k].sum() for k in DROP_COUNTER_KEYS]).tolist()
-        overflow: Dict[str, int] = {}
-        for name, v in zip(DROP_COUNTER_KEYS, vals):
-            delta = int(v) - self._drop_base[name]
-            if delta > 0:
-                overflow[name] = delta
-                self._drop_base[name] = int(v)
-                self._m_dropped.labels(counter=name).inc(delta)
-        if overflow and self.config.on_overflow in ("raise", "block"):
-            # The ring was already pulled and cleared: the drained matches
-            # ride the exception.
-            exc = CEPOverflowError(
-                f"engine capacity overflow since the last drain: {overflow} "
-                f"(policy {self.config.on_overflow!r}; size EngineConfig "
-                "lanes/nodes/matches or use on_overflow='block')"
-            )
-            exc.matches = drained if drained is not None else {}
-            raise exc
+        """The overflow policy (`check_drop_counters`) on the counters
+        summed over the keys."""
+        totals = torch.stack([self.state[k].sum() for k in DROP_COUNTER_KEYS]).tolist()
+        check_drop_counters(self, totals, drained if drained is not None else {})
 
     def _block_admission(self, step_cap: int) -> None:
         """on_overflow="block": hold the advance until its worst case fits.
@@ -1115,23 +1171,9 @@ class BatchedDeviceNFA:
         if len(self._interval_packs) < self.REPLAY_LEDGER_MAX_BATCHES:
             self._interval_packs.append(entry)
             return
-        if not self._interval_overflow:
-            warnings.warn(
-                "exact-replay event ledger exceeded "
-                f"{self.REPLAY_LEDGER_MAX_BATCHES} batches without a drain; "
-                "this interval degrades to collision detection only -- "
-                "drain() more often to keep replay armed",
-                RuntimeWarning,
-            )
-        self._interval_overflow = True
         self._m_ledger_overflow.set(1)
         self._interval_packs = []
-        if self.config.on_overflow == "raise":
-            raise CEPOverflowError(
-                "exact-replay event ledger overflowed "
-                f"({self.REPLAY_LEDGER_MAX_BATCHES} batches without a drain); "
-                "drain() more often or raise the bound"
-            )
+        replay_ledger_overflowed(self, f"{self.REPLAY_LEDGER_MAX_BATCHES} batches")
 
     def _replay_boundary(self, out: Dict[Any, List[Any]]) -> Dict[Any, List[Any]]:
         """At a drain: each key whose seq_collisions moved since the
@@ -1357,15 +1399,9 @@ class BatchedDeviceNFA:
 
     def _flush_group(self) -> None:
         """Fold the accumulated group window back into the node region."""
-        if not self._group_ys:
-            return
-        ys_cat, roots_cat = concat_group_window(self._group_ys, self._group_roots)
-        self._group_ys = []
-        self._group_roots = []
-        self.state, self.pool = self._flush(self.state, self.pool, ys_cat, roots_cat)
-        self.flushes += 1
-        self._m_flushes.inc()
-        self._m_gc_phase.set(0)
+        if fold_group_window(self):
+            self._m_flushes.inc()
+            self._m_gc_phase.set(0)
 
     def _window_pool_view(self) -> Dict[str, torch.Tensor]:
         """Mid-group drain view: node planes with the group's window
@@ -1612,13 +1648,5 @@ class BatchedDeviceNFA:
     def _prune_events(self) -> None:
         """Bound the host event registry: keep pool-referenced events plus
         anything packed ahead of the processed watermark."""
-        if len(self._events) <= self.events_prune_threshold:
-            return
-        # The distinct referenced gidx are found on the device: only they
-        # cross to the host, not the whole node plane.
-        ev = self.pool["node_event"]
-        live_gidx = set(torch.unique(ev[ev >= 0]).cpu().tolist())
-        hwm = self._processed_gidx
-        self._events = {
-            g: e for g, e in self._events.items() if g > hwm or g in live_gidx
-        }
+        self._events = pruned_events(self._events, self.pool, self.events_prune_threshold,
+                                     self._processed_gidx)

@@ -24,7 +24,9 @@ bitwise to the plain step, on every leaf:
     (models/stacked.py): eight rotations of the flagship pattern, 72
     stages and 120 predicates (two words of each), and letter queries
     stacked to 64 stages (the last single-word stage mask) and 65 (a query
-    straddles the word boundary);
+    straddles the word boundary); at the widest masks, letter queries
+    stacked to 256 stages and 193 predicates (4 words of each), and
+    seventeen rotations, 153 stages and 255 predicates (3 and 4 words);
   * the generated source of every case of at most 64 stages and 64
     predicates, pinned to the digests it had before wide masks existed.
 
@@ -104,7 +106,17 @@ STACKED = {
     "boundary65": (lambda: boundary_queries(65), cases.letters_stream, 5,
                    dict(lanes=64, nodes=1024, matches=256, matches_per_step=32,
                         nodes_per_step=32)),
+    "boundary256": (lambda: boundary_queries(256), cases.letters_stream, 5,
+                    dict(lanes=128, nodes=2048, matches=1024, matches_per_step=128,
+                         nodes_per_step=128)),
+    "rotations17": (lambda: rotated_skip_any_queries(17), skip_any.skip_any8_stream, 7,
+                    dict(skip_any.FLAGSHIP_CONFIG, lanes=512, matches_per_step=128,
+                         nodes_per_step=512)),
 }
+#: name -> (stages, predicates, mask words of each) of the STACKED cases.
+STACKED_SHAPES = {"wide72": (72, 120, 2, 2), "boundary64": (64, 48, 1, 1),
+                  "boundary65": (65, 49, 2, 1), "boundary256": (256, 193, 4, 4),
+                  "rotations17": (153, 255, 3, 4)}
 STACKED_BATCHES = 2
 
 #: sha256 of `kernel_source` for every case of at most 64 stages and 64
@@ -238,17 +250,17 @@ def test_kernel_source_matches_plain_step_on_stacked_queries(name, cpu_libraries
     """Stacked tables: begin lanes of every query, a union stage table,
     and past 64 stages or predicates the multi-word masks."""
     query, config, pairs = _stacked_trajectory(name)
+    n_stages, n_preds, stage_words, pred_words = STACKED_SHAPES[name]
+    assert (query.n_stages, query.n_preds) == (n_stages, n_preds)
+    assert (-(-n_stages // 64), -(-n_preds // 64)) == (stage_words, pred_words)
     assert wide_masks(query) == (name != "boundary64")
-    assert query.n_stages == {"wide72": 72, "boundary64": 64, "boundary65": 65}[name]
-    if name == "wide72":
-        assert query.n_preds == 120
     lib = sk.load_library(cpu_libraries[name])
     outs = [_assert_kernel_equals_plain(lib, query, config, state, xs, f"{name} batch {b}")
             for b, (state, xs) in enumerate(pairs)]
-    # The wide stack walks past one chunk; the letter stacks hold about
-    # one run per query.
+    # The rotation stacks walk past one chunk; the letter stacks hold
+    # about one run per query.
     live = max(int(s["active"].sum(0).max()) for s in outs)
-    assert live > (32 if name == "wide72" else 16)
+    assert live > (32 if name in ("wide72", "rotations17") else 16)
     assert all(int(s[c].sum()) == 0 for s in outs
                for c in ("lane_drops", "node_drops", "match_drops"))
 
