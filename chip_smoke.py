@@ -8,15 +8,15 @@ and capacity, the flagship's grown shape, phase 18's arm shape, the
 fold query of phase 13 and the stacked and single queries of phases
 20-21 included; the event-time phases and phase 22 reuse the
 flagship's build, and the shapes phase 18's autosizer grows to build
-inside that phase, timed), the GC mark
-kernel (csrc/gc_mark.cu, one build) and the native
+inside that phase, timed), the group flush's GC mark and sweep kernels
+(csrc/gc_mark.cu and csrc/gc_sweep.cu, one build each) and the native
 packer, decoder and CRC-32C from native/ with g++, all started together,
 then:
 
   1. prints the card (`nvidia-smi --query-gpu=name,power.limit`);
   2. builds every kernel and the three native extensions and prints the
      build seconds, the Python include path, ptxas's registers and spills
-     (step and mark), and the step kernel's resident blocks and warps per
+     (step, mark and sweep), and the step kernel's resident blocks and warps per
      SM (one warp per key);
   3. holds the CUDA step bitwise equal to the plain PyTorch step on the
      card, on identical inputs, every state leaf and every w_* output:
@@ -37,7 +37,8 @@ then:
      native route, the first three batches' native columns equal the
      Python pack's bitwise, every drained table's native decode equals
      the Python walk's, the kernel's launch count equals the advances,
-     the GC mark kernel's launch count equals the flushes' walks, the drop
+     the GC mark kernel's launch count equals the flushes' walks and the
+     sweep kernel's the flushes, the drop
      counters are 0, there are matches, and the final state, pool and the
      first 64 keys' matches equal the same run with engine="torch"; then
      times the kernel on the last batch's state;
@@ -47,7 +48,8 @@ then:
      matches to a `.to("matches")` sink -- and prints records/s and the
      ms per flush of enqueue, pack, advance, drain + decode and emit;
      checks that the matches per key equal phase 4's, the step kernel and
-     the GC mark kernel launched once per flush, the drop counters are 0
+     the GC mark and sweep kernels launched once per flush, the drop
+     counters are 0
      and the sink holds
      one record per match; then again with `sink_format="json"`, whose
      payloads must equal the objects run's JSON bytes;
@@ -85,14 +87,19 @@ then:
      that the sink holds every match of phase 5's uninterrupted run
      exactly once, in order; prints the bytes and ms per commit and the
      time to recover (log reload, `restore_stores`, replay to the crash);
- 12. the GC mark: captures the flagship's group flushes after batches 3
-     and 10 (`pin_interval`, the lane walk) and after batch 3 of the same
-     deployment with `pin_interval=False` (the page walk and the lane
-     walk), holds the kernel bitwise to the plain walk `_walk` on every
-     captured mark, and prints ms per launch (CUDA events), its byte bound
-     (the seed and result marks, the frontier, and one pred read per newly
-     marked node) and the group flush's ms with the kernel and with the
-     plain walk on the same state;
+ 12. the GC kernels: captures the flagship's group flushes after batches
+     3 and 10 (`pin_interval`, the lane walk) and after batch 3 of the
+     same deployment with `pin_interval=False` (the page walk and the lane
+     walk), holds gc_mark bitwise to the plain walk `_walk` on every
+     captured mark and gc_sweep bitwise to the plain sweep `_sweep` on
+     every captured sweep, prints each launch's ms (CUDA events), block
+     geometry (keys a block, blocks, shared memory) and byte bound (mark:
+     the seed and result marks, the frontier, and one pred read per newly
+     marked node; sweep: the marks, the kept nodes' rows, lanes and the
+     ring below each cursor read, every output plane written), and holds
+     the whole flush with both kernels equal to the flush with both plain
+     versions, timed beside it and beside the flush with the mark kernel
+     and the plain sweep (PR 9's flush, less its window copies);
  13. exact replay at K = 2048: a branchy fold query of
      tests/test_torch_replay.py's kind (models/cases.py `branchy_case`,
      seed 65: its keys fold-collide and each needs at most a few hundred
@@ -112,7 +119,8 @@ then:
      key's stream shuffled within 6 ms (bench.py's `shuffled_within_bound`,
      seed 47) and, again, presorted; checks that the matches per key of
      both equal phase 4's, late 0, reorder overflow 0, drops 0, and
-     `nfa_step` and `gc_mark` launched once per flush (group flush); prints
+     `nfa_step`, `gc_mark` and `gc_sweep` launched once per flush (group
+     flush); prints
      records/s of both against phase 5's ungated objects run, the gate's
      ms per flush and the watermark lag p50/p99; holds the step kernel
      bitwise to the plain step on flush 3's batch, which carries the
@@ -140,8 +148,8 @@ then:
      runtime, then the other 1,985 keys in phase 5's interleaved order; the
      64th key promotes the query and the ledger replays through the card.
      Checks: the sink equals phase 5's per key, each match once; one
-     promotion, runtime "cuda"; drops 0; `nfa_step` and `gc_mark`
-     launched, the step kernel bitwise to the plain step on the first
+     promotion, runtime "cuda"; drops 0; `nfa_step`, `gc_mark` and
+     `gc_sweep` launched, the step kernel bitwise to the plain step on the first
      post-promotion batch. Prints the host phase's records/s, the
      promotion's wall and its replay share, the device phase's records/s
      beside phase 5's, match latency p50/p99 (ingest stamped per record as
@@ -199,8 +207,13 @@ then:
      matches);
  23. prints the kernel line (with the `wm`, `auto`, `controllers`,
      `paced_driver`, `config4_stacked`, `wide_stack` and `single_key`
-     runs' numbers under nfa_step and gc_mark, the grown shapes' times
-     and bounds among them), the card line, and last the ok line.
+     runs' numbers under nfa_step, gc_mark and gc_sweep, the grown
+     shapes' times and bounds among them), the card line, and last the ok
+     line.
+
+Phases 20-22 each also hold both GC kernels to their plain versions on
+one captured flush, as phase 12 does (the wide stack's bitmaps must stay
+in shared memory), and count both kernels' launches.
 
 Each phase that drives the main path zeroes the kernels' launch counts
 just before and reads them just after, and fails if a kernel was not
@@ -344,6 +357,7 @@ def main() -> int:
     )
     from kafkastreams_cep_tpu_torch.ops import engine as engine_mod
     from kafkastreams_cep_tpu_torch.ops import gc_kernel as gk
+    from kafkastreams_cep_tpu_torch.ops import gc_sweep as gs
     from kafkastreams_cep_tpu_torch.ops import step_kernel as sk
     from kafkastreams_cep_tpu_torch.ops.engine import DROP_COUNTER_KEYS
     from kafkastreams_cep_tpu_torch.ops.step import build_plain_step
@@ -433,27 +447,30 @@ def main() -> int:
                 for n, (q, c, _) in builds.items()}
         nat_futs = {n: ex.submit(timed_build, native.build_ext, n) for n in natives}
         gc_fut = ex.submit(timed_build, gk.build_library)
+        sweep_fut = ex.submit(timed_build, gs.build_library)
         kernel_builds = {n: f.result() for n, f in futs.items()}
         nat_builds = {n: f.result() for n, f in nat_futs.items()}
         gc_path, gc_build_s = gc_fut.result()
+        sweep_path, sweep_build_s = sweep_fut.result()
     libs = {n: path for n, (path, _sec) in kernel_builds.items()}
     build_s = time.perf_counter() - t0
-    log(f"built {len(libs)} step kernels, the GC mark kernel and the native packer, "
-        f"decoder and CRC-32C in {build_s:.1f}s (nvcc and g++, in parallel); nvcc seconds "
-        f"of the flagship {kernel_builds['skip_any8'][1]:.1f}, of its grown shape (lanes "
-        f"640, nodes 16384) {kernel_builds['skip_any8_grown'][1]:.1f} and of gc_mark "
-        f"{gc_build_s:.1f}; g++ seconds: " + ", ".join(
+    log(f"built {len(libs)} step kernels, the GC mark and sweep kernels and the native "
+        f"packer, decoder and CRC-32C in {build_s:.1f}s (nvcc and g++, in parallel); nvcc "
+        f"seconds of the flagship {kernel_builds['skip_any8'][1]:.1f}, of its grown shape "
+        f"(lanes 640, nodes 16384) {kernel_builds['skip_any8_grown'][1]:.1f}, of gc_mark "
+        f"{gc_build_s:.1f} and of gc_sweep {sweep_build_s:.1f}; g++ seconds: " + ", ".join(
             f"{n} {sec:.2f} ({path.name})" for n, (path, sec) in nat_builds.items())
         + f"; Python headers: {native.python_include()}")
     ptxas = {}
     for name, path in (("skip_any8", libs["skip_any8"]), ("wide_stack", libs["wide_stack"]),
                        ("stack256", libs["stack256"]), ("rotations17", libs["rotations17"]),
-                       ("gc_mark", gc_path)):
+                       ("gc_mark", gc_path), ("gc_sweep", sweep_path)):
         ptxas[name] = [line.strip() for line in path.with_suffix(".log").read_text().splitlines()
                        if "registers" in line or "spill" in line or "smem" in line]
         for line in ptxas[name]:
             log(f"ptxas[{name}]: {line}")
     gc_lib = gk.load_library(gc_path)
+    sweep_lib = gs.load_library(sweep_path)
     flag_lib = sk.load_library(libs["skip_any8"])
     blocks, threads = ctypes.c_int(), ctypes.c_int()
     err = flag_lib.nfa_step_occupancy(ctypes.byref(blocks), ctypes.byref(threads))
@@ -636,7 +653,7 @@ def main() -> int:
         eng._decode_flat = decode_and_check
         torch.cuda.synchronize()
         gc_clock = GcClock()
-        sk.NfaStep.launches = gk.GcMark.launches = 0
+        sk.NfaStep.launches = gk.GcMark.launches = gs.GcSweep.launches = 0
         with gc_clock:
             for b in range(n_batches):
                 gc_clock.on = timing[0] = b >= n_warm
@@ -676,11 +693,12 @@ def main() -> int:
                 lanes_peak = max(lanes_peak, int(live_ends[-1].max()))
                 nodes_peak = max(nodes_peak, int(eng.pool["node_count"].max()))
         launches, gc_launches = sk.NfaStep.launches, gk.GcMark.launches
+        sweep_launches = gs.GcSweep.launches
         if check_host and decode_checks[0] != n_batches:
             raise AssertionError(f"{decode_checks[0]} decode checks for {n_batches} drains")
         return dict(eng=eng, matches=matches, adv_s=adv_s, drain_s=drain_s,
                     pack_s=pack_s, launches=launches, gc_launches=gc_launches,
-                    lanes_peak=lanes_peak,
+                    sweep_launches=sweep_launches, lanes_peak=lanes_peak,
                     nodes_peak=nodes_peak, phases=phases, live_ends=torch.cat(live_ends),
                     last=last, gc=gc_clock)
 
@@ -707,13 +725,17 @@ def main() -> int:
     log(f"main path: {n_match} matches, stats {stats}, lanes peak "
         f"{run['lanes_peak']}/{flag_cfg.lanes}, node_count peak "
         f"{run['nodes_peak']}/{flag_cfg.nodes}, nfa_step launches {run['launches']}, "
-        f"gc_mark launches {run['gc_launches']} ({run['eng'].flushes} group flushes)")
+        f"gc_mark launches {run['gc_launches']}, gc_sweep launches {run['sweep_launches']} "
+        f"({run['eng'].flushes} group flushes)")
     log(f"main path: live lanes per key at the {n_batches} batch ends: {spread(run['live_ends'])}")
     if run["launches"] != n_batches:
         raise AssertionError(f"nfa_step launched {run['launches']} times for {n_batches} advances")
     # pin_interval: one walk (the lane walk) per group flush.
     if run["gc_launches"] != run["eng"].flushes or run["gc_launches"] == 0:
         raise AssertionError(f"gc_mark launched {run['gc_launches']} times for "
+                             f"{run['eng'].flushes} flushes")
+    if run["sweep_launches"] != run["eng"].flushes:
+        raise AssertionError(f"gc_sweep launched {run['sweep_launches']} times for "
                              f"{run['eng'].flushes} flushes")
     drops = {k: stats[k] for k in DROP_COUNTER_KEYS}
     if any(drops.values()):
@@ -786,7 +808,7 @@ def main() -> int:
         timed_s = 0.0
         torch.cuda.synchronize()
         gc_clock = GcClock()
-        sk.NfaStep.launches = gk.GcMark.launches = 0
+        sk.NfaStep.launches = gk.GcMark.launches = gs.GcSweep.launches = 0
         with gc_clock:
             for b in range(n_batches):
                 order = [(k, streams[k][b * T + t]) for t in range(T) for k in keys]
@@ -813,7 +835,8 @@ def main() -> int:
                     walls["emit"] += (t2 - t1) - inner["flush"]
         launches, gc_launches = sk.NfaStep.launches, gk.GcMark.launches
         return dict(out=out, log=sink_log, proc=proc, walls=walls, timed_s=timed_s,
-                    launches=launches, gc_launches=gc_launches, routes=routes, gc=gc_clock)
+                    launches=launches, gc_launches=gc_launches,
+                    sweep_launches=gs.GcSweep.launches, routes=routes, gc=gc_clock)
 
     def check_topology(res, label):
         out, proc = res["out"], res["proc"]
@@ -828,9 +851,10 @@ def main() -> int:
         if proc._flushes != n_batches or res["launches"] != n_batches:
             raise AssertionError(f"{res['launches']} nfa_step launches for {proc._flushes} "
                                  f"flushes ({n_batches} expected)")
-        if res["gc_launches"] != proc.engine.flushes or res["gc_launches"] == 0:
-            raise AssertionError(f"{res['gc_launches']} gc_mark launches for "
-                                 f"{proc.engine.flushes} group flushes")
+        if res["gc_launches"] != proc.engine.flushes or res["gc_launches"] == 0 \
+                or res["sweep_launches"] != proc.engine.flushes:
+            raise AssertionError(f"{res['gc_launches']} gc_mark and {res['sweep_launches']} "
+                                 f"gc_sweep launches for {proc.engine.flushes} group flushes")
         tstats = proc.stats
         drops = {k: tstats[k] for k in DROP_COUNTER_KEYS}
         if any(drops.values()):
@@ -840,7 +864,8 @@ def main() -> int:
             raise AssertionError(f"sink holds {n_sink} records for {len(out.records)} matches")
         log(f"topology[{label}]: {len(out.records)} matches, {n_sink} sink records, "
             f"{res['launches']} nfa_step launches for {proc._flushes} flushes, "
-            f"{res['gc_launches']} gc_mark launches, drops {drops}")
+            f"{res['gc_launches']} gc_mark and {res['sweep_launches']} gc_sweep launches, "
+            f"drops {drops}")
 
     topo_obj = topology_run("objects")
     check_topology(topo_obj, "objects")
@@ -854,6 +879,7 @@ def main() -> int:
     topo_launches = topo_obj["launches"]
     topo_rps = topo_obj["rps"]
     topo_gc_launches = topo_obj["gc_launches"]
+    topo_sweep_launches = topo_obj["sweep_launches"]
     obj_rows = [(r.key, P.sequence_to_json(r.value).encode("utf-8"))
                 for r in topo_obj["out"].records]
     # Phase 5's sink: the reference of phase 11.
@@ -929,7 +955,7 @@ def main() -> int:
 
     def launched(label, n):
         if n <= 0:
-            raise AssertionError(f"{label}: nfa_step was not launched")
+            raise AssertionError(f"{label}: the kernel was not launched")
         return n
 
     # -- 8. checkpoint: snapshot after batch 5, restore, batches 6-10 ---------
@@ -1235,40 +1261,66 @@ def main() -> int:
         run_batches(eng, 0, n, {})
         return flush, captured
 
-    def marks_of(flush, inputs):
-        """The (seed, frontier, pred) of every mark one flush asks for."""
-        calls, real = [], engine_mod.gc_mark
+    def gc_calls_of(flush, inputs):
+        """The (seed, frontier, pred) of every mark and the inputs of the
+        sweep one flush asks for."""
+        marks, sweeps = [], []
+        real_mark, real_sweep = engine_mod.gc_mark, engine_mod.gc_sweep
 
-        def record(m, f, p):
-            calls.append((m, f.contiguous(), p))
-            return real(m, f, p)
+        def record_mark(m, f, p):
+            marks.append((m, f.contiguous(), p))
+            return real_mark(m, f, p)
 
-        engine_mod.gc_mark = record
+        def record_sweep(marked, marked_pin, state, pool, ys):
+            sweeps.append((marked, marked_pin,
+                           {n: state[n].contiguous() for n in gs.STATE_OUT}, pool,
+                           {n: ys[n].contiguous() for n in gs.WINDOW_PLANES}))
+            return real_sweep(marked, marked_pin, state, pool, ys)
+
+        engine_mod.gc_mark, engine_mod.gc_sweep = record_mark, record_sweep
         try:
             flush(*inputs)
         finally:
-            engine_mod.gc_mark = real
-        return calls
+            engine_mod.gc_mark, engine_mod.gc_sweep = real_mark, real_sweep
+        return marks, sweeps
 
-    def plain_walk_flush(flush, inputs):
-        engine_mod.gc_mark = gk._walk
+    def flush_with(mark, sweep, flush, inputs):
+        """The flush with the given mark and sweep in place of the kernels."""
+        engine_mod.gc_mark, engine_mod.gc_sweep = mark, sweep
         try:
             return flush(*inputs)
         finally:
-            engine_mod.gc_mark = gk.gc_mark
+            engine_mod.gc_mark, engine_mod.gc_sweep = gk.gc_mark, gs.gc_sweep
 
-    mark_rows, flush_rows, gc_err = [], [], 0.0
+    def sweep_bytes(marked, state, pool, want):
+        """Bytes one gc_sweep launch must move on this data: the marks read
+        once, the kept rows' event, name, pred and pin, the lanes, the ring
+        below each cursor and the per-key scalars read; every output plane
+        written once."""
+        BW, Kk = marked.shape[0] - 1, marked.shape[1]
+        B, R, M = pool["node_event"].shape[0], state["node"].shape[0], pool["pend"].shape[0]
+        kept = int(want["node_count"].sum())
+        below = int(pool["pend_pos"].clamp(0, M).sum())
+        reads = BW * Kk + kept * 13 + 2 * R * Kk * 4 + below * 4 + 3 * Kk * 4
+        writes = B * Kk * 13 + 2 * R * Kk * 4 + M * Kk * 4 + 3 * Kk * 4
+        return reads + writes
+
+    mark_rows, sweep_rows, flush_rows, gc_err, sweep_err = [], [], [], 0.0, 0.0
 
     def check_flush(label, flush, inputs, b, pin_interval):
-        """Every gc_mark launch of one captured flush bitwise == `_walk` on
-        the same (seed, frontier, pred), each timed beside its byte bound;
-        then the whole flush == the same flush with the plain walk. Rows go
-        to mark_rows and flush_rows; returns this flush's mark rows."""
-        nonlocal gc_err
-        walks = marks_of(flush, inputs)
+        """Every gc_mark launch of one captured flush bitwise == `_walk` and
+        its gc_sweep launch bitwise == `_sweep` on the same inputs, each
+        timed beside its byte bound; then the whole flush with both kernels
+        == the same flush with both plain versions, timed beside the flush
+        with the mark kernel and the plain sweep. Rows go to mark_rows,
+        sweep_rows and flush_rows; returns this flush's (mark rows, sweep
+        row)."""
+        nonlocal gc_err, sweep_err
+        walks, sweeps = gc_calls_of(flush, inputs)
         names = ["lane"] if pin_interval else ["page", "lane"]
-        if len(walks) != len(names):
-            raise AssertionError(f"{label} flush {b}: {len(walks)} marks, expected {len(names)}")
+        if len(walks) != len(names) or len(sweeps) != 1:
+            raise AssertionError(f"{label} flush {b}: {len(walks)} marks and {len(sweeps)} "
+                                 f"sweeps, expected {len(names)} and 1")
         rows = []
         for name, (m, f, pr) in zip(names, walks):
             got = gk.launch(gc_lib, m, f, pr)
@@ -1284,29 +1336,61 @@ def main() -> int:
             moved = 2 * m.numel() + f.numel() * 4 + newly * 4
             ms = cuda_ms(lambda: gk.launch(gc_lib, m, f, pr), reps=20)
             p_ms = cuda_ms(lambda: gk._walk(m, f, pr), reps=2)
-            smem = int(gc_lib.gc_mark_scratch_words(BW, Kk)) == 0
+            kpb = int(gc_lib.gc_mark_keys_per_block(BW, Kk))
+            smem = int(gc_lib.gc_mark_smem_bytes(BW, Kk))
             rows.append(dict(label=label, batch=b, walk=name, BW=BW, F=f.shape[0], K=Kk,
-                             scratch="shared" if smem else "global", newly=newly, ms=ms,
+                             bitmaps="shared" if smem else "global", keys_per_block=kpb,
+                             blocks=-(-Kk // kpb), smem_bytes=smem, newly=newly, ms=ms,
                              plain_ms=p_ms, bytes=moved,
                              bound_ms=moved / HBM_BYTES_PER_S * 1e3))
             log(f"gc_mark == _walk bitwise ({label}, flush {b}, {name} walk, BW={BW}, "
-                f"F={f.shape[0]}, K={Kk}, {'shared' if smem else 'global'}-memory bitmaps, "
+                f"F={f.shape[0]}, K={Kk}, {kpb} keys a block, {-(-Kk // kpb)} blocks, "
+                f"{'shared' if smem else 'global'}-memory bitmaps ({smem} B a block), "
                 f"{newly} newly marked): kernel {ms:.4f} ms, plain {p_ms:.3f} ms, bytes "
                 f"{moved} -> bound {moved / HBM_BYTES_PER_S * 1e3:.4f} ms "
                 f"({moved / HBM_BYTES_PER_S * 1e3 / ms:.1%} of it)")
+        mk, mp, st, pl, ys = sweeps[0]
+        got = gs.launch(sweep_lib, mk, mp, st, pl, ys)
+        want = gs._sweep(mk, mp, st, pl, ys)
+        torch.cuda.synchronize()
+        bad = [n for n in want if got[n].dtype != want[n].dtype or not torch.equal(got[n], want[n])]
+        if bad or set(got) != set(want):
+            raise AssertionError(f"gc_sweep != _sweep on {label} batch {b}: {bad}")
+        sweep_err = max(sweep_err, max_abs_diff(got, want))
+        BW, Kk = mk.shape[0] - 1, mk.shape[1]
+        moved = sweep_bytes(mk, st, pl, want)
+        s_ms = cuda_ms(lambda: gs.launch(sweep_lib, mk, mp, st, pl, ys), reps=20)
+        sp_ms = cuda_ms(lambda: gs._sweep(mk, mp, st, pl, ys), reps=3)
+        kpb = int(sweep_lib.gc_sweep_keys_per_block(BW, Kk))
+        smem = int(sweep_lib.gc_sweep_smem_bytes(BW, Kk))
+        kept = int(want["node_count"].sum())
+        sweep_row = dict(label=label, batch=b, BW=BW, K=Kk, B=pl["node_event"].shape[0],
+                         kept=kept, bitmaps="shared" if smem else "global",
+                         keys_per_block=kpb, blocks=-(-Kk // kpb), smem_bytes=smem, ms=s_ms,
+                         plain_ms=sp_ms, bytes=moved, bound_ms=moved / HBM_BYTES_PER_S * 1e3)
+        log(f"gc_sweep == _sweep bitwise ({label}, flush {b}, BW={BW}, K={Kk}, {kept} nodes "
+            f"kept, {kpb} keys a block, {-(-Kk // kpb)} blocks, {smem} B of shared memory a "
+            f"block): kernel {s_ms:.4f} ms, plain {sp_ms:.3f} ms, bytes {moved} -> bound "
+            f"{sweep_row['bound_ms']:.4f} ms ({sweep_row['bound_ms'] / s_ms:.1%} of it)")
         k_flush = cuda_ms(lambda: flush(*inputs), reps=5)
-        p_flush = cuda_ms(lambda: plain_walk_flush(flush, inputs), reps=2)
+        m_flush = cuda_ms(lambda: flush_with(gk.gc_mark, gs._sweep, flush, inputs), reps=2)
+        p_flush = cuda_ms(lambda: flush_with(gk._walk, gs._sweep, flush, inputs), reps=2)
         a = flush(*inputs)
-        b_ = plain_walk_flush(flush, inputs)
+        b_ = flush_with(gk._walk, gs._sweep, flush, inputs)
         torch.cuda.synchronize()
         for tree_a, tree_b in zip(a, b_):
-            if any(not torch.equal(tree_a[n], tree_b[n]) for n in tree_a):
-                raise AssertionError(f"the flush with gc_mark != with _walk ({label}, {b})")
+            if set(tree_a) != set(tree_b) or any(
+                    not torch.equal(tree_a[n], tree_b[n]) for n in tree_a):
+                raise AssertionError(f"the flush with the kernels != with the plain versions "
+                                     f"({label}, {b})")
         mark_rows.extend(rows)
-        flush_rows.append(dict(label=label, batch=b, ms=k_flush, plain_ms=p_flush))
-        log(f"group flush ({label}, flush {b}): {k_flush:.3f} ms with gc_mark, "
-            f"{p_flush:.3f} ms with the plain walk; state and pool equal")
-        return rows
+        sweep_rows.append(sweep_row)
+        flush_rows.append(dict(label=label, batch=b, ms=k_flush, plain_ms=p_flush,
+                               mark_kernel_plain_sweep_ms=m_flush))
+        log(f"group flush ({label}, flush {b}): {k_flush:.3f} ms with gc_mark and gc_sweep, "
+            f"{m_flush:.3f} ms with gc_mark and the plain sweep, {p_flush:.3f} ms with both "
+            f"plain versions; state and pool equal")
+        return rows, sweep_row
 
     page_cfg = replace(flag_cfg, pin_interval=False)
     for label, cfg, at, n in (("pin_interval", flag_cfg, (3, 10), n_batches),
@@ -1315,7 +1399,7 @@ def main() -> int:
         for b in at:
             check_flush(label, flush, captured[b], b, cfg.pin_interval)
         del captured, flush
-    gc_main = mark_rows[0]
+    gc_main, sweep_main = mark_rows[0], sweep_rows[0]
 
     # -- 13. exact replay on a fold query at K = 2048 -------------------------
     from kafkastreams_cep_tpu_torch.nfa import NFA
@@ -1349,7 +1433,7 @@ def main() -> int:
         return replay_keys(hot, out)
 
     fe._replay_boundary, fe._replay_keys = timed_boundary, seen_keys
-    sk.NfaStep.launches = gk.GcMark.launches = 0
+    sk.NfaStep.launches = gk.GcMark.launches = gs.GcSweep.launches = 0
     fold_got = {}
     t0 = time.perf_counter()
     for b in range(n_fold):
@@ -1359,6 +1443,7 @@ def main() -> int:
     fold_s = time.perf_counter() - t0
     fold_launches = launched("fold replay", sk.NfaStep.launches)
     fold_gc_launches = launched("fold replay (gc_mark)", gk.GcMark.launches)
+    fold_sweep_launches = launched("fold replay (gc_sweep)", gs.GcSweep.launches)
     collisions = fe.stats["seq_collisions"]
     if fe.replays == 0:
         raise AssertionError("the fold query replayed nothing at K = 2048")
@@ -1378,7 +1463,8 @@ def main() -> int:
         f"per drain {[round(x * 1e3, 2) for x in replay_s]}, {fold_s * 1e3:.1f} ms for the 4 "
         f"batches; {n_fold_matches} matches; the {len(hot_keys)} replayed keys and "
         f"{len(checked) - len(hot_keys)} sampled others == the host oracle; nfa_step "
-        f"launches {fold_launches}, gc_mark launches {fold_gc_launches}")
+        f"launches {fold_launches}, gc_mark launches {fold_gc_launches}, gc_sweep launches "
+        f"{fold_sweep_launches}")
     del fe
     # A ring for all 4 batches' worst case, so no ring-full drain is due.
     fd = fold_engine(replace(fold_cfg, matches=n_fold * per * fold_cfg.matches_per_step))
@@ -1462,7 +1548,7 @@ def main() -> int:
         proc.engine._advance = capture
         process, lags = topo.process, []
         torch.cuda.synchronize()
-        sk.NfaStep.launches = gk.GcMark.launches = 0
+        sk.NfaStep.launches = gk.GcMark.launches = gs.GcSweep.launches = 0
         for b in range(n_batches):
             if b == n_warm:
                 torch.cuda.synchronize()
@@ -1486,7 +1572,8 @@ def main() -> int:
         res = dict(matches=by_key, secs=secs, gate_s=gate_s[0], lags=lags,
                    timed_flushes=proc._flushes - flushes0, flushes=proc._flushes,
                    gc_flushes=proc.engine.flushes, launches=launches,
-                   gc_launches=gc_launches, drops={k: stats[k] for k in DROP_COUNTER_KEYS},
+                   gc_launches=gc_launches, sweep_launches=gs.GcSweep.launches,
+                   drops={k: stats[k] for k in DROP_COUNTER_KEYS},
                    late=metric_total(reg, "cep_late_dropped_total"),
                    overflow=metric_total(reg, "cep_reorder_overflow_dropped_total"),
                    occupancy=gate.occupancy, pair=captured.get("pair"))
@@ -1495,11 +1582,11 @@ def main() -> int:
 
     def check_gated(res, label):
         if res["launches"] != res["flushes"] or res["gc_launches"] != res["gc_flushes"] \
-                or res["gc_launches"] == 0:
+                or res["gc_launches"] == 0 or res["sweep_launches"] != res["gc_flushes"]:
             raise AssertionError(
                 f"gated[{label}]: {res['launches']} nfa_step launches for {res['flushes']} "
-                f"flushes, {res['gc_launches']} gc_mark launches for {res['gc_flushes']} "
-                "group flushes")
+                f"flushes, {res['gc_launches']} gc_mark and {res['sweep_launches']} gc_sweep "
+                f"launches for {res['gc_flushes']} group flushes")
         if any(res["drops"].values()) or res["late"] or res["overflow"] or res["occupancy"]:
             raise AssertionError(f"gated[{label}]: drops {res['drops']}, late {res['late']}, "
                                  f"reorder overflow {res['overflow']}, left buffered "
@@ -1529,8 +1616,9 @@ def main() -> int:
         f"records)")
     log(f"event time: {n_gated_matches} matches; shuffled == presorted == phase 4's per key; "
         f"late 0, reorder overflow 0, drops 0; nfa_step launches {gated['launches']} and "
-        f"gc_mark launches {gated['gc_launches']} for {gated['flushes']} flushes "
-        f"({gated['gc_flushes']} group flushes)")
+        f"gc_mark launches {gated['gc_launches']} and gc_sweep launches "
+        f"{gated['sweep_launches']} for {gated['flushes']} flushes ({gated['gc_flushes']} "
+        f"group flushes)")
     del gated_in_order
 
     # The step on flush 3's batch, which carries the gate's wm column; then
@@ -1649,7 +1737,7 @@ def main() -> int:
         del arrivals
 
         # The uninterrupted run: the reference sink.
-        sk.NfaStep.launches = gk.GcMark.launches = 0
+        sk.NfaStep.launches = gk.GcMark.launches = gs.GcSweep.launches = 0
         wlog = P.RecordLog(whole_dir)
         driver, latency, _ = driver_on(wlog)
         commit_ms = []
@@ -1661,6 +1749,7 @@ def main() -> int:
         drive_s = time.perf_counter() - t0
         drv_launches = launched("LogDriver", sk.NfaStep.launches)
         drv_gc_launches = launched("LogDriver (gc_mark)", gk.GcMark.launches)
+        drv_sweep_launches = launched("LogDriver (gc_sweep)", gs.GcSweep.launches)
         no_drops("LogDriver", driver.topology.queries[0][1].processor)
         whole_sink, whole_dlq = sink_of(wlog), wlog.read(dlq_topic("letters"))
         lat = torch.tensor(latency.values, dtype=torch.float64)
@@ -1686,7 +1775,7 @@ def main() -> int:
         # after polls 3 and 6) the driver, topology and engine are
         # dropped and the log closed; all are built afresh on the files,
         # restored from the committed changelogs and offsets, and finish.
-        sk.NfaStep.launches = gk.GcMark.launches = 0
+        sk.NfaStep.launches = gk.GcMark.launches = gs.GcSweep.launches = 0
         rlog = P.RecordLog(restart_dir)
         driver, _lat, _ = driver_on(rlog)
         restart_commit_ms = []
@@ -1727,7 +1816,8 @@ def main() -> int:
         f"{float(lat.quantile(0.5)) * 1e3:.1f} ms, p99 {float(lat.quantile(0.99)) * 1e3:.1f} "
         f"ms over {lat.numel()} samples (one per match); ms per commit "
         f"{[round(x, 1) for x in commit_ms]}; dead letters {health['dead_letters_by_reason']};"
-        f" nfa_step launches {drv_launches}, gc_mark launches {drv_gc_launches}")
+        f" nfa_step launches {drv_launches}, gc_mark launches {drv_gc_launches}, gc_sweep "
+        f"launches {drv_sweep_launches}")
     log(f"LogDriver restart after poll {restart_after} (last commit after poll "
         f"{restart_after // polls_per_commit * polls_per_commit}): log reload "
         f"{(t1 - t0) * 1e3:.1f} ms, topology + LogDriver with restore {init_s * 1e3:.1f} ms "
@@ -1773,7 +1863,7 @@ def main() -> int:
     dev_recs = [(k, streams[k][b * T + t]) for b in range(n_batches) for t in range(T)
                 for k in keys[n_host_keys:]]
     builds0 = len(kernel_build.BUILDS)
-    sk.NfaStep.launches = gk.GcMark.launches = 0
+    sk.NfaStep.launches = gk.GcMark.launches = gs.GcSweep.launches = 0
     t0 = time.perf_counter()
     for key, e in host_recs:
         stamp("letters", 0, key, e.offset, time.perf_counter())
@@ -1809,6 +1899,7 @@ def main() -> int:
     dev_s = time.perf_counter() - t2
     auto_launches = launched("auto", sk.NfaStep.launches)
     auto_gc_launches = launched("auto (gc_mark)", gk.GcMark.launches)
+    auto_sweep_launches = launched("auto (gc_sweep)", gs.GcSweep.launches)
     auto_builds = kernel_build.BUILDS[builds0:]
     no_drops("auto", router.device)
     auto_state = router.state()
@@ -1852,8 +1943,8 @@ def main() -> int:
         f"{float(auto_lat_t.quantile(0.99)) * 1e3:.1f} ms over {auto_lat_t.numel()} samples")
     log(f"auto: {len(auto_sink)} sink matches == phase 5's per key, each once; 1 promotion, "
         f"runtime cuda; drops 0; nfa_step launches {auto_launches}, gc_mark launches "
-        f"{auto_gc_launches}; the step kernel == plain bitwise on the first post-promotion "
-        f"batch; nvcc builds {[(n, round(sec, 1)) for n, _t, sec in auto_builds]}; autosizer "
+        f"{auto_gc_launches}, gc_sweep launches {auto_sweep_launches}; the step kernel == "
+        f"plain bitwise on the first post-promotion batch; nvcc builds {[(n, round(sec, 1)) for n, _t, sec in auto_builds]}; autosizer "
         f"{json.dumps(auto_state['autosizer'])}; DrainController knobs "
         f"{json.dumps(router.autosizer.cadence.state())}; engine signatures "
         f"{router.engine.compile_watch.builds()}")
@@ -1901,7 +1992,7 @@ def main() -> int:
         return arm._advance_inner(state, xs)
 
     builds0 = len(kernel_build.BUILDS)
-    sk.NfaStep.launches = gk.GcMark.launches = 0
+    sk.NfaStep.launches = gk.GcMark.launches = gs.GcSweep.launches = 0
     m_ctl, t0 = {}, None
     for b in range(n_batches):
         if b == n_warm:
@@ -1919,6 +2010,7 @@ def main() -> int:
     ctl_s = time.perf_counter() - t0 - sum(resize_walls)
     ctl_launches = launched("controllers", sk.NfaStep.launches)
     ctl_gc_launches = launched("controllers (gc_mark)", gk.GcMark.launches)
+    ctl_sweep_launches = launched("controllers (gc_sweep)", gs.GcSweep.launches)
     ctl_builds = kernel_build.BUILDS[builds0:]
     no_drops("controllers", arm)
     if m_ctl != engine_matches:
@@ -1969,7 +2061,7 @@ def main() -> int:
         f"{n_timed} timed deferred batches with the decode worker, resize walls excluded "
         f"(phase 4, same run: {e2e_eps:.0f}); DrainController "
         f"{json.dumps(ctl_state['cadence'])}; nfa_step launches {ctl_launches}, gc_mark "
-        f"launches {ctl_gc_launches}")
+        f"launches {ctl_gc_launches}, gc_sweep launches {ctl_sweep_launches}")
     for row in resized_rows:
         log(f"nfa_step at the autosizer's shape lanes {row['lanes']} nodes {row['nodes']} "
             f"(its first batch there): kernel == plain bitwise, kernel {row['ms']:.4f} ms, "
@@ -2030,7 +2122,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 19. the paced LogDriver: phase 15's log again, pacing=True ----------
-    sk.NfaStep.launches = gk.GcMark.launches = 0
+    sk.NfaStep.launches = gk.GcMark.launches = gs.GcSweep.launches = 0
     plog = P.RecordLog(f"{paced_tmp}/log")
     driver, _lat, _ = driver_on(plog, pacing=True)
     budgets = []
@@ -2143,20 +2235,19 @@ def main() -> int:
         torch.cuda.synchronize()
         return got, time.perf_counter() - t0, auto.state(), point, watched
 
-    sk.NfaStep.launches = gk.GcMark.launches = 0
+    sk.NfaStep.launches = gk.GcMark.launches = gs.GcSweep.launches = 0
     c4_eng = P.StackedQueryEngine(stacked_models.letter_queries(), keys=c4_keys, config=c4_cfg,
                                   device=dev, engine="cuda")
     c4_got, c4_s, c4_auto, (c4_state, c4_xs), (c4_flush, c4_fl_in) = c4_run(c4_eng, split=True)
     c4_launches = launched("config 4 (stacked)", sk.NfaStep.launches)
-    c4_gc_launches = gk.GcMark.launches
-    if c4_gc_launches <= 0:
-        raise AssertionError("config 4 (stacked): gc_mark was not launched")
+    c4_gc_launches = launched("config 4 (stacked, gc_mark)", gk.GcMark.launches)
+    c4_sweep_launches = launched("config 4 (stacked, gc_sweep)", gs.GcSweep.launches)
     no_drops("config 4 (stacked)", c4_eng.engine)
     c4_point = kernel_point(c4_eng.engine._advance.library(), c4_eng.query, c4_eng.config,
                             c4_state, c4_xs)
     c4_final_cfg = c4_eng.config
-    c4_marks = check_flush("config4_stacked", c4_flush, c4_fl_in[2], 2,
-                           c4_final_cfg.pin_interval)
+    c4_marks, c4_sweep = check_flush("config4_stacked", c4_flush, c4_fl_in[2], 2,
+                                     c4_final_cfg.pin_interval)
     del c4_eng, c4_state, c4_xs, c4_flush, c4_fl_in
     solo_s, solo_launches = 0.0, 0
     for qname, q in c4_solo.items():
@@ -2183,7 +2274,9 @@ def main() -> int:
         f"({c4_point['ms']:.4f} ms vs plain {c4_point['plain_ms']:.3f} ms, bound "
         f"{c4_point['bound_ms']:.4f} ms); nfa_step launches {c4_launches} stacked, "
         f"{solo_launches} independent; gc_mark {c4_gc_launches} (== _walk on timed flush 2, "
-        f"{c4_marks[-1]['ms']:.4f} ms, bound {c4_marks[-1]['bound_ms']:.4f} ms); autosizer "
+        f"{c4_marks[-1]['ms']:.4f} ms, bound {c4_marks[-1]['bound_ms']:.4f} ms); gc_sweep "
+        f"{c4_sweep_launches} (== _sweep there, {c4_sweep['ms']:.4f} ms, bound "
+        f"{c4_sweep['bound_ms']:.4f} ms); autosizer "
         f"{json.dumps(c4_auto)}")
     del c4_streams, c4_got
     gc.collect()
@@ -2197,7 +2290,7 @@ def main() -> int:
     wide_chunks = [{k: s[b * T:(b + 1) * T] for k, s in wide_streams.items()}
                    for b in range(wide_batches)]
     torch.cuda.reset_peak_memory_stats()
-    sk.NfaStep.launches = gk.GcMark.launches = 0
+    sk.NfaStep.launches = gk.GcMark.launches = gs.GcSweep.launches = 0
     wide_eng = P.StackedQueryEngine(stacked_models.rotated_skip_any_queries(), keys=wide_keys,
                                     config=wide_cfg, device=dev, engine="cuda")
     wide_bytes = sum(v.numel() * v.element_size() for tree in (wide_eng.engine.state,
@@ -2217,15 +2310,19 @@ def main() -> int:
     torch.cuda.synchronize()
     wide_s = time.perf_counter() - t0
     wide_launches = launched("wide stack", sk.NfaStep.launches)
-    wide_gc_launches = gk.GcMark.launches
+    wide_gc_launches = launched("wide stack (gc_mark)", gk.GcMark.launches)
+    wide_sweep_launches = launched("wide stack (gc_sweep)", gs.GcSweep.launches)
     no_drops("wide stack", wide_eng.engine)
     wide_live = int(wide_eng.engine.state["active"].sum(0).max())
     wide_peak = torch.cuda.max_memory_allocated()
     wide_point = kernel_point(wide_eng.engine._advance.library(), wide_q, wide_cfg,
                               *wide_point_in, reps=5, plain_reps=1)
-    # Its BW (nodes + the group window) puts gc_mark's bitmaps in global
-    # scratch, the branch no other shape on this card takes.
-    wide_marks = check_flush("wide_stack", wide_flush, wide_fl_in[3], 3, wide_cfg.pin_interval)
+    # Its BW (nodes + the group window), the largest of the run: both
+    # kernels keep their bitmaps in shared memory there too.
+    wide_marks, wide_sweep = check_flush("wide_stack", wide_flush, wide_fl_in[3], 3,
+                                         wide_cfg.pin_interval)
+    if wide_marks[-1]["bitmaps"] != "shared" or wide_sweep["bitmaps"] != "shared":
+        raise AssertionError("wide stack: the GC's bitmaps left shared memory")
     del wide_eng, wide_point_in, xs_w, wide_flush, wide_fl_in
     gc.collect()
     torch.cuda.empty_cache()
@@ -2253,8 +2350,10 @@ def main() -> int:
         f"{wide_point['plain_ms']:.3f} ms, {wide_point['bytes']} B -> bound "
         f"{wide_point['bound_ms']:.4f} ms); ptxas {ptxas['wide_stack']}; nfa_step launches "
         f"{wide_launches}, gc_mark {wide_gc_launches} (== _walk on flush 3, BW "
-        f"{wide_marks[-1]['BW']}, {wide_marks[-1]['scratch']}-memory bitmaps, "
-        f"{wide_marks[-1]['ms']:.4f} ms, bound {wide_marks[-1]['bound_ms']:.4f} ms)")
+        f"{wide_marks[-1]['BW']}, {wide_marks[-1]['bitmaps']}-memory bitmaps, "
+        f"{wide_marks[-1]['ms']:.4f} ms, bound {wide_marks[-1]['bound_ms']:.4f} ms), gc_sweep "
+        f"{wide_sweep_launches} (== _sweep there, {wide_sweep['bitmaps']}-memory bitmaps, "
+        f"{wide_sweep['ms']:.4f} ms, bound {wide_sweep['bound_ms']:.4f} ms)")
     del wide_streams, wide_chunks, wide_got
     gc.collect()
     torch.cuda.empty_cache()
@@ -2274,7 +2373,7 @@ def main() -> int:
             out += [P.sequence_to_json(s) for s in dn.advance(c)]
         return out
 
-    sk.NfaStep.launches = gk.GcMark.launches = 0
+    sk.NfaStep.launches = gk.GcMark.launches = gs.GcSweep.launches = 0
     dn = P.DeviceNFA(flag_q, config=flag_cfg, device=dev, engine="cuda")
     single_flush, single_fl_in = watch_flushes(dn, (7,))
     torch.cuda.synchronize()
@@ -2283,9 +2382,8 @@ def main() -> int:
     torch.cuda.synchronize()
     single_s = time.perf_counter() - t0
     single_launches = launched("DeviceNFA", sk.NfaStep.launches)
-    single_gc_launches = gk.GcMark.launches
-    if single_gc_launches <= 0:
-        raise AssertionError("DeviceNFA: gc_mark was not launched")
+    single_gc_launches = launched("DeviceNFA (gc_mark)", gk.GcMark.launches)
+    single_sweep_launches = launched("DeviceNFA (gc_sweep)", gs.GcSweep.launches)
     no_drops("DeviceNFA", dn)
     oracle = HostNFA.build(P.compile_pattern(skip_any.skip_any8_pattern()), HostAggs(),
                            HostBuffer(), strict_windows=flag_cfg.strict_windows)
@@ -2294,10 +2392,11 @@ def main() -> int:
         raise AssertionError(f"DeviceNFA: {len(single_got)} matches, the oracle {len(want)}")
     if dn.runs != oracle.runs or dn.n_live != len(oracle.computation_stages):
         raise AssertionError("DeviceNFA: runs or live runs differ from the oracle's")
-    # gc_mark runs on the card whatever the step engine is, so the
-    # plain-step DeviceNFA below does not check it: flush 7 against _walk.
-    single_marks = check_flush("single_key", single_flush, single_fl_in[7], 7,
-                               flag_cfg.pin_interval)
+    # The GC kernels run on the card whatever the step engine is, so the
+    # plain-step DeviceNFA below does not check them: flush 7 against the
+    # plain versions.
+    single_marks, single_sweep = check_flush("single_key", single_flush, single_fl_in[7], 7,
+                                             flag_cfg.pin_interval)
     del single_flush, single_fl_in
     plain_dn = P.DeviceNFA(flag_q, config=flag_cfg, device=dev, engine="torch")
     if single_run(plain_dn, single_chunks) != single_got:
@@ -2332,7 +2431,8 @@ def main() -> int:
         f"{single_point['bound_ms']:.5f} ms ({single_point['bytes']} B); stock golden 4 matches; "
         f"nfa_step launches {single_launches}, gc_mark {single_gc_launches} (== _walk on "
         f"flush 7, K=1, {single_marks[-1]['ms']:.4f} ms, bound "
-        f"{single_marks[-1]['bound_ms']:.5f} ms)")
+        f"{single_marks[-1]['bound_ms']:.5f} ms), gc_sweep {single_sweep_launches} (== _sweep "
+        f"there, {single_sweep['ms']:.4f} ms, bound {single_sweep['bound_ms']:.5f} ms)")
     del dn, plain_dn, first, second, probe, gold, oracle
 
     # -- 23. the kernel line, the card line, the ok line ----------------------
@@ -2389,6 +2489,25 @@ def main() -> int:
         "wide_stack": {"launches": wide_gc_launches, "library_ms": None, **wide_marks[-1]},
         "single_key": {"launches": single_gc_launches, "library_ms": None,
                        **single_marks[-1]},
+    }, {
+        "name": "gc_sweep",
+        "route": "cuda",
+        "source": "kafkastreams_cep_tpu_torch/csrc/gc_sweep.cu",
+        "replaces": "kafkastreams_cep_tpu/ops/engine.py:1178-1232 and :1237-1282 (the "
+                    "compaction and remaps of build_gc and remap_pend_blocks: XLA, no Pallas)",
+        "launches": topo_sweep_launches,
+        "max_abs_err": sweep_err,
+        "ms": sweep_main["ms"],
+        "plain_ms": sweep_main["plain_ms"],
+        "bound_ms": sweep_main["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "sweeps": sweep_rows,
+        "auto": {"launches": auto_sweep_launches},
+        "controllers": {"launches": ctl_sweep_launches},
+        "config4_stacked": {"launches": c4_sweep_launches, "library_ms": None, **c4_sweep},
+        "wide_stack": {"launches": wide_sweep_launches, "library_ms": None, **wide_sweep},
+        "single_key": {"launches": single_sweep_launches, "library_ms": None, **single_sweep},
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

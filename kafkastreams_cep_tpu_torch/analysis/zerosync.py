@@ -57,6 +57,7 @@ HOT_PATHS: Dict[str, Tuple[str, ...]] = {
     "ops/step_kernel.py": ("NfaStep.__call__",),
     "ops/step.py": ("build_plain_step",),
     "ops/gc_kernel.py": ("GcMark.__call__",),
+    "ops/gc_sweep.py": ("GcSweep.__call__",),
 }
 
 #: (module, qualname) -> why the function may read the host.
@@ -68,7 +69,7 @@ EXCEPTIONS: Dict[Tuple[str, str], str] = {
 }
 
 ARRAY_PARAMS = {
-    "state", "pool", "xs", "ys", "st", "window", "page_roots", "marked", "frontier",
+    "state", "pool", "xs", "ys", "st", "window", "page_roots", "marked", "marked_pin", "frontier",
     "pred", "ids", "roots", "w_match", "w_mroot", "group_ys", "group_roots", "leaf",
     "tree", "mask", "vals", "remap_full", "regs", "cols",
 }

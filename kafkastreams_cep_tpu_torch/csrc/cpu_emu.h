@@ -1,16 +1,19 @@
 // Runs a CUDA kernel source on the CPU, for testing without a card.
 //
-// nfa_step.cu and gc_mark.cu compile with g++ when NFA_CPU_EMU is defined:
-// every CUDA thread of a block becomes an OS thread, __syncthreads() a
-// block-wide std::barrier, atomicOr a std::atomic_ref fetch_or, and a
-// launch's dynamic shared memory a per-block buffer (emu::dynamic_smem()). Each warp intrinsic the kernel uses (__shfl_sync,
+// nfa_step.cu, gc_mark.cu and gc_sweep.cu compile with g++ when
+// NFA_CPU_EMU is defined: every CUDA thread of a block becomes an OS
+// thread, __syncthreads() a block-wide std::barrier, atomicOr a
+// std::atomic_ref fetch_or, a launch's dynamic shared memory a per-block
+// buffer (emu::dynamic_smem()), and uint4 and int4 16-byte aligned
+// structs. Each warp intrinsic the kernel uses (__shfl_sync,
 // __shfl_up_sync, __ballot_sync, __any_sync, __syncwarp) meets at its
 // warp's own barrier, so it needs all 32 lanes of the warp, as the
 // kernel's full-mask calls do on the card; a call with a partial mask
 // aborts rather than guess at the card's behaviour. Blocks run one after
-// another. The point is to execute the kernel's own arithmetic, ranks and
-// scatters against the plain PyTorch version in the CPU test suite; speed
-// is not a goal, and nothing about warp scheduling is modelled.
+// another, on one set of threads. The point is to execute the kernel's own
+// arithmetic, ranks and scatters against the plain PyTorch version in the
+// CPU test suite; speed is not a goal, and nothing about warp scheduling
+// is modelled.
 #pragma once
 
 #include <algorithm>
@@ -40,10 +43,11 @@ struct Idx {
 
 struct Block {
   Block(int nthreads, size_t smem_bytes)
-      : bar(nthreads), xchg(nthreads), smem((smem_bytes + 7) / 8) {
+      : bar(nthreads), end(nthreads), xchg(nthreads), smem((smem_bytes + 7) / 8) {
     for (int w = 0; w < nthreads / 32; ++w) warp_bar.emplace_back(new std::barrier<>(32));
   }
   std::barrier<> bar;                                    // __syncthreads
+  std::barrier<> end;                                    // between two blocks
   std::vector<std::unique_ptr<std::barrier<>>> warp_bar;  // one per warp
   std::vector<int> xchg;                                 // one slot per thread
   std::vector<unsigned long long> smem;                  // dynamic shared memory
@@ -120,6 +124,18 @@ inline void __syncwarp(unsigned mask = 0xffffffffu) {
 using std::max;
 using std::min;
 
+struct alignas(16) uint4 {
+  unsigned x, y, z, w;
+};
+
+inline uint4 make_uint4(unsigned x, unsigned y, unsigned z, unsigned w) { return {x, y, z, w}; }
+
+struct alignas(16) int4 {
+  int x, y, z, w;
+};
+
+inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
+
 inline unsigned atomicOr(unsigned* address, unsigned val) {
   return std::atomic_ref<unsigned>(*address).fetch_or(val);
 }
@@ -142,18 +158,24 @@ inline float __int_as_float(int i) {
 
 inline void emu::launch(int grid, int nthreads, const std::function<void()>& body,
                        size_t smem_bytes) {
-  for (int g = 0; g < grid; ++g) {
-    Block block(nthreads, smem_bytes);
-    std::vector<std::thread> threads;
-    threads.reserve(nthreads);
-    for (int t = 0; t < nthreads; ++t) {
-      threads.emplace_back([&, g, t]() {
-        blk = &block;
-        threadIdx.x = t;
+  if (grid <= 0) return;
+  // One set of threads runs the blocks in turn; between two blocks every
+  // thread meets at a barrier of its own and the shared memory is cleared.
+  Block block(nthreads, smem_bytes);
+  std::vector<std::thread> threads;
+  threads.reserve(nthreads);
+  for (int t = 0; t < nthreads; ++t) {
+    threads.emplace_back([&, t]() {
+      blk = &block;
+      threadIdx.x = t;
+      for (int g = 0; g < grid; ++g) {
         blockIdx.x = g;
         body();
-      });
-    }
-    for (auto& th : threads) th.join();
+        block.end.arrive_and_wait();
+        if (t == 0) std::fill(block.smem.begin(), block.smem.end(), 0ull);
+        block.end.arrive_and_wait();
+      }
+    });
   }
+  for (auto& th : threads) th.join();
 }

@@ -20,124 +20,165 @@
 // the result is bitwise the plain walk's. Row BW is copied from the seed.
 // Ids >= BW are outside the contract and end a walk.
 //
-// Design: KEYS_PER_BLOCK keys per block, one warp per key for the walk,
-// each key's BW + 1 marks as a bitmap in shared memory (2 KB a key at the
-// flagship's BW = 16,384). The bool planes are read and written row by row
-// across the block's keys (16 consecutive bytes a row). A walker's step is
-// one shared atomicOr (stop if the bit was set) and one pred read, which is
-// pointer chasing: no TMA or wgmma applies, and the pred reads (one 32-byte
-// sector for 4 bytes) and the two bool planes bound it by bytes. A bitmap
-// too large for shared memory lives in a global scratch the wrapper
-// allocates (`gc_mark_scratch_words`).
+// Design: three grids on one stream, each row of a bool plane touched as
+// whole lines, since a block of a few keys would read and write only a
+// few bytes of each K-byte row (measured at the flagship: such a seed and
+// write-back took 0.09 ms of a 0.11 ms launch; as pack and unpack grids
+// the whole launch takes 0.05 ms).
+//   1. pack (gc_pack.cuh): thread (word w, 4 keys) reads rows 32w..32w+31
+//      of 4 adjacent keys as one 4-byte load a row and writes their 4 bit
+//      words at once (a warp covers 128 keys: 128 bytes a row). No
+//      atomics: each word is built by one thread and stored once. The
+//      words, [BW / 32, K] uint32, are 1/8 of the plane.
+//   2. walk: a block takes `kpb` keys (chosen at launch from BW and K, or
+//      given), loads their words into shared memory (2 KB a key at the
+//      flagship's BW = 16,384, 16 KB at the wide stack's 131,072), splits
+//      its threads evenly over its keys, and strides a key's frontier
+//      entries over them; a step is one shared atomicOr (stop if the bit
+//      was set) and one pred read, which is pointer chasing: no TMA or
+//      wgmma applies. Then it stores the words back.
+//   3. unpack (gc_pack.cuh): the pack's mapping in reverse, each output
+//      row written once as 4-byte stores (128 bytes a warp a row); row BW
+//      copied.
+// At K = 1 a thread packs or unpacks one word, its 32 rows two 16-byte
+// vectors; where K is not a multiple of 4, one key a thread. Only a bitmap
+// larger than a block's shared memory on its own (BW past 1,859,584 rows)
+// is walked in place in the global words.
+#include "gc_pack.cuh"
+
+#define NTHREADS 512
+// Keys a walk block may take, and the most the launch picks on its own.
+#define MAX_KEYS_PER_BLOCK 32
+#define AUTO_KEYS_PER_BLOCK 8
+// Walk blocks a launch keeps, where K allows (about one wave of 132 SMs).
+#define MIN_BLOCKS 128
+// Threads a pack or unpack block, and the most such blocks (16 per SM; the
+// CPU emulation, which runs blocks one after another, takes 4).
+#define PACK_THREADS 256
 #ifdef NFA_CPU_EMU
-#include "cpu_emu.h"
-#include <cstdint>
+#define PACK_BLOCKS 4
 #else
-#include <cstdint>
-#include <cuda_runtime.h>
+#define PACK_BLOCKS 2112
 #endif
+// Dynamic shared memory a block may take (the sm_90 limit, 227 KB).
+#define SMEM_MAX_BYTES (227 * 1024)
 
-#define KEYS_PER_BLOCK 16
-#define NTHREADS (32 * KEYS_PER_BLOCK)
-// Shared memory a block may take for its bitmaps (of the 227 KB a block
-// can have); past it the bitmaps go to the global scratch.
-#define SMEM_MAX_BYTES (160 * 1024)
-
-__host__ __device__ inline int words_for(int BW) { return (BW + 1 + 31) / 32; }
-
-inline long long smem_bytes_for(int BW) {
-  return (long long)KEYS_PER_BLOCK * words_for(BW) * 4;
+inline bool fits_shared(int BW, int kpb) {
+  return (long long)kpb * words_for(BW) * 4 <= SMEM_MAX_BYTES;
 }
 
+// Keys a walk block takes: at most 8; fewer while their bitmaps do not fit
+// shared memory, while the launch has fewer than MIN_BLOCKS blocks, and
+// while K would leave half the block idle (at K = 1 the whole block takes
+// the key). Measured on flagship flushes (ops/gc_timing.py):
+// 4-8 keys best at K = 2048 and 1024, within 10 % of each other at 512.
+inline int auto_keys_per_block(int BW, int K) {
+  int kpb = AUTO_KEYS_PER_BLOCK;
+  while (kpb > 1 && (!fits_shared(BW, kpb) || (K + kpb - 1) / kpb < MIN_BLOCKS || kpb >= 2 * K))
+    kpb /= 2;
+  return kpb;
+}
+
+// The walk over the packed words of `kpb` keys a block: in shared
+// memory, or (global != 0) in place in the words.
 __global__ void __launch_bounds__(NTHREADS)
-gc_mark_kernel(const uint8_t* __restrict__ seed, const int* __restrict__ frontier,
-               const int* __restrict__ pred, uint8_t* __restrict__ out, int F, int BW, int K,
-               unsigned* gbits) {
+gc_mark_walk_kernel(unsigned* __restrict__ words, const int* __restrict__ frontier,
+                    const int* __restrict__ pred, int F, int BW, int K, int kpb, int global) {
 #ifdef NFA_CPU_EMU
   unsigned* smem = static_cast<unsigned*>(emu::dynamic_smem());
 #else
   extern __shared__ unsigned smem[];
 #endif
   const int nwords = words_for(BW);
-  unsigned* bits = gbits != nullptr ? gbits + (size_t)blockIdx.x * KEYS_PER_BLOCK * nwords : smem;
   const int tid = threadIdx.x;
-  const int k0 = blockIdx.x * KEYS_PER_BLOCK;
-
-  for (int i = tid; i < KEYS_PER_BLOCK * nwords; i += NTHREADS) bits[i] = 0u;
-  __syncthreads();
-
-  // Seed, row by row across the block's keys.
-  const int j = tid % KEYS_PER_BLOCK;
-  const int r0 = tid / KEYS_PER_BLOCK;
-  const int rstep = NTHREADS / KEYS_PER_BLOCK;
-  const int k = k0 + j;
-  if (k < K) {
-    unsigned* mine = bits + j * nwords;
-    for (int r = r0; r < BW; r += rstep) {
-      if (seed[(size_t)r * K + k]) atomicOr(&mine[r >> 5], 1u << (r & 31));
+  const int k0 = blockIdx.x * kpb;
+  // Word w of the block's key j: smem[j * nwords + w], or words[w * K + k].
+  const size_t key_step = global ? 1 : (size_t)nwords;
+  const size_t word_step = global ? (size_t)K : 1;
+  unsigned* bits = global ? words + k0 : smem;
+  if (!global) {
+    for (int i = tid; i < kpb * nwords; i += NTHREADS) {
+      const int j = i % kpb, w = i / kpb;
+      if (k0 + j < K) smem[(size_t)j * nwords + w] = words[(size_t)w * K + k0 + j];
     }
+    __syncthreads();
   }
-  __syncthreads();
 
-  // Walk: warp w takes key k0 + w, its lanes the frontier entries strided.
-  const int w = tid / 32;
-  const int lane = tid % 32;
-  const int kw = k0 + w;
+  const int per_key = NTHREADS / kpb;
+  const int jw = tid / per_key;
+  const int kw = k0 + jw;
   if (kw < K) {
-    unsigned* mine = bits + w * nwords;
-    for (int f = lane; f < F; f += 32) {
+    unsigned* mine = bits + jw * key_step;
+    for (int f = tid % per_key; f < F; f += per_key) {
       int id = frontier[(size_t)f * K + kw];
       while (id >= 0 && id < BW) {
         const unsigned bit = 1u << (id & 31);
-        if (atomicOr(&mine[id >> 5], bit) & bit) break;
+        if (atomicOr(&mine[(size_t)(id >> 5) * word_step], bit) & bit) break;
         id = pred[(size_t)id * K + kw];
       }
     }
   }
-  __syncthreads();
 
-  // Write back, row by row; row BW is the seed's.
-  if (k < K) {
-    const unsigned* mine = bits + j * nwords;
-    for (int r = r0; r < BW; r += rstep) {
-      out[(size_t)r * K + k] = (uint8_t)((mine[r >> 5] >> (r & 31)) & 1u);
+  if (!global) {
+    __syncthreads();
+    for (int i = tid; i < kpb * nwords; i += NTHREADS) {
+      const int j = i % kpb, w = i / kpb;
+      if (k0 + j < K) words[(size_t)w * K + k0 + j] = smem[(size_t)j * nwords + w];
     }
-    if (r0 == 0) out[(size_t)BW * K + k] = seed[(size_t)BW * K + k];
   }
 }
 
-// int32 words of global scratch a launch needs: 0 while the block's
-// bitmaps fit in shared memory.
-extern "C" long long gc_mark_scratch_words(int BW, int K) {
-  if (smem_bytes_for(BW) <= SMEM_MAX_BYTES) return 0;
-  const long long blocks = (K + KEYS_PER_BLOCK - 1) / KEYS_PER_BLOCK;
-  return blocks * KEYS_PER_BLOCK * words_for(BW);
+// Keys a walk block takes for (BW, K), and its dynamic shared memory in
+// bytes (0 when the walk runs in place in the global words).
+extern "C" int gc_mark_keys_per_block(int BW, int K) { return auto_keys_per_block(BW, K); }
+
+extern "C" long long gc_mark_smem_bytes(int BW, int K) {
+  const int kpb = auto_keys_per_block(BW, K);
+  return fits_shared(BW, kpb) ? (long long)kpb * words_for(BW) * 4 : 0;
 }
 
-// Host entry, bound with ctypes. `scratch` holds gc_mark_scratch_words()
-// words (or is null when that is 0). Returns the launch's cudaError_t.
+// uint32 words of the packed marks a launch needs (the wrapper allocates
+// them, 16-byte aligned).
+extern "C" long long gc_mark_words(int BW, int K) { return (long long)words_for(BW) * K; }
+
+// Host entry, bound with ctypes: pack, walk and unpack on `stream`. `kpb`
+// 0 = auto_keys_per_block, else a power of two <= 32; `words` holds
+// gc_mark_words() uint32; `global` != 0 walks in place in them even where
+// shared memory would hold the bitmaps (the tests' way to run that branch
+// at small shapes). Returns the launches' cudaError_t.
 extern "C" int gc_mark_launch(const void* seed, const void* frontier, const void* pred,
-                              void* out, int F, int BW, int K, void* scratch, void* stream) {
+                              void* out, int F, int BW, int K, int kpb, void* words,
+                              int global, void* stream) {
   if (K <= 0) return 0;
-  const int blocks = (K + KEYS_PER_BLOCK - 1) / KEYS_PER_BLOCK;
-  const bool global = gc_mark_scratch_words(BW, K) > 0;
-  if (global && scratch == nullptr) return 1;  // cudaErrorInvalidValue
-  const size_t smem = global ? 0 : (size_t)smem_bytes_for(BW);
-  unsigned* gbits = global ? static_cast<unsigned*>(scratch) : nullptr;
+  if (kpb == 0) kpb = auto_keys_per_block(BW, K);
+  if (kpb < 1 || kpb > MAX_KEYS_PER_BLOCK || (kpb & (kpb - 1)) != 0 || words == nullptr) return 1;
+  if (!fits_shared(BW, kpb)) global = 1;
+  const int blocks = (K + kpb - 1) / kpb;
+  const size_t smem = global ? 0 : (size_t)kpb * words_for(BW) * 4;
   const auto* s = static_cast<const uint8_t*>(seed);
   const auto* fr = static_cast<const int*>(frontier);
   const auto* pr = static_cast<const int*>(pred);
   auto* o = static_cast<uint8_t*>(out);
+  auto* wd = static_cast<unsigned*>(words);
+  const int quad = quad_keys(seed, K) && quad_keys(out, K) ? 1 : 0;
+  const int pb = pack_blocks(BW, K, quad, PACK_THREADS, PACK_BLOCKS);
 #ifdef NFA_CPU_EMU
-  emu::launch(blocks, NTHREADS, [&]() { gc_mark_kernel(s, fr, pr, o, F, BW, K, gbits); }, smem);
+  emu::launch(pb, PACK_THREADS, [&]() { gc_pack_kernel<PACK_THREADS>(s, wd, BW, K, quad, pb); });
+  emu::launch(blocks, NTHREADS,
+              [&]() { gc_mark_walk_kernel(wd, fr, pr, F, BW, K, kpb, global); }, smem);
+  emu::launch(pb, PACK_THREADS,
+              [&]() { gc_unpack_kernel<PACK_THREADS>(wd, s, o, BW, K, quad, pb); });
   return 0;
 #else
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        gc_mark_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        gc_mark_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  gc_mark_kernel<<<blocks, NTHREADS, smem, (cudaStream_t)stream>>>(s, fr, pr, o, F, BW, K, gbits);
+  const auto st = (cudaStream_t)stream;
+  gc_pack_kernel<PACK_THREADS><<<pb, PACK_THREADS, 0, st>>>(s, wd, BW, K, quad, pb);
+  gc_mark_walk_kernel<<<blocks, NTHREADS, smem, st>>>(wd, fr, pr, F, BW, K, kpb, global);
+  gc_unpack_kernel<PACK_THREADS><<<pb, PACK_THREADS, 0, st>>>(wd, s, o, BW, K, quad, pb);
   return (int)cudaGetLastError();
 #endif
 }

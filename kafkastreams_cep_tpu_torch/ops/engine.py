@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from .gc_kernel import gc_mark
+from .gc_sweep import WINDOW_PLANES, _PEND_MIN_NONE, gc_sweep
 from .tables import CompiledQuery, TorchEnv
 from .numerics import as_mask
 
@@ -46,8 +47,6 @@ Tensor = torch.Tensor
 State = Dict[str, Tensor]
 
 _I32_MAX = np.int64(2**31 - 1)
-#: `pend_min` sentinel: no pending match (any real node id is smaller).
-_PEND_MIN_NONE = np.int32(2**31 - 1)
 #: Watermark-column fill when no watermark is threaded: the expiry clock
 #: is max(event ts, watermark), so this floor makes it the event timestamp.
 WM_NONE = np.int32(-(2**31))
@@ -62,11 +61,6 @@ STATE_COUNTER_KEYS = (
 #: The silent-loss counters: zero at the end of a run means no match,
 #: run or node was lost to a fixed capacity.
 DROP_COUNTER_KEYS = ("lane_drops", "node_drops", "match_drops")
-
-#: The ys node planes a GC group's accumulated window carries between the
-#: per-advance append and the group flush.
-WINDOW_PLANES = ("w_event", "w_name", "w_pred")
-
 
 @dataclass(frozen=True)
 class EngineConfig:
@@ -235,20 +229,6 @@ def eval_stateless_preds(query: CompiledQuery, cols: Dict[str, Tensor]) -> Tenso
 
 
 # ---------------------------------------------------------------- helpers
-def _excl_cumsum(mask: Tensor, dim: int = 0) -> Tensor:
-    m = mask.to(torch.int32)
-    return (torch.cumsum(m, dim=dim) - m).to(torch.int32)
-
-
-def _remap(remap_full: Tensor, ids: Tensor) -> Tensor:
-    """Per-key value remap of node ids ([N, K] or [K]; -1 stays -1)."""
-    squeeze = ids.dim() == 1
-    idx = ids.unsqueeze(0) if squeeze else ids
-    got = torch.gather(remap_full, 0, idx.clamp(min=0).long())
-    out = torch.where(idx >= 0, got, torch.full_like(got, -1))
-    return out.squeeze(0) if squeeze else out
-
-
 def compact_valid_front(ids: Tensor) -> Tuple[Tensor, Tensor]:
     """Stably move each key column's valid (>= 0) entries to the front;
     returns (compacted [M, K], per-key counts [K])."""
@@ -344,31 +324,39 @@ def build_gc(query: CompiledQuery, config: EngineConfig):
     stable sweep compaction of (region ++ accumulated window) into B
     slots, remapping lane pointers, node preds, the ring and `pinned`.
 
-    `gc(state, pool, window, page_roots)`: `window` holds the group's
-    node planes as [W, K] (W = steps * P_CAP, t-major) and `page_roots`
-    the appended match pages [TM, K]. Marking runs in two phases as in the
-    JAX engine: the pend-reachable closure (old pins + this group's pages,
-    or the id interval [pend_min, end) under `pin_interval`) becomes the
-    new `pinned`; live-lane chains are kept but not pinned. Both walks are
-    `gc_mark` (ops/gc_kernel.py): the CUDA kernel on the card, which walks
-    to the fixed point without a host read.
+    `gc(state, pool, ys, page_roots)`: `ys` holds the group's node planes
+    as the step writes them, [T, K, cap] (window node id B + t * cap + c
+    is [t, k, c]), and `page_roots` the appended match pages [TM, K].
+    Marking runs in two phases as in the JAX engine: the pend-reachable
+    closure (old pins + this group's pages, or the id interval [pend_min,
+    end) under `pin_interval`) becomes the new `pinned`; live-lane chains
+    are kept but not pinned. Both walks are `gc_mark` (ops/gc_kernel.py)
+    and the compaction with every remap, the ring's included, is
+    `gc_sweep` (ops/gc_sweep.py): CUDA kernels on the card, which run
+    without a host read.
     """
     B = config.nodes
 
-    def gc(state: State, pool: State, window: State, page_roots: Tensor):
-        w_event, w_name, w_pred = (window[k] for k in WINDOW_PLANES)
-        W, K = w_event.shape
+    def t_major(plane: Tensor, out: Tensor) -> None:
+        """Copy a [T, K, cap] plane into `out`, its [T * cap, K] rows."""
+        T, K, cap = plane.shape
+        out.view(T, cap, K).copy_(plane.permute(0, 2, 1))
+
+    def gc(state: State, pool: State, ys: State, page_roots: Tensor):
+        T, K, cap = ys["w_event"].shape
+        W = T * cap
         BW = B + W
-        dev = w_event.device
-        combined_pred = torch.cat([pool["node_pred"], w_pred])
+        dev = ys["w_event"].device
+        combined_pred = torch.empty((BW, K), dtype=torch.int32, device=dev)
+        combined_pred[:B] = pool["node_pred"]
+        t_major(ys["w_pred"], combined_pred[B:])
         lane_roots = torch.where(
             state["active"], state["node"], torch.full_like(state["node"], -1)
         )
         if config.pin_interval:
-            node_valid = torch.cat([
-                pool["node_event"] >= 0, w_event >= 0,
-                torch.zeros((1, K), dtype=torch.bool, device=dev),
-            ])
+            node_valid = torch.zeros((BW + 1, K), dtype=torch.bool, device=dev)
+            node_valid[:B] = pool["node_event"] >= 0
+            t_major(ys["w_event"] >= 0, node_valid[B:BW])
             ids = torch.arange(BW + 1, dtype=torch.int32, device=dev)[:, None]
             marked_pin = (ids >= pool["pend_min"][None, :]) & node_valid
         else:
@@ -378,47 +366,25 @@ def build_gc(query: CompiledQuery, config: EngineConfig):
             ])
             marked_pin = gc_mark(marked0, page_roots, combined_pred)
         marked = gc_mark(marked_pin, lane_roots, combined_pred)
-        marked_pin = marked_pin[:BW]
-        marked = marked[:BW]
-
-        n_keep = marked.sum(dim=0, dtype=torch.int32)
-        rank = _excl_cumsum(marked)
-        keep = marked & (rank < B)
-        remap = torch.where(keep, rank, torch.full_like(rank, -1))
-        remap_full = torch.cat([remap, remap.new_full((1, K), -1)])
-        # The stable sweep: kept nodes land at their rank, in id order.
-        dest = torch.where(keep, rank, torch.full_like(rank, B)).long()
-
-        def sweep(vals: Tensor, fill) -> Tensor:
-            out = torch.full((B + 1, K), fill, dtype=vals.dtype, device=dev)
-            out.scatter_(0, dest, torch.where(keep, vals, torch.full_like(vals, fill)))
-            return out[:B]
-
-        pm = pool["pend_min"]
-        pm_remap = torch.gather(
-            remap_full, 0, pm.clamp(0, BW)[None, :].long()
-        )[0]
-        new_pend_min = torch.where(
-            pm == int(_PEND_MIN_NONE), pm, torch.clamp(pm_remap, min=0)
-        )
+        swept = gc_sweep(marked, marked_pin, state, pool, ys)
         new_pool = {
-            "node_event": sweep(torch.cat([pool["node_event"], w_event]), -1),
-            "node_name": sweep(torch.cat([pool["node_name"], w_name]), -1),
-            "node_pred": sweep(_remap(remap_full, combined_pred), -1),
-            "node_count": torch.clamp(n_keep, max=B),
-            "pend": pool["pend"],  # remapped by the flush
+            "node_event": swept["node_event"],
+            "node_name": swept["node_name"],
+            "node_pred": swept["node_pred"],
+            "node_count": swept["node_count"],
+            "pend": swept["pend"],
             "pend_count": pool["pend_count"],
             "pend_pos": pool["pend_pos"],
-            "pinned": sweep(marked_pin, False),
-            "pend_min": new_pend_min,
+            "pinned": swept["pinned"],
+            "pend_min": swept["pend_min"],
         }
         new_state = {
             **state,
-            "node": _remap(remap_full, state["node"]),
-            "root": _remap(remap_full, state["root"]),
-            "node_drops": state["node_drops"] + torch.clamp(n_keep - B, min=0),
+            "node": swept["node"],
+            "root": swept["root"],
+            "node_drops": swept["node_drops"],
         }
-        return new_state, new_pool, remap_full
+        return new_state, new_pool
 
     return gc
 
@@ -432,15 +398,6 @@ def concat_group_window(
         return group_ys[0], group_roots[0]
     ys_cat = {k: torch.cat([ys[k] for ys in group_ys], dim=0) for k in WINDOW_PLANES}
     return ys_cat, torch.cat(group_roots, dim=0)
-
-
-def window_planes(ys: State) -> State:
-    """[T, K, cap] ys node planes -> the [T * cap, K] t-major window."""
-    out = {}
-    for k in WINDOW_PLANES:
-        T, K, cap = ys[k].shape
-        out[k] = ys[k].permute(0, 2, 1).reshape(T * cap, K)
-    return out
 
 
 def build_append_post(config: EngineConfig):
@@ -460,17 +417,13 @@ def build_append_post(config: EngineConfig):
 
 
 def build_flush_post(query: CompiledQuery, config: EngineConfig):
-    """Group flush: mark/sweep over the accumulated window, ring remap,
-    then reset `gc_phase`. Takes the group's ys planes as [T, K, cap]."""
+    """Group flush: mark/sweep over the accumulated window (the sweep
+    remaps the ring too), then reset `gc_phase`. Takes the group's ys
+    planes as [T, K, cap]."""
     gc = build_gc(query, config)
 
     def flush(state: State, pool: State, ys: State, page_roots: Tensor):
-        state, pool, remap_full = gc(state, pool, window_planes(ys), page_roots)
-        # The ring remap. The JAX engine remaps only the occupied prefix in
-        # 512-row device-loop blocks; rows past every key's cursor hold -1,
-        # which the remap keeps, so one full-width gather gives the same
-        # ring without a host sync.
-        pool = {**pool, "pend": _remap(remap_full, pool["pend"])}
+        state, pool = gc(state, pool, ys, page_roots)
         state = {**state, "gc_phase": torch.zeros_like(state["gc_phase"])}
         return state, pool
 

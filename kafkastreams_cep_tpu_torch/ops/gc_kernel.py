@@ -7,9 +7,10 @@ with a trash row at BW, returned as given. Both walks of the group-flush
 GC (ops/engine.py `build_gc`) run through it: the page-root walk (without
 `pin_interval`) and the lane-root walk.
 
-For tensors on the card it launches the kernel of csrc/gc_mark.cu (one
-warp per key, the key's marks as a bitmap in shared memory, the walk run
-to its fixed point inside the kernel), so the flush issues no host read;
+For tensors on the card it launches the kernel of csrc/gc_mark.cu (the
+seed packed into bit words by a coalesced grid, each key's words walked
+in shared memory to the fixed point, unpacked by a second coalesced
+grid), so the flush issues no host read;
 a failed build or a refused launch raises, nothing falls back. For
 tensors on the CPU it runs `_walk`, the plain version, which the kernel
 is held to bitwise (on the card by chip_smoke.py, on the CPU through the
@@ -70,11 +71,14 @@ def load_library(path: Path) -> ctypes.CDLL:
         lib = _libs.get(str(path))
         if lib is None:
             lib = ctypes.CDLL(str(path))
-            lib.gc_mark_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [
-                ctypes.c_void_p, ctypes.c_void_p]
+            lib.gc_mark_launch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
             lib.gc_mark_launch.restype = ctypes.c_int
-            lib.gc_mark_scratch_words.argtypes = [ctypes.c_int, ctypes.c_int]
-            lib.gc_mark_scratch_words.restype = ctypes.c_longlong
+            for fn, res in (("gc_mark_words", ctypes.c_longlong),
+                            ("gc_mark_smem_bytes", ctypes.c_longlong),
+                            ("gc_mark_keys_per_block", ctypes.c_int)):
+                getattr(lib, fn).argtypes = [ctypes.c_int, ctypes.c_int]
+                getattr(lib, fn).restype = res
             _libs[str(path)] = lib
     return lib
 
@@ -97,21 +101,24 @@ def check_inputs(marked: Tensor, frontier: Tensor, pred: Tensor) -> None:
         raise ValueError("frontier must be [F, K]")
 
 
-def launch(lib: ctypes.CDLL, marked: Tensor, frontier: Tensor, pred: Tensor) -> Tensor:
+def launch(lib: ctypes.CDLL, marked: Tensor, frontier: Tensor, pred: Tensor,
+           keys_per_block: int = 0, global_bitmaps: bool = False) -> Tensor:
     """Run the compiled mark on tensors on the library's device (the card
     for sm_90a builds, the CPU for the emulation build): a new [BW + 1, K]
-    bool tensor. Does not synchronize."""
+    bool tensor. Does not synchronize. `keys_per_block` 0 lets the kernel
+    choose the walk's keys a block from BW and K; `global_bitmaps` walks in
+    place in the packed words even where shared memory would hold them
+    (the tests use both to run every geometry at small shapes)."""
     check_inputs(marked, frontier, pred)
     BW, K = pred.shape
     F = frontier.shape[0]
     out = torch.empty_like(marked)
-    words = int(lib.gc_mark_scratch_words(BW, K))
-    scratch = torch.empty(words, dtype=torch.int32, device=pred.device) if words else None
+    words = torch.empty(lib.gc_mark_words(BW, K), dtype=torch.int32, device=pred.device)
     stream = (torch.cuda.current_stream(pred.device).cuda_stream
               if pred.device.type == "cuda" else 0)
     err = lib.gc_mark_launch(
         marked.data_ptr(), frontier.data_ptr(), pred.data_ptr(), out.data_ptr(), F, BW, K,
-        scratch.data_ptr() if scratch is not None else None, ctypes.c_void_p(stream),
+        keys_per_block, words.data_ptr(), int(global_bitmaps), ctypes.c_void_p(stream),
     )
     if err != 0:
         raise RuntimeError(f"gc_mark kernel launch failed: cudaError {err}")

@@ -8,10 +8,11 @@ A kernel source is compiled at first use, for the card with
 or, with `target="cpu"`, with g++ under csrc/cpu_emu.h (threads for CUDA
 threads, a barrier for __syncthreads), which the tests use to run a
 kernel's own code on the CPU against its plain version. The library lands
-in csrc/_build/ (listed in .gitignore), keyed by a hash of the source and
-the flags, and beside it the compiler's report (ptxas's registers and
-spills). Each library exports plain C functions and is loaded with
-ctypes, so no PyTorch header is compiled. A missing compiler or a failed
+in csrc/_build/ (listed in .gitignore), keyed by a hash of the source, the
+flags and every csrc/ header the source includes, and beside it the
+compiler's report (ptxas's registers and spills). Each library exports
+plain C functions and is loaded with ctypes, so no PyTorch header is
+compiled. A missing compiler or a failed
 build raises RuntimeError. Every compiler run of this process is logged
 in `BUILDS` as (stem, target, seconds); a cache hit runs nothing and logs
 nothing.
@@ -20,6 +21,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -57,16 +59,28 @@ def compiler(target: str) -> Tuple[List[str], Tuple[str, ...]]:
     raise ValueError(f"unknown target {target!r}")
 
 
+def local_headers(src: str, seen: Optional[set] = None) -> List[str]:
+    """The text of every csrc/ header `src` includes (`#include "..."`),
+    and of the headers those include, each once."""
+    seen = set() if seen is None else seen
+    out = []
+    for name in re.findall(r'#include "([^"]+)"', src):
+        path = CSRC / name
+        if name in seen or not path.exists():
+            continue
+        seen.add(name)
+        text = path.read_text()
+        out += [text] + local_headers(text, seen)
+    return out
+
+
 def compile_source(src: str, stem: str, target: str = "sm_90a",
                    build_dir: Optional[Path] = None) -> Path:
     """Compile one complete kernel source; returns the .so path. Cached by
-    a hash of the source and the flags (and of cpu_emu.h for the CPU
-    build); concurrent builders of the same key are safe (atomic
-    rename)."""
+    a hash of the source, the flags and the csrc/ headers it includes;
+    concurrent builders of the same key are safe (atomic rename)."""
     cmd, flags = compiler(target)
-    keyed = src + "\0" + " ".join(flags)
-    if target == "cpu":
-        keyed += (CSRC / "cpu_emu.h").read_text()
+    keyed = "\0".join([src, " ".join(flags)] + local_headers(src))
     key = hashlib.sha256(keyed.encode()).hexdigest()[:20]
     out_dir = Path(build_dir) if build_dir is not None else BUILD_DIR
     out_dir.mkdir(parents=True, exist_ok=True)

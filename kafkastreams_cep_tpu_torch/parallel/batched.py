@@ -147,8 +147,8 @@ from ..ops.engine import (
     drain_pend,
     drain_probe,
     eval_stateless_preds,
-    window_planes,
 )
+from ..ops.gc_sweep import window_planes
 from ..ops.profiling import BatchTimings
 from ..ops.replay import device_to_oracle, oracle_to_device, supports_replay
 from ..ops.runtime import materialize_sequence, rebase_watermarks, sequence_provenance

@@ -15,7 +15,10 @@ plain GC mark; chip_smoke.py runs the kernels):
     (each drain flushes the GC group), on the skip-till-any scenario,
     the fold scenario, tests/test_watermarks.py's skip-till-any pattern
     with a watermark column, and tests/test_torch_replay.py's fold seed
-    72 on one key (its interval replays through the oracle);
+    72 on one key (its interval replays through the oracle); and that
+    skip-till-any pattern deferred (a drain every few advances) at
+    gc_group 3 and 4 under `pin_interval`, once at a lane capacity that
+    drops lanes, state and pool compared at every drain;
   * `snapshot()` bytes equal the JAX engine's after the same events, and
     each package's snapshot restores on the other with equal matches
     after it;
@@ -261,22 +264,29 @@ def _branchy72(m):
 
 
 #: name -> (pattern and events of a package, EngineConfig keywords, batch,
-#: watermark column): the cases held to the JAX DeviceNFA.
+#: watermark column, advances a drain): the cases held to the JAX
+#: DeviceNFA.
 JAX_CASES = {
     "skip_til_any": (lambda m: (SCENARIOS["two_consecutive_skip_til_any_match"][0](m),
                                 _events(m, SCENARIOS["two_consecutive_skip_til_any_match"][1])),
-                     CONFIG, 1, False),
+                     CONFIG, 1, False, 1),
     "stateful_condition": (lambda m: (_stateful(m), _events(m, SCENARIOS["stateful_condition"][1])),
-                           CONFIG, 2, False),
+                           CONFIG, 2, False, 1),
     "watermark_skipany": (lambda m: (_skipany(m), _in_order(m)),
-                          dict(lanes=32, nodes=512, matches=64, strict_windows=True), 12, True),
+                          dict(lanes=32, nodes=512, matches=64, strict_windows=True), 12, True, 1),
     "branchy_seed72": (_branchy72, dict(lanes=256, nodes=4096, matches=2048,
-                                        matches_per_step=256), 5, False),
+                                        matches_per_step=256), 5, False, 1),
+    "skipany_gc_group3_pin": (lambda m: (_skipany(m), _in_order(m)),
+                              dict(lanes=32, nodes=512, matches=64, strict_windows=True,
+                                   gc_group=3, pin_interval=True), 6, False, 4),
+    "skipany_gc_group4_lane_drops": (lambda m: (_skipany(m), _in_order(m)),
+                                     dict(lanes=10, nodes=512, matches=64, strict_windows=True,
+                                          gc_group=4, pin_interval=True), 6, False, 3),
 }
 
 
 def _jax_pair(name):
-    make, cfg, bs, wm = JAX_CASES[name]
+    make, cfg, bs, wm, _drain_every = JAX_CASES[name]
     pj, ej = make(J)
     pp, ep = make(P)
     dj = JaxDeviceNFA(J.compile_pattern(pj), config=JaxEngineConfig(**cfg))
@@ -292,25 +302,31 @@ def _same_state(dj, dp):
         assert not bad, bad
 
 
-def _advance_both(dj, dp, ej, ep, i, bs, wm):
+def _advance_both(dj, dp, ej, ep, i, bs, wm, decode=True):
     cj, cp = ej[i:i + bs], ep[i:i + bs]
     wj = [e.timestamp for e in cj] if wm else None
-    mj = [jax_json(s) for s in dj.advance(cj, watermark_ms=wj)]
-    mp = [P.sequence_to_json(s) for s in dp.advance(cp, watermark_ms=wj)]
+    mj = [jax_json(s) for s in dj.advance(cj, decode=decode, watermark_ms=wj)]
+    mp = [P.sequence_to_json(s) for s in dp.advance(cp, decode=decode, watermark_ms=wj)]
     return mj, mp
 
 
 @pytest.mark.parametrize("name", sorted(JAX_CASES))
 def test_equals_the_jax_device_nfa_state_for_state(name):
     dj, dp, ej, ep, bs, wm = _jax_pair(name)
+    drain_every = JAX_CASES[name][4]
     assert dp.exact_replay == dj.exact_replay
     total = 0
-    for i in range(0, len(ej), bs):
-        mj, mp = _advance_both(dj, dp, ej, ep, i, bs, wm)
+    starts = range(0, len(ej), bs)
+    for n, i in enumerate(starts):
+        drained = (n + 1) % drain_every == 0 or i == starts[-1]
+        mj, mp = _advance_both(dj, dp, ej, ep, i, bs, wm, decode=drained)
         assert mp == mj, f"{name} events {i}:"
         total += len(mj)
-        _same_state(dj, dp)  # each drain flushed the group
+        if drained:
+            _same_state(dj, dp)  # each drain flushed the group
     assert total > 0
+    if name.endswith("lane_drops"):
+        assert dp.stats["lane_drops"] > 0
     assert dp.runs == dj.runs and dp.n_live == dj.n_live and dp.stats == dj.stats
     assert dp.replays == dj.replays
     if name == "branchy_seed72":

@@ -10,8 +10,13 @@ bitwise to `_walk` (ops/gc_kernel.py), every row of the [BW + 1, K] mark:
     hops): page walks from a pinned closure, lane walks seeded with a page
     walk's result, interval seeds as `pin_interval` builds them, a
     frontier of holes only, chains that run into marked nodes, frontiers
-    wider than one warp, key counts off the kernel's 16-key block, and a
-    node region too large for shared memory (the global-scratch path);
+    wider than one warp, key counts off the walk block's key count (at the
+    geometry the launch picks and at 32, 16, 4 and 2 keys a block, and one
+    key: the whole block on it), K a multiple of 4 (the pack and unpack
+    take 4 keys a thread) and not, the walk in place in the global words,
+    the wide stack's BW = 131,072 (and 90,000) in shared memory, and a
+    node region too large for one block's shared memory (the walk in the
+    global words);
   * every mark of real group flushes: the stock fold case (page and lane
     walks) and the flagship skip_any8 deployment cut to 8 keys
     (`pin_interval`, lane walks only), recorded from plain engine runs.
@@ -82,10 +87,10 @@ def _closed_seed(rng, pred, n_roots):
     return seed
 
 
-def _same(lib, seed, frontier, pred, label):
+def _same(lib, seed, frontier, pred, label, **geometry):
     m, f, p = (torch.from_numpy(np.ascontiguousarray(a)) for a in (seed, frontier, pred))
     want = gk._walk(m, f, p)
-    got = gk.launch(lib, m, f, p)
+    got = gk.launch(lib, m, f, p, **geometry)
     assert got.dtype == torch.bool and got.shape == want.shape, label
     bad = (got != want).nonzero()
     assert bad.numel() == 0, f"{label}: {bad.shape[0]} marks differ, first at {bad[:4].tolist()}"
@@ -102,6 +107,12 @@ def test_random_page_and_lane_walks(cpu_lib, seed_no):
     marked_pin = _same(cpu_lib, pinned, page, pred, f"page walk {seed_no}")
     lanes = _frontier(rng, 40, BW, K, holes=0.3)
     _same(cpu_lib, marked_pin.numpy(), lanes, pred, f"lane walk {seed_no}")
+    # The card's geometries at this K: more keys a block, global bitmaps,
+    # and one key alone (the K = 1 launch of DeviceNFA).
+    kpb = (32, 4, 2, 16)[seed_no]
+    _same(cpu_lib, marked_pin.numpy(), lanes, pred, f"lane walk {seed_no}, {kpb} keys a block",
+          keys_per_block=kpb, global_bitmaps=seed_no % 2 == 1)
+    _same(cpu_lib, pinned[:, :1], page[:, :1], pred[:, :1], f"page walk {seed_no}, K = 1")
 
 
 def test_interval_seed_holes_and_meeting_chains(cpu_lib):
@@ -132,16 +143,47 @@ def test_interval_seed_holes_and_meeting_chains(cpu_lib):
     assert bool(out[120:top + 1].all()) and not bool(out[:100].any())
 
 
-def test_region_past_shared_memory_uses_the_scratch(cpu_lib):
-    rng = random.Random(11)
-    BW, K = 90_000, 3
-    assert int(cpu_lib.gc_mark_scratch_words(BW, K)) > 0
-    assert int(cpu_lib.gc_mark_scratch_words(16_384, K)) == 0
+def _broken_chain(rng, BW, K, breaks):
     pred = np.full((BW, K), -1, np.int32)
     pred[1:] = np.arange(BW - 1, dtype=np.int32)[:, None]
-    pred[rng.sample(range(BW), 2000)] = -1
+    pred[rng.sample(range(BW), breaks)] = -1
+    return pred
+
+
+#: The largest BW whose bitmap (one key) fits a block's 227 KB.
+SMEM_ROWS = 227 * 1024 * 8
+
+
+def test_region_past_shared_memory_uses_the_scratch(cpu_lib):
+    rng = random.Random(11)
+    BW, K = SMEM_ROWS + 40_416, 2
+    # Past one key's shared memory the walk runs in place in the global
+    # words; below it, in shared memory.
+    assert int(cpu_lib.gc_mark_smem_bytes(BW, K)) == 0
+    assert int(cpu_lib.gc_mark_smem_bytes(SMEM_ROWS, K)) == SMEM_ROWS // 8
+    assert int(cpu_lib.gc_mark_smem_bytes(16_384, K)) > 0
+    assert int(cpu_lib.gc_mark_words(BW, K)) == -(-BW // 32) * K
+    pred = _broken_chain(rng, BW, K, 20_000)
     seed = np.zeros((BW + 1, K), bool)
     _same(cpu_lib, seed, _frontier(rng, 50, BW, K, holes=0.5), pred, "global scratch")
+
+
+@pytest.mark.parametrize("BW", [90_000, 131_072])
+def test_wide_regions_keep_their_bitmaps_in_shared_memory(cpu_lib, BW):
+    """The wide stack's BW (65,536 nodes + its 65,536-row window) and the
+    BW the global-scratch branch used to start below: bitmaps in shared
+    memory at the wide stack's K = 512, and held to `_walk` at that
+    launch's keys a block."""
+    rng = random.Random(11)
+    K = 3
+    kpb = int(cpu_lib.gc_mark_keys_per_block(BW, 512))
+    smem = int(cpu_lib.gc_mark_smem_bytes(BW, 512))
+    assert 0 < smem <= 227 * 1024 and smem == kpb * ((BW + 31) // 32) * 4
+    assert -(-512 // kpb) >= 64  # blocks enough for half the SMs at least
+    pred = _broken_chain(rng, BW, K, 2000)
+    seed = np.zeros((BW + 1, K), bool)
+    _same(cpu_lib, seed, _frontier(rng, 50, BW, K, holes=0.5), pred, f"shared, BW {BW}",
+          keys_per_block=kpb)
 
 
 def _recorded_marks(monkeypatch, make_engine, batches):

@@ -16,7 +16,10 @@ over stacked and wide tables is tests/test_torch_step.py's):
     `StackedQueryEngine(engine="xla")` per key, per query and in order,
     with state and pool bitwise equal after every advance (gc_group 1:
     each advance ends in a group flush), and equals the port's own
-    independent engines, one per query;
+    independent engines, one per query; and, deferred with a drain every
+    third batch at gc_group 2 and 4 under `pin_interval` (group flushes of
+    several windows through the GC kernels' plain versions), the same
+    matches at every drain and the same snapshot bytes;
   * query attribution: the native decoder and the Python walk give the
     same (qid, Sequence) pairs, provenance names a match by its query,
     and the JSON sink, the mesh and other drain modes are refused;
@@ -166,6 +169,26 @@ def test_stacked_engine_equals_jax_and_independent_engines(name):
                 alone.setdefault((k, qname), []).extend(P.sequence_to_json(s) for s in seqs)
         for k in keys:
             assert got.get((k, qname), []) == alone.get((k, qname), []), f"{qname}/{k}"
+
+
+@pytest.mark.parametrize("gc_group", [2, 4])
+def test_stacked_engine_deferred_group_flushes_equal_jax(gc_group):
+    make, keys, _n, _b, _seed, cfg, _ = WORKLOADS["letters"]
+    cfg = dict(cfg, gc_group=gc_group, pin_interval=True)
+    port = StackedQueryEngine(make(P), keys=keys, config=P.EngineConfig(**cfg), device="cpu")
+    jax_eng = JaxStacked(make(J), keys=keys, config=JaxEngineConfig(**cfg), engine="xla")
+    got, want = {}, {}
+    batches = list(zip(_batches("letters", P), _batches("letters", J)))
+    for b, (chunk_p, chunk_j) in enumerate(batches):
+        assert not port.advance_packed(port.pack(chunk_p), decode=False)
+        jax_eng.advance_packed(jax_eng.pack(chunk_j), decode=False)
+        if b % 3 == 2 or b == len(batches) - 1:
+            _collect(got, port.drain(), P.sequence_to_json)
+            _collect(want, jax_eng.drain(), jax_json)
+            assert got == want, f"gc_group {gc_group} drain after batch {b}: matches differ"
+            assert port.snapshot() == jax_eng.snapshot(), f"gc_group {gc_group} batch {b}"
+    assert sum(len(v) for v in got.values()) > 0 and port.engine.flushes > 0
+    assert all(port.stats[k] == 0 for k in ("lane_drops", "node_drops", "match_drops"))
 
 
 def test_query_attribution_native_equals_python_and_names_provenance():
