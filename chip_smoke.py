@@ -6,7 +6,7 @@
 Builds the step kernel from csrc/ with nvcc (one build per compiled query
 and capacity, the flagship's grown shape, phase 18's arm shape, the
 fold query of phase 13 and the stacked and single queries of phases
-20-21 included; the event-time phases and phase 22 reuse the
+20-21 included; the event-time phases and phases 22-23 reuse the
 flagship's build, and the shapes phase 18's autosizer grows to build
 inside that phase, timed), the group flush's GC mark and sweep kernels
 (csrc/gc_mark.cu and csrc/gc_sweep.cu, one build each) and the native
@@ -198,17 +198,36 @@ then:
      the kernel bitwise to the plain step on batch 3; prints ptxas's
      registers and spills for that build, the kernel's time and bound;
  22. `DeviceNFA` on the flagship stream, one key, T = 256 x 12 batches
-     (bench.py:400-440's shape), each advance drained: events/s; the
+     (bench.py:400-440's shape), each advance drained through its pool
+     route (one host copy of the ring and the node planes, the native
+     `decode_matches`, whose calls are counted): events/s; the
      matches, `runs` and live runs equal the host oracle's (nfa/), the
      matches, state and pool equal a plain-step `DeviceNFA` on the card;
      a snapshot after batch 6 restored into a fresh engine gives the same
      later matches and final state; the kernel at K = 1 timed against the
      plain step on batch 7; the stock golden through a `DeviceNFA` (4
      matches);
- 23. prints the kernel line (with the `wm`, `auto`, `controllers`,
+ 23. the pool drain at the flagship: the deployment of phase 4 through
+     `BatchedDeviceNFA(engine="cuda", drain_mode="pool")`, 2 warm + 4
+     timed batches, each drained. Checks: the matches per key equal phase
+     4's for the same batches, drops 0, gc_mark launched once a flush
+     walk plus once a drain (the closure walk of `drain_compact`, counted
+     apart), gc_sweep once a flush; on the first timed drain's pool the
+     drain's gc_mark launch is bitwise `_walk`'s and `drain_compact`'s
+     (pend_r, nodes3, pcount) with the kernel equal the same with
+     `_walk`. Prints the ms a drain and the bytes pulled, that drain's
+     probe, walk (CUDA events, beside its byte bound), compaction, host
+     copy and decode, beside phase 4's flat drain. Then config 4's
+     stacked engine, pool against flat over 2 batches: equal (qid,
+     Sequence) pairs; and one flagship flat table through the native
+     `decode_matches_arrow` and `decode_matches_json` (no pyarrow on the
+     card): equal idents, Arrow rows == events. Prints the phase's
+     seconds;
+ 24. prints the kernel line (with the `wm`, `auto`, `controllers`,
      `paced_driver`, `config4_stacked`, `wide_stack` and `single_key`
      runs' numbers under nfa_step, gc_mark and gc_sweep, the grown
-     shapes' times and bounds among them), the card line, and last the ok
+     shapes' times and bounds among them, and the pool drain's walk as
+     gc_mark's `pool_drain` call site), the card line, and last the ok
      line.
 
 Phases 20-22 each also hold both GC kernels to their plain versions on
@@ -235,9 +254,12 @@ from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
 from pathlib import Path
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
+#: Phase 23's flagship batches through the pool drain (2 warm, 4 timed).
+POOL_WARM, POOL_BATCHES = 2, 6
 
 
 def log(msg: str) -> None:
@@ -361,6 +383,7 @@ def main() -> int:
     from kafkastreams_cep_tpu_torch.ops import step_kernel as sk
     from kafkastreams_cep_tpu_torch.ops.engine import DROP_COUNTER_KEYS
     from kafkastreams_cep_tpu_torch.ops.step import build_plain_step
+    from kafkastreams_cep_tpu_torch.parallel.batched import pow2_at_least
     from kafkastreams_cep_tpu_torch.streams.emission import decode_sink_key
 
     dev = torch.device("cuda")
@@ -610,6 +633,7 @@ def main() -> int:
                                          engine=engine, native=False)
         decode_checks, excluded = [0], [0.0]
         matches, lanes_peak, nodes_peak, live_ends, last = {}, 0, 0, [], None
+        lens = []  # matches per key after each batch
         pack_s = adv_s = drain_s = 0.0
         # Per-phase host walls (each phase ends in a synchronize), summed
         # over the timed batches.
@@ -689,6 +713,7 @@ def main() -> int:
                         py_pack = None
                 for key, seqs in out.items():
                     matches.setdefault(key, []).extend(P.sequence_to_json(s) for s in seqs)
+                lens.append({key: len(v) for key, v in matches.items()})
                 live_ends.append(eng.state["active"].sum(0))
                 lanes_peak = max(lanes_peak, int(live_ends[-1].max()))
                 nodes_peak = max(nodes_peak, int(eng.pool["node_count"].max()))
@@ -700,7 +725,7 @@ def main() -> int:
                     pack_s=pack_s, launches=launches, gc_launches=gc_launches,
                     sweep_launches=sweep_launches, lanes_peak=lanes_peak,
                     nodes_peak=nodes_peak, phases=phases, live_ends=torch.cat(live_ends),
-                    last=last, gc=gc_clock)
+                    last=last, gc=gc_clock, lens=lens)
 
     torch.cuda.reset_peak_memory_stats()
     run = flagship_run("cuda", check_host=True)
@@ -759,9 +784,12 @@ def main() -> int:
     last_ms = cuda_ms(lambda: sk.call(lib, ptrs, T_, K_, dev), reps=20)
     log(f"nfa_step at K={K} T={T}, last ({n_batches}th) batch: kernel {last_ms:.4f} ms")
     del run["last"], _s, _y, _keep, eng
-    # Phase 4's matches: the reference of phases 8-10.
+    # Phase 4's matches: the reference of phases 8-10; those of its first
+    # POOL_BATCHES batches, phase 23's.
     engine_matches = run.pop("matches")
     del run["eng"]
+    pool_ref = {k: v[:n] for k, v in engine_matches.items()
+                if (n := run["lens"][POOL_BATCHES - 1].get(k, 0))}
 
     # -- 5. the flagship through the runtime="cuda" topology ------------------
     def topology_run(sink_format: str):
@@ -2373,8 +2401,20 @@ def main() -> int:
             out += [P.sequence_to_json(s) for s in dn.advance(c)]
         return out
 
+    class CountingDecoder:
+        """The native decoder, counting DeviceNFA's pool decodes; it has
+        no flat entry point, so a flat drain would raise."""
+
+        def __init__(self):
+            self.calls = 0
+
+        def decode_matches(self, *args):
+            self.calls += 1
+            return native.load_decoder().decode_matches(*args)
+
     sk.NfaStep.launches = gk.GcMark.launches = gs.GcSweep.launches = 0
     dn = P.DeviceNFA(flag_q, config=flag_cfg, device=dev, engine="cuda")
+    dn._decoder = single_decoder = CountingDecoder()
     single_flush, single_fl_in = watch_flushes(dn, (7,))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2390,6 +2430,9 @@ def main() -> int:
     want = [P.sequence_to_json(s) for e in single_stream for s in oracle.match_pattern(e)]
     if single_got != want or not want:
         raise AssertionError(f"DeviceNFA: {len(single_got)} matches, the oracle {len(want)}")
+    if not 0 < single_decoder.calls <= single_batches:
+        raise AssertionError(f"DeviceNFA: {single_decoder.calls} decode_matches calls for "
+                             f"{single_batches} drains")
     if dn.runs != oracle.runs or dn.n_live != len(oracle.computation_stages):
         raise AssertionError("DeviceNFA: runs or live runs differ from the oracle's")
     # The GC kernels run on the card whatever the step engine is, so the
@@ -2422,9 +2465,11 @@ def main() -> int:
         gold_out += gold.match_pattern(P.Event("K1", e, i, "t", 0, i))
     if [P.sequence_to_json(s) for s in gold_out] != GOLDEN_MATCHES:
         raise AssertionError("DeviceNFA: the stock golden differs")
+    single_eps = len(single_stream) / single_s
     log(f"DeviceNFA (flagship pattern, one key, T={single_T} x {single_batches}): "
-        f"{len(single_stream) / single_s:.0f} events/s (pack, step, post and a drain per "
-        f"advance); {len(single_got)} matches == the host oracle's (runs {dn.runs}, "
+        f"{single_eps:.0f} events/s (pack, step, post and a pool drain per advance: "
+        f"{single_decoder.calls} decode_matches calls, each on one host copy of the ring and "
+        f"the three node planes, {3 * flag_cfg.nodes * 4} B of planes); {len(single_got)} matches == the host oracle's (runs {dn.runs}, "
         f"{dn.n_live} live) == a plain-step DeviceNFA's, state and pool bitwise; snapshot after "
         f"batch {half} ({len(blob)} B) restored: matches and final state equal; kernel at "
         f"K=1 {single_point['ms']:.4f} ms vs plain {single_point['plain_ms']:.3f} ms, bound "
@@ -2435,7 +2480,216 @@ def main() -> int:
         f"there, {single_sweep['ms']:.4f} ms, bound {single_sweep['bound_ms']:.5f} ms)")
     del dn, plain_dn, first, second, probe, gold, oracle
 
-    # -- 23. the kernel line, the card line, the ok line ----------------------
+    # -- 23. the pool drain at the flagship ----------------------------------
+    # BatchedDeviceNFA(drain_mode="pool"): each drain reads the [2, K]
+    # probe, marks the pend-reachable closure with gc_mark (the drain's own
+    # launch, apart from the flushes' walks), compacts it to rank space and
+    # copies the ring and the closure's planes to the host once.
+    t_pool = time.perf_counter()
+    pool_keys = [f"k{i}" for i in range(K)]
+    pool_streams = flagship_streams(pool_keys)
+    sk.NfaStep.launches = gk.GcMark.launches = gs.GcSweep.launches = 0
+    peng = P.BatchedDeviceNFA(flag_q, keys=pool_keys, config=flag_cfg, device=dev,
+                              engine="cuda", drain_mode="pool")
+    real_compact, compacts, pool_in = peng._drain_compact, [0], {}
+
+    def counted_compact(pool, maxpos):
+        compacts[0] += 1
+        if compacts[0] == POOL_WARM + 1:  # the first timed drain's inputs
+            # The registry by reference: later drains prune into a new dict.
+            pool_in.update(pool=pool, maxpos=maxpos, events=peng._events)
+        return real_compact(pool, maxpos)
+
+    peng._drain_compact = counted_compact
+    pool_got, pool_drain_s, pool_bytes = {}, 0.0, []
+    real_pull = peng._pull_raw_pool
+
+    def measured_pull():
+        raw = real_pull()
+        if raw is not None:
+            pool_bytes.append(raw["bytes"])
+        return raw
+
+    peng._pull_raw_pool = measured_pull
+    for b in range(POOL_BATCHES):
+        peng.advance_packed(peng.pack({k: st[b * T:(b + 1) * T] for k, st in pool_streams.items()}),
+                            decode=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = peng.drain()
+        if b >= POOL_WARM:
+            pool_drain_s += time.perf_counter() - t0
+        for key, seqs in out.items():
+            pool_got.setdefault(key, []).extend(P.sequence_to_json(x) for x in seqs)
+    pool_launches = launched("pool drain", sk.NfaStep.launches)
+    pool_gc_launches = launched("pool drain (gc_mark)", gk.GcMark.launches)
+    pool_sweep_launches = launched("pool drain (gc_sweep)", gs.GcSweep.launches)
+    no_drops("pool drain", peng)
+    if pool_got != pool_ref:
+        bad = [k for k in set(pool_got) | set(pool_ref) if pool_got.get(k) != pool_ref.get(k)]
+        raise AssertionError(f"pool drain: matches differ from phase 4's on {len(bad)} keys")
+    # pin_interval: one walk (the lane walk) a flush, plus the drain's own.
+    walks_per_flush = 1 if flag_cfg.pin_interval else 2
+    if (pool_launches != POOL_BATCHES or pool_sweep_launches != peng.flushes
+            or pool_gc_launches != walks_per_flush * peng.flushes + compacts[0]
+            or compacts[0] != POOL_BATCHES):
+        raise AssertionError(
+            f"pool drain: nfa_step {pool_launches}, gc_mark {pool_gc_launches}, gc_sweep "
+            f"{pool_sweep_launches} launches for {POOL_BATCHES} advances, {peng.flushes} "
+            f"flushes and {compacts[0]} compacted drains")
+    # The captured drain: its gc_mark launch == _walk on the same card
+    # tensors, and drain_compact with the kernel == with _walk.
+    ppool, maxpos = pool_in["pool"], pool_in["maxpos"]
+    pred = ppool["node_pred"]
+    B_, K_ = pred.shape
+    seed = torch.zeros((B_ + 1, K_), dtype=torch.bool, device=dev)
+    frontier = ppool["pend"][:maxpos].contiguous()
+    got_mark = gk.launch(gc_lib, seed, frontier, pred)
+    want_mark = gk._walk(seed, frontier, pred)
+    torch.cuda.synchronize()
+    if not torch.equal(got_mark, want_mark):
+        raise AssertionError(f"pool drain: gc_mark != _walk ({int((got_mark != want_mark).sum())} "
+                             "marks differ)")
+    drain_mark_err = float((got_mark.int() - want_mark.int()).abs().max())
+    newly = int(got_mark[:B_].sum())
+    mark_bytes = 2 * seed.numel() + frontier.numel() * 4 + newly * 4
+    walk_ms = cuda_ms(lambda: gk.launch(gc_lib, seed, frontier, pred), reps=20)
+    walk_plain_ms = cuda_ms(lambda: gk._walk(seed, frontier, pred), reps=2)
+    with_kernel = engine_mod.drain_compact(ppool, maxpos)
+    engine_mod.gc_mark = gk._walk
+    try:
+        with_walk = engine_mod.drain_compact(ppool, maxpos)
+        compact_plain_ms = cuda_ms(lambda: engine_mod.drain_compact(ppool, maxpos), reps=2)
+    finally:
+        engine_mod.gc_mark = gk.gc_mark
+    torch.cuda.synchronize()
+    if any(a.dtype != b_.dtype or not torch.equal(a, b_) for a, b_ in zip(with_kernel, with_walk)):
+        raise AssertionError("pool drain: drain_compact with gc_mark != with _walk")
+    compact_ms = cuda_ms(lambda: engine_mod.drain_compact(ppool, maxpos), reps=10)
+    # The drain's other parts on the same pool, host walls over a few reps.
+    def host_wall(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    probe_ms = host_wall(lambda: torch.stack([ppool["pend_count"], ppool["pend_pos"]]).cpu())
+    pend_r, nodes3, pcount = with_kernel
+    counts_np = ppool["pend_count"].cpu().numpy()
+    Bb = pow2_at_least(int(pcount.max()), B_)
+    Mb = pow2_at_least(int(counts_np.max()), ppool["pend"].shape[0])
+    front_ms = cuda_ms(lambda: engine_mod.compact_valid_front(pend_r), reps=10)
+    compacted, _ = engine_mod.compact_valid_front(pend_r)
+    copy_ms = host_wall(lambda: (int(pcount.max()), nodes3[:, :Bb].cpu(), compacted[:Mb].cpu()))
+    pulled = nodes3[:, :Bb].cpu().numpy()
+    pend_np = compacted[:Mb].cpu().numpy()
+    raw = {"counts": counts_np, "pend": pend_np.T, "node_event": pulled[0].T,
+           "node_name": pulled[1].T, "node_pred": pulled[2].T}
+    t0 = time.perf_counter()
+    decoded = peng._decode_pool_raw(raw, events=pool_in["events"])
+    decode_ms = (time.perf_counter() - t0) * 1e3
+    if sum(map(len, decoded.values())) == 0:
+        raise AssertionError("pool drain: the captured drain decoded no match")
+    flat_ms = run["phases"]["probe+flatten+D2H"] / n_timed * 1e3
+    flat_decode_ms = run["phases"]["decode"] / n_timed * 1e3
+    pool_row = dict(
+        call_site="kafkastreams_cep_tpu_torch/ops/engine.py drain_compact",
+        launches=compacts[0], max_abs_err=drain_mark_err, ms=walk_ms, plain_ms=walk_plain_ms,
+        bound_ms=mark_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None,
+        BW=B_, F=int(frontier.shape[0]), K=K_, newly=newly, bytes=mark_bytes,
+        bitmaps="shared" if gc_lib.gc_mark_smem_bytes(B_, K_) else "global")
+    log(f"pool drain at the flagship (K={K}, T={T}, {POOL_WARM} warm + "
+        f"{POOL_BATCHES - POOL_WARM} timed batches, each drained): matches per key == phase "
+        f"4's first {POOL_BATCHES} batches ({sum(map(len, pool_got.values()))}), drops 0; "
+        f"{pool_drain_s / (POOL_BATCHES - POOL_WARM) * 1e3:.2f} ms a drain (the pull "
+        f"synchronous, the decode on the worker), bytes pulled a drain "
+        f"{pool_bytes[POOL_WARM:]}; nfa_step {pool_launches}, gc_mark {pool_gc_launches} "
+        f"({walks_per_flush * peng.flushes} flush walks + {compacts[0]} drain walks), "
+        f"gc_sweep {pool_sweep_launches}")
+    log(f"pool drain, the first timed drain's parts (F={frontier.shape[0]} ring rows, B={B_}, "
+        f"{newly} nodes in the closure, Bb={Bb}, Mb={Mb}): probe {probe_ms:.3f} ms, walk "
+        f"(gc_mark, CUDA events) {walk_ms:.4f} ms (plain walk {walk_plain_ms:.3f} ms; bytes "
+        f"{mark_bytes} -> bound {pool_row['bound_ms']:.4f} ms, {pool_row['bitmaps']}-memory "
+        f"bitmaps), drain_compact with the walk {compact_ms:.3f} ms (compaction "
+        f"{compact_ms - walk_ms:.3f} ms; with _walk {compact_plain_ms:.3f} ms), "
+        f"compact_valid_front {front_ms:.3f} ms, host copy {copy_ms:.3f} ms "
+        f"({pulled.nbytes + pend_np.nbytes} B), decode {decode_ms:.2f} ms; gc_mark == _walk "
+        f"bitwise, drain_compact with the kernel == with _walk; phase 4's flat drain: "
+        f"probe+flatten+D2H {flat_ms:.2f} ms, decode {flat_decode_ms:.2f} ms a batch")
+    del peng, pool_in, ppool, with_kernel, with_walk, pend_r, nodes3, compacted, pool_streams
+    # Config 4's stacked engine, pool against flat over 2 batches: the same
+    # (qid, Sequence) pairs per key and query.
+    rng = random.Random(13)
+    c4_two = {k: cases_models.letters_stream(rng, c4_T * n_batches)[:2 * c4_T] for k in c4_keys}
+    c4_pair = {}
+    for mode in ("pool", "flat"):
+        sk.NfaStep.launches = gk.GcMark.launches = 0
+        eng4 = P.StackedQueryEngine(stacked_models.letter_queries(), keys=c4_keys, config=c4_cfg,
+                                    device=dev, engine="cuda", drain_mode=mode)
+        got4 = {}
+        for b in range(2):
+            per_query(got4, eng4.advance({k: st[b * c4_T:(b + 1) * c4_T]
+                                          for k, st in c4_two.items()}))
+        c4_pair[mode] = (got4, launched(f"config 4 {mode} (nfa_step)", sk.NfaStep.launches),
+                         launched(f"config 4 {mode} (gc_mark)", gk.GcMark.launches),
+                         eng4.engine.stats)
+        del eng4
+    if c4_pair["pool"][0] != c4_pair["flat"][0] or not c4_pair["pool"][0]:
+        raise AssertionError("config 4: the pool drain's (qid, Sequence) pairs differ from "
+                             "the flat drain's")
+    log(f"pool drain, config 4 stacked ({len(c4_keys)} keys, 2 batches of T={c4_T}): "
+        f"{sum(map(len, c4_pair['pool'][0].values()))} (qid, Sequence) matches == the flat "
+        f"drain's per key and query; gc_mark launches {c4_pair['pool'][2]} pool, "
+        f"{c4_pair['flat'][2]} flat; drops "
+        f"{ {k: c4_pair['pool'][3][k] for k in DROP_COUNTER_KEYS} }")
+    # The Arrow decode needs no pyarrow: one flagship flat table through
+    # the native decode_matches_arrow and decode_matches_json.
+    feng = P.BatchedDeviceNFA(flag_q, keys=pool_keys, config=flag_cfg, device=dev,
+                              engine="cuda")
+    fstreams = flagship_streams(pool_keys)
+    feng.advance_packed(feng.pack({k: st[:T] for k, st in fstreams.items()}), decode=False)
+    fraw = feng._pull_raw("drain")
+    if fraw["event"] is not None:
+        fraw["event"].synchronize()
+    ftable = fraw["table"]
+    ftable = ftable.numpy() if isinstance(ftable, torch.Tensor) else ftable
+    fplanes = [np.moveaxis(ftable[i], -1, 0) for i in range(3)]
+    fcounts = np.ascontiguousarray(fraw["counts"], np.int32)
+    dec = native.load_decoder()
+    from kafkastreams_cep_tpu_torch.core.sequence import Sequence as Seq_, Staged as Staged_
+    from kafkastreams_cep_tpu_torch.streams.serde import json_fragment
+
+    dec_args = (fcounts, *fplanes, flag_q.name_of_id, feng._events, Staged_, Seq_, json_fragment)
+    t0 = time.perf_counter()
+    by_json = dec.decode_matches_json(*dec_args)
+    json_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    by_arrow = dec.decode_matches_arrow(*dec_args)
+    arrow_ms = (time.perf_counter() - t0) * 1e3
+    n_arrow = 0
+    for k, (js, ars) in enumerate(zip(by_json, by_arrow)):
+        if len(js) != len(ars):
+            raise AssertionError(f"arrow decode: key {k} has {len(ars)} matches, json {len(js)}")
+        for (payload, ident, _last), (so, sd, vo, vd, rows, a_ident, _a_last) in zip(js, ars):
+            n_events = sum(len(g["events"]) for g in json.loads(payload)["events"])
+            if a_ident != ident or rows != n_events or len(so) != 4 * (rows + 1):
+                raise AssertionError(f"arrow decode: key {k}: ident or row count differs")
+            n_arrow += 1
+    if n_arrow == 0:
+        raise AssertionError("arrow decode: no matches")
+    log(f"Arrow decode of a flagship flat table (batch 1, no pyarrow on this machine): "
+        f"{n_arrow} matches, every ident == the JSON decode's, rows == events; native "
+        f"decode_matches_arrow {arrow_ms:.2f} ms, decode_matches_json {json_ms:.2f} ms")
+    del feng, fraw, ftable, fplanes
+    pool_phase_s = time.perf_counter() - t_pool
+    log(f"pool drain phase: {pool_phase_s:.1f}s")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 24. the kernel line, the card line, the ok line ----------------------
     log(f"chip_smoke ran {time.perf_counter() - T_START:.1f}s")
     kernels = [{
         "name": "nfa_step",
@@ -2489,6 +2743,7 @@ def main() -> int:
         "wide_stack": {"launches": wide_gc_launches, "library_ms": None, **wide_marks[-1]},
         "single_key": {"launches": single_gc_launches, "library_ms": None,
                        **single_marks[-1]},
+        "pool_drain": pool_row,
     }, {
         "name": "gc_sweep",
         "route": "cuda",

@@ -52,6 +52,14 @@ HOT_PATHS: Dict[str, Tuple[str, ...]] = {
         "BatchedDeviceNFA._profile_mark",
         "BatchedDeviceNFA._read_profiles",
     ),
+    # The single-key engine's advance with decode=False (its drain is the
+    # sync point): the pack, the step, the append and the group flush.
+    "ops/device_nfa.py": (
+        "DeviceNFA.advance",
+        "DeviceNFA._pack",
+        "DeviceNFA._ledger_append",
+        "DeviceNFA._flush_group",
+    ),
     "parallel/key_shard.py": ("build_batched_advance",),
     "ops/engine.py": ("build_append_post", "build_flush_post"),
     "ops/step_kernel.py": ("NfaStep.__call__",),

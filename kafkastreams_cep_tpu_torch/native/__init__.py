@@ -5,9 +5,11 @@ Three CPython extensions. Two are copied from the JAX package's native
 layer: `packer.cc` packs per-key Event lists into [T, K] columns in one C
 call per batch (field extraction, string tokens, topic ids, timestamp
 rebase, validity, global event ids and the event registry); `decoder.cc`
-turns the drain's chain-flatten table into `Sequence` objects
-(`decode_matches_flat`) or straight into JSON sink bytes
-(`decode_matches_json`) in one C call per drain. The third, `crc32c.cc`,
+turns the flat drain's chain-flatten table into `Sequence` objects
+(`decode_matches_flat`) or straight into JSON or Arrow sink bytes
+(`decode_matches_json`, `decode_matches_arrow`), and the pool drain's
+ring and node planes into `Sequence` objects (`decode_matches`), in one
+C call per drain. The third, `crc32c.cc`,
 is the CRC-32C that seals checkpoint frames (state/serde.py), with the
 SSE4.2 `crc32` instruction on x86-64 -- where the JAX package uses the
 optional `google_crc32c` package.

@@ -1,15 +1,19 @@
-// Native match decoder: the drain's chain-flatten table -> matches.
+// Native match decoder: a drain's pulled tables -> matches.
 //
-// A copy of the JAX package's native/decoder.cc, cut to the flat drain the
-// port runs. The device walks every pending match chain into a dense
-// [match, hop] table (ops/engine.py build_chain_flatten), so the C side is
-// a flat loop over rows with no pointer chasing. In one C call per drain
-// it does the row walk, the stage grouping, the normalization check and
-// either the Staged/Sequence construction (`decode_matches_flat`) or the
-// JSON sink bytes plus emission-identity frames (`decode_matches_json`).
+// A copy of the JAX package's native/decoder.cc. Both drains of the
+// engine feed it. The flat drain walks every pending match chain on the
+// device into a dense [match, hop] table (ops/engine.py
+// build_chain_flatten), so the C side is a flat loop over rows with no
+// pointer chasing: `decode_matches_flat` builds Staged/Sequence objects,
+// `decode_matches_json` JSON sink bytes plus emission-identity frames and
+// `decode_matches_arrow` Arrow string-column buffers. The pool drain
+// (drain_mode="pool", ops/engine.py drain_compact) pulls the ring and the
+// pend-reachable node planes instead, and `decode_matches` walks each
+// chain back through them here. One C call per drain does the walk, the
+// stage grouping, the normalization check and the construction.
 //
-// Semantics are exactly ops/runtime.py materialize_sequence over the rows
-// (the Python walk in parallel/batched.py is the semantic reference):
+// Semantics are exactly ops/runtime.py decode_chains + materialize_sequence
+// (the Python walks in parallel/batched.py are the semantic reference):
 //   * a chain's hops are newest-first; a hop whose event id is negative
 //     (a GC-dropped put under region overflow) is skipped while the rest
 //     of the chain survives; an all-dead chain decodes to nothing;
@@ -42,6 +46,37 @@ struct Buf {
     if (held) PyBuffer_Release(&buf);
   }
 };
+
+// Strided 2D int32 view: the pool drain pulls device arrays [N, K] and
+// hands their [K, N] transposes here, so contiguity must not be required.
+struct View2D {
+  const char* data = nullptr;
+  Py_ssize_t s0 = 0, s1 = 0;
+
+  int32_t at(Py_ssize_t i, Py_ssize_t j) const {
+    return *reinterpret_cast<const int32_t*>(data + i * s0 + j * s1);
+  }
+};
+
+bool get_i32_2d(PyObject* obj, const char* what, Buf* b, View2D* v,
+                Py_ssize_t* d0, Py_ssize_t* d1) {
+  if (PyObject_GetBuffer(obj, &b->buf, PyBUF_STRIDES) < 0) return false;
+  b->held = true;
+  if (b->buf.ndim != 2 || b->buf.itemsize != 4) {
+    PyErr_Format(PyExc_ValueError, "%s must be int32 [K, N]", what);
+    return false;
+  }
+  if (*d0 < 0) *d0 = b->buf.shape[0];
+  if (*d1 < 0) *d1 = b->buf.shape[1];
+  if (b->buf.shape[0] != *d0 || b->buf.shape[1] != *d1) {
+    PyErr_Format(PyExc_ValueError, "%s shape mismatch", what);
+    return false;
+  }
+  v->data = static_cast<const char*>(b->buf.buf);
+  v->s0 = b->buf.strides[0];
+  v->s1 = b->buf.strides[1];
+  return true;
+}
 
 // Strided 3D int32 view: the flat drain pulls one [3, M, C, K] table and
 // hands per-plane [K, M, C] transposes here (numpy moveaxis views), so
@@ -91,7 +126,8 @@ PyObject* bare_instance(PyObject* type) {
 }
 
 // ---------------------------------------------------------------- sink bytes
-// Helpers for the sink-to-bytes decode (decode_matches_json): emit the exact bytes the host-Python egress path
+// Helpers for the sink-to-bytes decode (decode_matches_json /
+// decode_matches_arrow): emit the exact bytes the host-Python egress path
 // would produce -- streams/serde.py sequence_to_json for payloads,
 // streams/emission.py sequence_identity's per-stage frames for digests --
 // so goldens and emission digests stay byte-identical to the object path.
@@ -553,18 +589,24 @@ struct Materializer {
   }
 
   // Serialize one chain straight to sink bytes, skipping Staged/Sequence
-  // construction entirely on the normalized fast path. Appends
-  // (payload, ident, last_event) to per_key, with payload byte-equal to
-  // sequence_to_json(seq).encode("utf-8"). `ident` is the per-stage identity frame suffix of
+  // construction entirely on the normalized fast path. Appends to per_key:
+  //   json:  (payload, ident, last_event) with payload byte-equal to
+  //          sequence_to_json(seq).encode("utf-8"),
+  //   arrow: (stage_offsets, stage_data, value_offsets, value_data, rows,
+  //          ident, last_event) -- int32 offset + utf8 data buffers for the
+  //          stage/value string columns, wrapped by the caller
+  //          (streams/serde.py arrow_ipc_from_columns).
+  // `ident` is the per-stage identity frame suffix of
   // streams/emission.py sequence_identity (the digest parity pin);
   // `last_event` is matched[-1].events[-1], the Record metadata anchor.
-  bool emit_json(const std::vector<int64_t>& chain, PyObject* per_key,
-                 PyObject* fragment_fn) {
+  bool emit_bytes(const std::vector<int64_t>& chain, PyObject* per_key,
+                  int arrow, PyObject* fragment_fn) {
     if (!collect(chain)) return false;
     bool fail = false;
-    std::string payload, ident;
+    std::string payload, ident, stage_data, value_data;
+    std::vector<int32_t> stage_off{0}, value_off{0};
     PyObject* last_event = nullptr;  // owned
-    payload += "{\"events\":[";
+    if (!arrow) payload += "{\"events\":[";
     bool first_group = true;
     for (auto& grp : groups) {
       if (fail) {
@@ -593,10 +635,12 @@ struct Materializer {
       }
       put_frame(ident, "\x01", 1);
       put_frame(ident, stage_s, stage_len);
-      if (!first_group) payload += ",";
-      payload += "{\"name\":";
-      if (!json_escape(grp.name, payload)) fail = true;
-      payload += ",\"events\":[";
+      if (!arrow) {
+        if (!first_group) payload += ",";
+        payload += "{\"name\":";
+        if (!json_escape(grp.name, payload)) fail = true;
+        payload += ",\"events\":[";
+      }
       first_group = false;
       Py_ssize_t ne = fail ? 0 : PyList_GET_SIZE(evs);
       for (Py_ssize_t i2 = 0; i2 < ne && !fail; ++i2) {
@@ -635,11 +679,18 @@ struct Materializer {
           fail = true;
           break;
         }
-        if (i2) payload += ",";
-        if (!write_json_value(rep, fragment_fn, payload)) fail = true;
+        if (arrow) {
+          stage_data.append(stage_s, stage_len);
+          stage_off.push_back(static_cast<int32_t>(stage_data.size()));
+          if (!write_json_value(rep, fragment_fn, value_data)) fail = true;
+          value_off.push_back(static_cast<int32_t>(value_data.size()));
+        } else {
+          if (i2) payload += ",";
+          if (!write_json_value(rep, fragment_fn, payload)) fail = true;
+        }
         Py_DECREF(rep);
       }
-      if (!fail) payload += "]}";
+      if (!arrow && !fail) payload += "]}";
       if (!fail && ne > 0) {
         Py_XDECREF(last_event);
         last_event = PyList_GET_ITEM(evs, ne - 1);
@@ -649,7 +700,7 @@ struct Materializer {
       Py_DECREF(grp.events);
     }
     groups.clear();
-    if (!fail) payload += "]}";
+    if (!arrow && !fail) payload += "]}";
     if (!fail && last_event == nullptr) {
       PyErr_SetString(PyExc_RuntimeError, "empty match chain");
       fail = true;
@@ -658,9 +709,24 @@ struct Materializer {
       Py_XDECREF(last_event);
       return false;
     }
-    PyObject* tup = Py_BuildValue(
-        "(y#y#O)", payload.data(), static_cast<Py_ssize_t>(payload.size()),
-        ident.data(), static_cast<Py_ssize_t>(ident.size()), last_event);
+    PyObject* tup;
+    if (arrow) {
+      Py_ssize_t rows = static_cast<Py_ssize_t>(stage_off.size()) - 1;
+      tup = Py_BuildValue(
+          "(y#y#y#y#ny#O)",
+          reinterpret_cast<const char*>(stage_off.data()),
+          static_cast<Py_ssize_t>(stage_off.size() * sizeof(int32_t)),
+          stage_data.data(), static_cast<Py_ssize_t>(stage_data.size()),
+          reinterpret_cast<const char*>(value_off.data()),
+          static_cast<Py_ssize_t>(value_off.size() * sizeof(int32_t)),
+          value_data.data(), static_cast<Py_ssize_t>(value_data.size()),
+          rows, ident.data(), static_cast<Py_ssize_t>(ident.size()),
+          last_event);
+    } else {
+      tup = Py_BuildValue(
+          "(y#y#O)", payload.data(), static_cast<Py_ssize_t>(payload.size()),
+          ident.data(), static_cast<Py_ssize_t>(ident.size()), last_event);
+    }
     Py_DECREF(last_event);
     if (tup == nullptr) return false;
     if (PyList_Append(per_key, tup) < 0) {
@@ -672,17 +738,19 @@ struct Materializer {
   }
 };
 
-// The flat drain table walk shared by both entry points: gidx/name/live
-// are [K, M, C] int32 planes (strided views of the [3, M, C, K] table),
-// hops newest-first; live == 0 ends a chain, a live hop with gidx < 0 is
-// a GC-dropped put (skipped while the chain continues). `fragment_fn`
-// null: Sequence objects (or (qid, Sequence) pairs when `qid_obj` is a
-// table); else JSON sink tuples.
+// The flat drain table walk shared by the three flat entry points:
+// gidx/name/live are [K, M, C] int32 planes (strided views of the
+// [3, M, C, K] table), hops newest-first; live == 0 ends a chain, a live
+// hop with gidx < 0 is a GC-dropped put (skipped while the chain
+// continues). `fragment_fn` null: Sequence objects (or (qid, Sequence)
+// pairs when `qid_obj` is a table); else sink tuples, Arrow column
+// buffers when `arrow` is set and JSON payloads when not.
 PyObject* decode_flat_impl(PyObject* counts_obj, PyObject* g_obj,
                            PyObject* n_obj, PyObject* l_obj,
                            PyObject* name_of_id, PyObject* registry,
                            PyObject* staged_type, PyObject* sequence_type,
-                           PyObject* fragment_fn, PyObject* qid_obj) {
+                           PyObject* fragment_fn, int arrow,
+                           PyObject* qid_obj) {
   Buf counts_b;
   if (PyObject_GetBuffer(counts_obj, &counts_b.buf, PyBUF_C_CONTIGUOUS) < 0) {
     return nullptr;
@@ -737,7 +805,7 @@ PyObject* decode_flat_impl(PyObject* counts_obj, PyObject* g_obj,
       if (chain.empty()) continue;  // GC-dropped (node_drops counts it)
       bool ok = fragment_fn == nullptr
                     ? mat.emit(chain, per_key)
-                    : mat.emit_json(chain, per_key, fragment_fn);
+                    : mat.emit_bytes(chain, per_key, arrow, fragment_fn);
       if (!ok) fail = true;
     }
   }
@@ -765,16 +833,21 @@ PyObject* decode_matches_flat(PyObject*, PyObject* args) {
     return nullptr;
   }
   return decode_flat_impl(counts_obj, g_obj, n_obj, l_obj, name_of_id,
-                          registry, staged_type, sequence_type, nullptr,
+                          registry, staged_type, sequence_type, nullptr, 0,
                           qid_obj);
 }
 
-// decode_matches_json(counts, gidx, name, live, name_of_id, registry,
-//                     staged_type, sequence_type, fragment_fn)
-//   -> [list[(payload, ident, last_event)]] * K
+// decode_matches_json / decode_matches_arrow
+//   (counts, gidx, name, live, name_of_id, registry, staged_type,
+//    sequence_type, fragment_fn)
+//   -> [list[(payload, ident, last_event)]] * K               (json)
+//   -> [list[(stage_off, stage_data, value_off, value_data,
+//             rows, ident, last_event)]] * K                  (arrow)
 // The consumer is a serializing sink: matches decode straight to bytes
-// with no Sequence materialization on the normalized fast path.
-PyObject* decode_matches_json(PyObject*, PyObject* args) {
+// with no Sequence materialization on the normalized fast path. A stacked
+// multi-query engine (qid attribution) is not served here: the engine
+// refuses bytes sinks for it.
+PyObject* decode_bytes(PyObject* args, int arrow) {
   PyObject *counts_obj, *g_obj, *n_obj, *l_obj;
   PyObject *name_of_id, *registry, *staged_type, *sequence_type, *fragment_fn;
   if (!PyArg_ParseTuple(args, "OOOOOOOOO", &counts_obj, &g_obj, &n_obj, &l_obj,
@@ -784,10 +857,118 @@ PyObject* decode_matches_json(PyObject*, PyObject* args) {
   }
   return decode_flat_impl(counts_obj, g_obj, n_obj, l_obj, name_of_id,
                           registry, staged_type, sequence_type, fragment_fn,
-                          Py_None);
+                          arrow, Py_None);
+}
+
+PyObject* decode_matches_json(PyObject*, PyObject* args) {
+  return decode_bytes(args, 0);
+}
+
+PyObject* decode_matches_arrow(PyObject*, PyObject* args) {
+  return decode_bytes(args, 1);
+}
+
+// decode_matches(counts, pend, node_event, node_name, node_pred, name_of_id,
+//                registry, staged_type, sequence_type[, qid_of_name_id])
+//   -> [list[Sequence]] * K, or [list[(qid, Sequence)]] * K given the
+//      per-name-id query-attribution table (a stacked multi-query decode).
+// The pool drain's decode: pend is [K, M] (each key's ring, valid ids
+// compacted to the front), the node planes [K, B] in closure-rank space
+// (ops/engine.py drain_compact), all strided views. Each of a key's first
+// counts[k] ring entries walks its chain newest -> oldest through the
+// planes; a -1 entry (a chain a GC nulled under region overflow) and a
+// chain whose every event id is negative decode to nothing.
+PyObject* decode_matches(PyObject*, PyObject* args) {
+  PyObject *counts_obj, *pend_obj, *ev_obj, *nm_obj, *pr_obj;
+  PyObject *name_of_id, *registry, *staged_type, *sequence_type;
+  PyObject* qid_obj = Py_None;
+  if (!PyArg_ParseTuple(args, "OOOOOOOOO|O", &counts_obj, &pend_obj, &ev_obj,
+                        &nm_obj, &pr_obj, &name_of_id, &registry, &staged_type,
+                        &sequence_type, &qid_obj)) {
+    return nullptr;
+  }
+
+  Buf counts_b;
+  if (PyObject_GetBuffer(counts_obj, &counts_b.buf, PyBUF_C_CONTIGUOUS) < 0) {
+    return nullptr;
+  }
+  counts_b.held = true;
+  if (counts_b.buf.ndim != 1 || counts_b.buf.itemsize != 4) {
+    PyErr_SetString(PyExc_ValueError, "counts must be int32 [K]");
+    return nullptr;
+  }
+  Py_ssize_t K = counts_b.buf.shape[0];
+  Py_ssize_t M = -1, B = -1;
+  Buf pend_b, ev_b, nm_b, pr_b;
+  View2D pend, node_event, node_name, node_pred;
+  if (!get_i32_2d(pend_obj, "pend", &pend_b, &pend, &K, &M)) return nullptr;
+  if (!get_i32_2d(ev_obj, "node_event", &ev_b, &node_event, &K, &B)) {
+    return nullptr;
+  }
+  if (!get_i32_2d(nm_obj, "node_name", &nm_b, &node_name, &K, &B)) {
+    return nullptr;
+  }
+  if (!get_i32_2d(pr_obj, "node_pred", &pr_b, &node_pred, &K, &B)) {
+    return nullptr;
+  }
+
+  const auto* counts = static_cast<const int32_t*>(counts_b.buf.buf);
+
+  Buf qid_b;
+  Materializer mat;
+  if (!mat.init(name_of_id, registry, staged_type, sequence_type, qid_obj,
+                &qid_b)) {
+    mat.fini();
+    return nullptr;
+  }
+
+  PyObject* out = PyList_New(K);
+  bool fail = out == nullptr;
+
+  // Scratch reused across matches: the chain as (name_id, gidx) pairs
+  // (newest-first as walked, consumed oldest-first by the materializer).
+  std::vector<int64_t> chain;
+
+  for (Py_ssize_t k = 0; k < K && !fail; ++k) {
+    PyObject* per_key = PyList_New(0);
+    if (per_key == nullptr) {
+      fail = true;
+      break;
+    }
+    PyList_SET_ITEM(out, k, per_key);
+    Py_ssize_t n = counts[k];
+    if (n > M) n = M;
+    for (Py_ssize_t j = 0; j < n && !fail; ++j) {
+      int32_t cur = pend.at(k, j);
+      chain.clear();
+      // Walk newest -> oldest; a cycle (corrupt pool) cannot loop past B.
+      for (Py_ssize_t hops = 0; cur >= 0 && cur < B && hops <= B; ++hops) {
+        int32_t g = node_event.at(k, cur);
+        if (g >= 0) {
+          // Dropped puts (g < 0) skip the node, not the chain.
+          chain.push_back((static_cast<int64_t>(node_name.at(k, cur)) << 32) |
+                          static_cast<uint32_t>(g));
+        }
+        cur = node_pred.at(k, cur);
+      }
+      if (chain.empty()) continue;  // GC-dropped (node_drops counts it)
+      if (!mat.emit(chain, per_key)) fail = true;
+    }
+  }
+
+  mat.fini();
+  if (fail) {
+    Py_XDECREF(out);
+    return nullptr;
+  }
+  return out;
 }
 
 PyMethodDef methods[] = {
+    {"decode_matches", decode_matches, METH_VARARGS,
+     "Walk per-key match chains from a pool drain's pulled ring and node "
+     "planes and build Sequence objects; returns a list of K lists (of "
+     "(qid, Sequence) pairs given a qid_of_name_id table)."},
     {"decode_matches_flat", decode_matches_flat, METH_VARARGS,
      "Build Sequence objects from a chain-flattened drain table "
      "([K, M, C] gidx/name/live planes); returns a list of K lists "
@@ -796,6 +977,11 @@ PyMethodDef methods[] = {
      "Serialize matches from a chain-flattened drain table straight to "
      "JSON sink bytes; returns a list of K lists of "
      "(payload, ident, last_event) tuples."},
+    {"decode_matches_arrow", decode_matches_arrow, METH_VARARGS,
+     "Serialize matches from a chain-flattened drain table straight to "
+     "Arrow string-column buffers; returns a list of K lists of "
+     "(stage_off, stage_data, value_off, value_data, rows, ident, "
+     "last_event) tuples."},
     {nullptr, nullptr, 0, nullptr},
 };
 

@@ -14,11 +14,14 @@ hand-written kernel of csrc/nfa_step.cu on the card, through
 ops/step_kernel.py's `NfaStep`; the plain step on CPU tensors), the pend
 append, and every `gc_group`-th advance the group flush, whose mark is
 the kernel of csrc/gc_mark.cu on the card (ops/gc_kernel.py). The drain
-is the flat drain at K = 1 (`drain_probe` -> `build_chain_flatten` -> one
-host copy -> the native `decode_matches_flat`); `native=False` walks the
-pool on the host instead (`decode_chains`, the JAX engine's Python
-route), the reference the tests hold the native one to. Matches come out
-in the JAX engine's order.
+is the JAX class's pool route (its ops/runtime.py `_decode_matches`):
+the group flush, a read of the ring's count and cursor, one host copy of
+the ring's occupied prefix and the three node planes, and the native
+`decode_matches` at K = 1, which walks each chain back through the
+planes; `native=False` walks them in Python instead (`decode_chains`,
+the JAX class's other route), the reference the tests hold the native
+one to. It has no flat drain. Matches come out in the JAX engine's
+order.
 
 What differs from `BatchedDeviceNFA` and follows the JAX class: the
 timestamp base is the first event's own timestamp (no rebase margin),
@@ -62,23 +65,14 @@ from .engine import (
     WINDOW_PLANES,
     EngineConfig,
     build_append_post,
-    build_chain_flatten,
     build_flush_post,
     drain_pend,
-    drain_probe,
     eval_stateless_preds,
 )
 from .replay import device_to_oracle, oracle_to_device, supports_replay
 from .runtime import decode_chains, materialize_sequence, rebase_watermarks
 from .schema import EventSchema
 from .tables import CompiledQuery, compile_query
-
-
-def _pow2_at_least(n: int, cap: int) -> int:
-    b = 1
-    while b < max(n, 1):
-        b <<= 1
-    return min(b, cap)
 
 
 class DeviceNFA:
@@ -111,6 +105,7 @@ class DeviceNFA:
             raise ValueError(f"unknown engine {engine!r} (expected one of {ENGINES})")
         self.engine = engine
         self.native = bool(native)
+        self._decoder = None
         # Single-key engines share the batched driver's gauge naming; the
         # registry is private unless one is passed.
         self.metrics = registry if registry is not None else MetricsRegistry()
@@ -369,43 +364,45 @@ class DeviceNFA:
         """Fold the accumulated group window back into the node region."""
         fold_group_window(self)
 
+    def _native_decoder(self):
+        if self._decoder is None:
+            from ..native import load_decoder
+
+            self._decoder = load_decoder()
+        return self._decoder
+
     def _decode_matches(self) -> List[Sequence]:
-        """Pull and clear the pending ring: the flat drain into the native
-        decoder, or (native=False) the host pool walk."""
-        probe = drain_probe(self.pool).cpu().numpy()
-        count, pos, depth = (int(v) for v in probe[:, 0])
+        """Pull and clear the pending ring, the JAX class's way: the ring's
+        [0, pend_pos) entries in emission order without its -1 holes
+        (chains a GC nulled under region overflow; node_drops counts
+        them) and the three node planes in one host copy, each chain
+        walked back through the planes by the native `decode_matches`,
+        or (native=False) by `decode_chains`."""
+        count, pos = (int(v) for v in torch.stack(
+            [self.pool["pend_count"][0], self.pool["pend_pos"][0]]).tolist())
         if count == 0:
             if pos > 0:
                 self.pool = drain_pend(self.pool)  # reclaim hole pages
             return []
-        if not self.native:
-            out = self._decode_pool_walk(pos)
+        B = self.pool["node_event"].shape[0]
+        host = torch.cat([self.pool["pend"][:pos, 0]] + [
+            self.pool[n][:, 0] for n in ("node_event", "node_name", "node_pred")
+        ]).cpu().numpy()
+        pend = host[:pos]
+        pend = pend[pend >= 0]
+        node_event, node_name, node_pred = (host[pos + i * B: pos + (i + 1) * B] for i in range(3))
+        if self.native:
+            out = self._native_decoder().decode_matches(
+                np.asarray([len(pend)], np.int32), pend[None, :], node_event[None, :],
+                node_name[None, :], node_pred[None, :], self.query.name_of_id, self._events,
+                Staged, Sequence)[0]
         else:
-            Mb = _pow2_at_least(count, self.pool["pend"].shape[0])
-            Cb = _pow2_at_least(depth, self.pool["node_event"].shape[0])
-            table = build_chain_flatten(Mb, Cb)(self.pool).cpu().numpy()
-            gidx, name, live = (np.moveaxis(table[i], -1, 0) for i in range(3))
-            from ..native import load_decoder
-
-            out = load_decoder().decode_matches_flat(
-                np.ascontiguousarray(probe[0], np.int32), gidx, name, live,
-                self.query.name_of_id, self._events, Staged, Sequence)[0]
+            chains = decode_chains(pend, node_name, node_event, node_pred)
+            # Empty chains: all of a chain's puts were GC-dropped.
+            out = [materialize_sequence(chain, self.query.name_of_id, self._events)
+                   for chain in chains if chain]
         self.pool = drain_pend(self.pool)
         return out
-
-    def _decode_pool_walk(self, pos: int) -> List[Sequence]:
-        """The JAX engine's Python route: the ring's [0, pend_pos) entries
-        in emission order (-1 holes are chains a GC nulled under region
-        overflow), each walked back through the node planes."""
-        pend = self.pool["pend"][:pos, 0].cpu().numpy()
-        pend = pend[pend >= 0]
-        planes = {n: self.pool[n][:, 0].cpu().numpy()
-                  for n in ("node_name", "node_event", "node_pred")}
-        chains = decode_chains(pend, planes["node_name"], planes["node_event"], planes["node_pred"])
-        # Empty chains: pend entries whose nodes were GC-dropped under
-        # region overflow (node_drops counts them).
-        return [materialize_sequence(chain, self.query.name_of_id, self._events)
-                for chain in chains if chain]
 
     def _check_drop_counters(self, drained: Optional[List] = None) -> None:
         """The overflow policy (parallel/batched.py `check_drop_counters`)."""

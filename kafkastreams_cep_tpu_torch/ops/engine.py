@@ -16,8 +16,9 @@ What lives here:
   * `eval_stateless_preds`, the [T, K, P] stateless predicate masks;
   * the per-advance pend append, the group-flush GC (precise frontier
     walk and `pin_interval`; the mark itself is ops/gc_kernel.py), the
-    ring remap and the drain passes (`drain_probe`, `build_chain_flatten`,
-    `drain_pend`).
+    ring remap and the drain passes: the flat drain's (`drain_probe`,
+    `build_chain_flatten`), the pool drain's (`drain_compact`) and
+    `drain_pend`.
 
 The per-event transition itself is ops/step.py (plain version) and
 ops/step_kernel.py (the CUDA kernel). Everything here is written for the
@@ -39,7 +40,7 @@ import numpy as np
 import torch
 
 from .gc_kernel import gc_mark
-from .gc_sweep import WINDOW_PLANES, _PEND_MIN_NONE, gc_sweep
+from .gc_sweep import WINDOW_PLANES, _PEND_MIN_NONE, gc_sweep, remap_ids
 from .tables import CompiledQuery, TorchEnv
 from .numerics import as_mask
 
@@ -475,6 +476,48 @@ def build_chain_flatten(max_matches: int, max_chain: int):
         return torch.stack(hops, dim=2)  # [3, Mb, Cb, K]
 
     return flatten
+
+
+def drain_compact(pool: State, maxpos: int) -> Tuple[Tensor, Tensor, Tensor]:
+    """The pool drain's device half (the JAX package's `_drain_compact`,
+    parallel/batched.py:1858-1951): the precise pend-reachable closure,
+    and every pending chain projected into the closure's rank space, so a
+    pull carries only what the decode reads.
+
+    The mark is `gc_mark(zeros [B + 1, K], pend[:min(maxpos, M)],
+    node_pred)` -- the kernel of csrc/gc_mark.cu on the card, the plain
+    walk on CPU tensors -- with `maxpos` the largest ring cursor, which
+    the drain's [2, K] probe has already read, so the walk adds no host
+    read. The JAX package walks the ring's occupied prefix in chunks of
+    256 rows; a walker stops at a marked node in both, so the closure is
+    the same set. Ring holes (-1: chains a GC nulled under region
+    overflow) mark nothing. Then the rank compaction: `pcount` [K] kept
+    nodes a key, `nodes3` [3, B, K] = node_event, node_name and the
+    remapped node_pred at their ranks (-1 past `pcount`), and `pend_r` the
+    ring remapped into rank ids (`remap_ids`, the group flush's ring remap,
+    as the JAX package's `remap_pend_blocks`)."""
+    pred, pend = pool["node_pred"], pool["pend"]
+    B, K = pred.shape
+    M = pend.shape[0]
+    seed = torch.zeros((B + 1, K), dtype=torch.bool, device=pred.device)
+    pinned = gc_mark(seed, pend[: min(int(maxpos), M)], pred)[:B]
+    csum = torch.cumsum(pinned.to(torch.int32), dim=0, dtype=torch.int32)
+    pcount = csum[-1]
+    neg = torch.full_like(csum, -1)
+    remap_full = torch.cat([torch.where(pinned, csum - 1, neg), neg[:1]])
+    prank = torch.where(pinned, csum - 1, torch.full_like(csum, B)).long()  # holes -> trash
+
+    def compact_by(vals: Tensor) -> Tensor:
+        out = torch.full((B + 1, K), -1, dtype=vals.dtype, device=vals.device)
+        out.scatter_(0, prank, torch.where(pinned, vals, torch.full_like(vals, -1)))
+        return out[:B]
+
+    nodes3 = torch.stack([
+        compact_by(pool["node_event"]),
+        compact_by(pool["node_name"]),
+        compact_by(remap_ids(remap_full, pred)),
+    ])
+    return remap_ids(remap_full, pend), nodes3, pcount
 
 
 def drain_pend(pool: State) -> State:

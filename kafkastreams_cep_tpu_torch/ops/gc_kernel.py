@@ -5,7 +5,10 @@ from `frontier` ([F, K] node ids, -1 = hole) along `pred` ([BW, K]),
 stopping at nodes already marked; `marked` is the [BW + 1, K] bool seed
 with a trash row at BW, returned as given. Both walks of the group-flush
 GC (ops/engine.py `build_gc`) run through it: the page-root walk (without
-`pin_interval`) and the lane-root walk.
+`pin_interval`) and the lane-root walk. So does the pool drain's closure
+walk (ops/engine.py `drain_compact`): an all-false seed, the ring's first
+max(pend_pos) rows as the frontier (-1 holes included) and the region's
+preds alone (BW = B).
 
 For tensors on the card it launches the kernel of csrc/gc_mark.cu (the
 seed packed into bit words by a coalesced grid, each key's words walked

@@ -60,8 +60,15 @@ def _excl_cumsum(mask: Tensor, dim: int = 0) -> Tensor:
     return (torch.cumsum(m, dim=dim) - m).to(torch.int32)
 
 
-def _remap(remap_full: Tensor, ids: Tensor) -> Tensor:
-    """Per-key value remap of node ids ([N, K] or [K]; -1 stays -1)."""
+def remap_ids(remap_full: Tensor, ids: Tensor) -> Tensor:
+    """Per-key value remap of node ids ([N, K] or [K]; -1 stays -1).
+
+    On the ring [M, K] it is the plain version of the JAX package's
+    `remap_pend_blocks` (ops/engine.py:1237-1282), which remaps only the
+    occupied prefix, in blocks up to the largest cursor: the rows past a
+    key's `pend_pos` hold -1 here, which the remap keeps, so the whole ring
+    remaps to the same. The sweep below and the pool drain's compaction
+    (ops/engine.py `drain_compact`) remap the ring with it."""
     squeeze = ids.dim() == 1
     idx = ids.unsqueeze(0) if squeeze else ids
     got = torch.gather(remap_full, 0, idx.clamp(min=0).long())
@@ -116,13 +123,13 @@ def _sweep(marked: Tensor, marked_pin: Tensor, state: State, pool: State, ys: St
     return {
         "node_event": sweep(torch.cat([pool["node_event"], w_event]), -1),
         "node_name": sweep(torch.cat([pool["node_name"], w_name]), -1),
-        "node_pred": sweep(_remap(remap_full, combined_pred), -1),
+        "node_pred": sweep(remap_ids(remap_full, combined_pred), -1),
         "node_count": torch.clamp(n_keep, max=B),
         "pinned": sweep(marked_pin, False),
         "pend_min": new_pend_min,
-        "pend": _remap(remap_full, pool["pend"]),
-        "node": _remap(remap_full, state["node"]),
-        "root": _remap(remap_full, state["root"]),
+        "pend": remap_ids(remap_full, pool["pend"]),
+        "node": remap_ids(remap_full, state["node"]),
+        "root": remap_ids(remap_full, state["root"]),
         "node_drops": state["node_drops"] + torch.clamp(n_keep - B, min=0),
     }
 

@@ -4,11 +4,25 @@ The port's counterpart of the JAX package's `parallel/batched.py`: pack
 per-key event lists into [T, K] columns (the native packer,
 native/packer.cc), advance every key through the step (the CUDA kernel on
 the card), append each advance's matches to the pending ring, fold the
-node window back with the group-flush GC, and drain by walking every
-pending chain on the device into one dense table that is copied to the
-host once and decoded by the native decoder (native/decoder.cc) into
-`Sequence`s or, with `sink_format="json"`, straight into JSON sink bytes
-(`SinkMatch`). The key axis grows with `add_keys`.
+node window back with the group-flush GC, and drain. The key axis grows
+with `add_keys`.
+
+Drains (`drain_mode`, the JAX engine's two):
+  * "flat" (the default) walks every pending chain on the device into one
+    dense [3, Mb, Cb, K] table (ops/engine.py `build_chain_flatten`),
+    copied to the host once and decoded by the native decoder
+    (native/decoder.cc) into `Sequence`s or, with `sink_format="json"` or
+    `"arrow"`, straight into sink bytes (`SinkMatch`);
+  * "pool", the JAX package's semantic reference drain: the group is
+    flushed, a [2, K] probe (counts, cursors) is read, the pend-reachable
+    closure is marked from the ring by `gc_mark` (the kernel of
+    csrc/gc_mark.cu on the card) and compacted to its rank space
+    (ops/engine.py `drain_compact`), and the ring and the closure's three
+    node planes are copied to the host, sliced to pow2 buckets of the
+    largest count and closure, for the native `decode_matches` to walk.
+    The pull is synchronous on the calling thread, as in the JAX engine;
+    its decode goes to the worker. Bytes sinks need the flat drain.
+Both give every key's matches in the same order.
 
 Capacity contract (the JAX engine's): with `auto_drain=True` (the
 default) a guard before every advance pulls the pending-match ring off
@@ -46,6 +60,9 @@ arms and steers it.
 Kernel builds: `compile_watch` (obs/compile.py) counts the step kernel's
 signatures -- one per (query, config) the engine installs an advance for,
 at construction and at each `resize` -- as `cep_compiles_total{fn}`.
+With `compile_telemetry=False` there is no watch (`compile_watch` is
+None) and the series is never registered; the kernel is built all the
+same.
 
 Durability: `snapshot()` / `restore()` write and read the JAX engine's
 CRC-sealed frame byte for byte (state/serde.py), across capacities (a
@@ -104,13 +121,13 @@ Stacked queries (ops/tables.py `compile_multi_query`): the matches of a
 stacked table set decode to `(qid, Sequence)` pairs, the query read off
 the chain's stage-name id (`qid_of_name_id`), in the native decoder and
 the Python walk alike; parallel/stacked.py splits them by query. Such a
-table set has no host stages, so exact replay stays off, and the JSON
-sink is refused (its bytes carry no query).
+table set has no host stages, so exact replay stays off, and the bytes
+sinks are refused (their bytes carry no query).
 
-Left for later slices (see ROADMAP.md): Arrow sinks and the mesh. The
-JAX engine's options for them (and `drain_mode`, `compile_telemetry`,
-`compile_cost_estimates`) are not parameters here, so passing one raises
-TypeError (`sink_format="arrow"` raises ValueError).
+Left for a later slice (see ROADMAP.md): the mesh. The JAX engine's
+`mesh=` is not a parameter here, so passing it raises TypeError.
+`compile_cost_estimates=True` raises ValueError: an nvcc build has no
+cost model to read.
 
 The device is explicit: `device=None` means "cuda", and a missing card
 raises instead of running on the CPU. `engine="cuda"` (the default on the
@@ -143,7 +160,9 @@ from ..ops.engine import (
     build_append_post,
     build_chain_flatten,
     build_flush_post,
+    compact_valid_front,
     concat_group_window,
+    drain_compact,
     drain_pend,
     drain_probe,
     eval_stateless_preds,
@@ -151,13 +170,25 @@ from ..ops.engine import (
 from ..ops.gc_sweep import window_planes
 from ..ops.profiling import BatchTimings
 from ..ops.replay import device_to_oracle, oracle_to_device, supports_replay
-from ..ops.runtime import materialize_sequence, rebase_watermarks, sequence_provenance
+from ..ops.runtime import (
+    decode_chains,
+    materialize_sequence,
+    rebase_watermarks,
+    sequence_provenance,
+)
 from ..ops.schema import EventSchema
 from ..ops.step_kernel import NfaStep, kernel_signature
 from ..ops.tables import CompiledQuery, compile_query
 from ..pattern.stages import Stages
 from ..state import serde
-from ..streams.serde import SinkMatch, json_fragment, match_lineage, sink_match_from_sequence
+from ..streams.serde import (
+    SinkMatch,
+    arrow_ipc_from_columns,
+    arrow_sink_schema,
+    json_fragment,
+    match_lineage,
+    sink_match_from_sequence,
+)
 from .key_shard import (
     ENGINES,
     build_batched_advance,
@@ -170,7 +201,17 @@ from .key_shard import (
 #: this much earlier and still rebase non-negative.
 TS_REBASE_MARGIN_MS = 1 << 20
 
-SINK_FORMATS = ("objects", "json")
+SINK_FORMATS = ("objects", "json", "arrow")
+DRAIN_MODES = ("flat", "pool")
+
+
+def pow2_at_least(n: int, cap: int) -> int:
+    """The smallest power of two >= max(n, 1), capped at `cap`: a pulled
+    table's bucketed extent."""
+    b = 1
+    while b < max(n, 1):
+        b <<= 1
+    return min(b, cap)
 
 
 def resolve_device(device: Any = None) -> torch.device:
@@ -279,28 +320,43 @@ class BatchedDeviceNFA:
         sink_format: str = "objects",
         auto_drain: bool = True,
         exact_replay: bool = True,
+        drain_mode: str = "flat",
         target_emit_ms: Optional[float] = None,
         profile_sync: bool = False,
         profile_every: Optional[int] = None,
+        compile_telemetry: bool = True,
+        compile_cost_estimates: bool = False,
         registry: Optional[MetricsRegistry] = None,
         provenance_sample: float = 0.0,
         provenance_ring: int = 256,
         query_name: Optional[str] = None,
     ) -> None:
-        if sink_format == "arrow":
-            raise ValueError("sink_format='arrow' is not ported (ROADMAP.md item 5e)")
+        if drain_mode not in DRAIN_MODES:
+            raise ValueError(f"unknown drain_mode {drain_mode!r} (expected one of {DRAIN_MODES})")
         if sink_format not in SINK_FORMATS:
             raise ValueError(f"unknown sink_format {sink_format!r} (expected one of {SINK_FORMATS})")
+        if compile_cost_estimates:
+            raise ValueError(
+                "compile_cost_estimates=True has nothing to read here: an nvcc "
+                "build of the step kernel has no cost model (the JAX engine reads "
+                "XLA's cost_analysis)")
         if isinstance(stages_or_query, CompiledQuery):
             self.query = stages_or_query
         else:
             assert isinstance(stages_or_query, Stages)
             self.query = compile_query(stages_or_query, schema)
-        if sink_format != "objects" and self.query.qid_of_name_id is not None:
-            raise ValueError(
-                f"sink_format {sink_format!r} does not support stacked "
-                "multi-query engines (qid attribution needs the object path)"
-            )
+        if sink_format != "objects":
+            if drain_mode != "flat":
+                raise ValueError(
+                    f"sink_format {sink_format!r} requires drain_mode='flat' (the "
+                    "bytes decode walks the chain-flatten table)")
+            if self.query.qid_of_name_id is not None:
+                raise ValueError(
+                    f"sink_format {sink_format!r} does not support stacked "
+                    "multi-query engines (qid attribution needs the object path)"
+                )
+            if sink_format == "arrow":
+                arrow_sink_schema()  # ImportError without pyarrow
         self.config = config if config is not None else EngineConfig()
         self.device = resolve_device(device)
         if engine is None:
@@ -310,6 +366,10 @@ class BatchedDeviceNFA:
         self.engine = engine
         self.native = bool(native)
         self.sink_format = sink_format
+        #: "flat" or "pool" (module doc).
+        self.drain_mode = drain_mode
+        #: The pool drain's device half (ops/engine.py `drain_compact`).
+        self._drain_compact = drain_compact
         #: "native" or "python": the route the last `pack` took.
         self.pack_route: Optional[str] = None
         self._packer = None
@@ -402,8 +462,9 @@ class BatchedDeviceNFA:
         #: unless the caller passes `registry=` to aggregate.
         self.metrics = registry if registry is not None else MetricsRegistry()
         self.timings = BatchTimings(registry=self.metrics)
-        #: The step kernel's signatures (module doc).
-        self.compile_watch = CompileWatch(self.metrics)
+        #: The step kernel's signatures (module doc); None with
+        #: compile_telemetry off.
+        self.compile_watch = CompileWatch(self.metrics) if compile_telemetry else None
         self._watch_advance(self._advance)
         if not 0.0 <= float(provenance_sample) <= 1.0:
             raise ValueError(f"provenance_sample must be in [0, 1], got {provenance_sample}")
@@ -429,7 +490,7 @@ class BatchedDeviceNFA:
             "cep_engine_info",
             "Engine identity (value 1; labels carry the resolved config)",
             labels=("instance", "engine", "drain_mode"),
-        ).labels(instance=inst, engine=self.engine, drain_mode="flat").set(1)
+        ).labels(instance=inst, engine=self.engine, drain_mode=self.drain_mode).set(1)
 
         def gauge(name: str, doc: str):
             return r.gauge(name, doc, labels=("instance",)).labels(instance=inst)
@@ -494,7 +555,7 @@ class BatchedDeviceNFA:
         ).labels(query=q)
         sink_matches = r.counter(
             "cep_sink_matches_total",
-            "Matches decoded straight to sink bytes (sink_format json)",
+            "Matches decoded straight to sink bytes (sink_format json/arrow)",
             labels=("query", "format"),
         )
         sink_bytes = r.counter(
@@ -835,7 +896,7 @@ class BatchedDeviceNFA:
 
     def drain(self) -> Dict[Any, List[Any]]:
         """Decode and clear all pending matches (a host sync point):
-        `Sequence`s, or `SinkMatch`es with sink_format="json". Matches of
+        `Sequence`s, or `SinkMatch`es with sink_format="json"/"arrow". Matches of
         earlier engine-initiated drains come first in every key's list.
         With exact replay armed, the keys whose folds diverged in the
         interval get the oracle's matches instead (`_replay_boundary`).
@@ -1058,9 +1119,10 @@ class BatchedDeviceNFA:
 
     # ------------------------------------------------------------ internals
     def _watch_advance(self, advance: Any) -> None:
-        """Count the step kernel's signature in `compile_watch`; on the
-        card build (or load) it now, timed, so a failed build raises
-        here. The plain step (engine="torch") has no kernel."""
+        """Count the step kernel's signature in `compile_watch` (when
+        there is one); on the card build (or load) it now, timed, so a
+        failed build raises here. The plain step (engine="torch") has no
+        kernel."""
         if not isinstance(advance, NfaStep):
             return
         seconds = None
@@ -1068,7 +1130,9 @@ class BatchedDeviceNFA:
             t0 = time.perf_counter()
             advance.library()
             seconds = time.perf_counter() - t0
-        self.compile_watch.observe("nfa_step", kernel_signature(self.query, advance.config), seconds)
+        if self.compile_watch is not None:
+            self.compile_watch.observe(
+                "nfa_step", kernel_signature(self.query, advance.config), seconds)
 
     def _shutdown_worker(self) -> None:
         if self._decode_pool is not None:
@@ -1119,13 +1183,16 @@ class BatchedDeviceNFA:
         the region ++ window view, so a pull keeps the GC cadence; with
         exact replay armed it flushes the group first instead, so the
         interval's snapshot (taken at a drain) resolves every node id
-        against its own pool."""
+        against its own pool. The pool drain flushes the group too."""
         self._last_pull_t = time.perf_counter()
-        if self.exact_replay:
-            self._flush_group()
-            raw = self._pull_raw_flat(self.pool)
-        else:
+        if self.drain_mode == "flat" and not self.exact_replay:
             raw = self._pull_raw_flat(self._window_pool_view())
+        else:
+            self._flush_group()
+            if self.drain_mode == "flat":
+                raw = self._pull_raw_flat(self.pool)
+            else:
+                raw = self._pull_raw_pool()
         if raw is not None:
             raw["trigger"] = trigger
         return raw
@@ -1143,19 +1210,23 @@ class BatchedDeviceNFA:
     def _decode_job(
         self, raw: Dict[str, Any], events: Dict[int, Event],
     ) -> Tuple[Dict[Any, List[Any]], Dict[str, float]]:
-        """On the worker: wait for the table's copy (its CUDA event), then
-        decode it (provenance sampled under the pull's trigger). Returns
-        the matches and the pull's (copy wait included) and decode's
-        walls and bytes."""
+        """On the worker: wait for the flat table's copy (its CUDA event),
+        then decode the pulled table (provenance sampled under the pull's
+        trigger). Returns the matches and the pull's (copy wait included)
+        and decode's walls and bytes."""
         t0 = time.perf_counter()
         event = raw.pop("event", None)
         if event is not None:
             event.synchronize()
         raw.pop("source", None)  # the device table, alive until the copy landed
-        if isinstance(raw["table"], torch.Tensor):
+        if isinstance(raw.get("table"), torch.Tensor):
             raw["table"] = raw["table"].numpy()
         t1 = time.perf_counter()
-        decoded = self._decode_flat(raw, raw.get("trigger", "drain"), events)
+        trigger = raw.get("trigger", "drain")
+        if "table" in raw:
+            decoded = self._decode_flat(raw, trigger, events)
+        else:
+            decoded = self._decode_pool_raw(raw, trigger, events)
         return decoded, {"pull_s": raw["pull_s"] + (t1 - t0),
                          "decode_s": time.perf_counter() - t1, "bytes": raw["bytes"]}
 
@@ -1247,8 +1318,8 @@ class BatchedDeviceNFA:
                 continue
             self.replays += 1
             self._m_replays.inc()
-            if matches and self.sink_format == "json":
-                matches = [sink_match_from_sequence(m, "json") for m in matches]
+            if matches and self.sink_format != "objects":
+                matches = [sink_match_from_sequence(m, self.sink_format) for m in matches]
             if matches:
                 out[key] = matches
             else:
@@ -1442,14 +1513,8 @@ class BatchedDeviceNFA:
                 self.pool = drain_pend(self.pool)
             self._ring_cleared()
             return None
-        Mb = 1
-        while Mb < max(int(counts.max()), 1):
-            Mb <<= 1
-        Mb = min(Mb, pool_view["pend"].shape[0])
-        Cb = 1
-        while Cb < max(int(probe[2].max()), 1):
-            Cb <<= 1
-        Cb = min(Cb, pool_view["node_event"].shape[0])
+        Mb = pow2_at_least(int(counts.max()), pool_view["pend"].shape[0])
+        Cb = pow2_at_least(int(probe[2].max()), pool_view["node_event"].shape[0])
         source = build_chain_flatten(Mb, Cb)(pool_view)
         event = None
         if source.device.type == "cuda":
@@ -1468,12 +1533,50 @@ class BatchedDeviceNFA:
                 "pull_s": time.perf_counter() - t0,
                 "bytes": int(probe.nbytes + source.numel() * source.element_size())}
 
+    def _pull_raw_pool(self) -> Optional[Dict[str, Any]]:
+        """The pool drain's pull (module doc): one [2, K] probe (counts,
+        cursors), then `drain_compact` -- the closure marked from the
+        ring's occupied prefix, whose extent the probe gives, and
+        compacted to its rank space -- and the remapped ring's valid ids
+        moved to each key's front; the ring sliced at pow2(max count) and
+        the closure's [3, Bb, K] planes at pow2(max closure) are copied to
+        the host, synchronously. Clears the ring. The pending and ring
+        gauges ride the probe."""
+        t0 = time.perf_counter()
+        both = torch.stack([self.pool["pend_count"], self.pool["pend_pos"]]).cpu().numpy()
+        counts = both[0]
+        self._m_pending.set(int(counts.sum()))
+        self._m_pend_occupancy.set(int(both[1].max()))
+        if counts.sum() == 0:
+            if int(both[1].max()) > 0:
+                self.pool = drain_pend(self.pool)
+            self._ring_cleared()
+            return None
+        B, M = self.pool["node_event"].shape[0], self.pool["pend"].shape[0]
+        pend_r, nodes3, pcount = self._drain_compact(self.pool, int(both[1].max()))
+        compacted, _ = compact_valid_front(pend_r)
+        Bb = pow2_at_least(int(pcount.max()), B)
+        Mb = pow2_at_least(int(counts.max()), M)
+        pulled = nodes3[:, :Bb].cpu().numpy()  # one [3, Bb, K] copy
+        pend_np = compacted[:Mb].cpu().numpy()
+        self.pool = drain_pend(self.pool)
+        self._ring_cleared()
+        return {
+            "counts": counts,
+            "pend": pend_np.T,                  # [K, Mb]
+            "node_event": pulled[0].T,          # [K, Bb], closure-rank ids
+            "node_name": pulled[1].T,
+            "node_pred": pulled[2].T,
+            "pull_s": time.perf_counter() - t0,
+            "bytes": int(pulled.nbytes + pend_np.nbytes + both.nbytes),
+        }
+
     def _decode_flat(
         self, raw: Dict[str, Any], trigger: str = "drain",
         events: Optional[Dict[int, Event]] = None,
     ) -> Dict[Any, List[Any]]:
         """Decode the flat [3, Mb, Cb, K] table (host numpy) into per-key
-        `Sequence`s (`SinkMatch`es with sink_format="json") against the
+        `Sequence`s (`SinkMatch`es with a bytes sink_format) against the
         event registry `events` (default: the engine's): hops are
         newest-first, hops with gidx < 0 (a GC-dropped put) are skipped
         while the chain goes on, and an all-dead chain decodes to nothing.
@@ -1484,8 +1587,8 @@ class BatchedDeviceNFA:
         counts = np.ascontiguousarray(raw["counts"], np.int32)
         # [3, Mb, Cb, K] -> per-plane [K, Mb, Cb] strided views (no copy).
         gidx, name, live = (np.moveaxis(table[i], -1, 0) for i in range(3))
-        if self.sink_format == "json":
-            out = self._decode_flat_json(counts, gidx, name, live, events)
+        if self.sink_format != "objects":
+            out = self._decode_flat_bytes(counts, gidx, name, live, events)
             if self.provenance_sample > 0.0 and out:
                 self._sample_bytes_provenance(trigger, counts, gidx, name, live, out, events)
             return out
@@ -1501,6 +1604,58 @@ class BatchedDeviceNFA:
         self._attach_provenance(out, trigger)
         return out
 
+    def _decode_pool_raw(
+        self, raw: Dict[str, Any], trigger: str = "drain",
+        events: Optional[Dict[int, Event]] = None,
+    ) -> Dict[Any, List[Any]]:
+        """Decode a pool drain's pulled ring ([K, Mb]) and closure planes
+        ([K, Bb]) into per-key `Sequence`s (stacked queries: `(qid,
+        Sequence)` pairs): the native `decode_matches`, or the vectorized
+        Python walk (`decode_chains`, native=False), the JAX engine's
+        reference. Each key's first counts[k] ring entries walk in ring
+        order; a -1 entry (a chain a GC nulled under region overflow,
+        which node_drops counts) and an all-dead chain decode to nothing.
+        Sampled matches get their provenance here."""
+        if events is None:
+            events = self._events
+        qid_tab = self.query.qid_of_name_id
+        counts = np.ascontiguousarray(raw["counts"], np.int32)
+        if self.native:
+            per_key = self._native_decoder().decode_matches(
+                counts, raw["pend"], raw["node_event"], raw["node_name"], raw["node_pred"],
+                self.query.name_of_id, events, Staged, Sequence,
+                None if qid_tab is None else np.ascontiguousarray(qid_tab, np.int32))
+            out = {self.keys[k]: seqs for k, seqs in enumerate(per_key) if seqs}
+        else:
+            out = self._decode_pool_raw_python(raw, events)
+        self._attach_provenance(out, trigger)
+        return out
+
+    def _decode_pool_raw_python(self, raw: Dict[str, Any],
+                            events: Dict[int, Event]) -> Dict[Any, List[Any]]:
+        """The pool walk in numpy + Python: every key's planes flattened
+        into one index space, every chain walked in one vectorized pass."""
+        qid_tab = self.query.qid_of_name_id
+        pend, node_event = raw["pend"], raw["node_event"]
+        node_name, node_pred = raw["node_name"], raw["node_pred"]
+        K, B = node_event.shape
+        key_base = (np.arange(K, dtype=np.int64) * B)[:, None]
+        flat_pred = np.where(node_pred >= 0, node_pred + key_base, -1).reshape(-1)
+        counts = np.asarray(raw["counts"], np.int64)
+        jmask = np.arange(pend.shape[1])[None, :] < counts[:, None]
+        ks, js = np.nonzero(jmask)  # row-major: each key's ring order
+        vals = pend[ks, js].astype(np.int64)
+        starts = np.where(vals >= 0, vals + ks * B, -1)
+        chains = decode_chains(starts, node_name.reshape(-1), node_event.reshape(-1), flat_pred)
+        out: Dict[Any, List[Any]] = {}
+        for k, chain in zip(ks.tolist(), chains):
+            if not chain:
+                continue
+            seq = materialize_sequence(chain, self.query.name_of_id, events)
+            out.setdefault(self.keys[k], []).append(
+                seq if qid_tab is None else (int(qid_tab[chain[0][0]]), seq))
+        return out
+
     def _native_decoder(self):
         if self._decoder is None:
             from ..native import load_decoder
@@ -1508,19 +1663,30 @@ class BatchedDeviceNFA:
             self._decoder = load_decoder()
         return self._decoder
 
-    def _decode_flat_json(self, counts, gidx, name, live, events) -> Dict[Any, List[SinkMatch]]:
-        """The sink-to-bytes decode: JSON payloads and ident frames from
-        the native decoder (or `sink_match_from_sequence` of the Python
-        walk), counted in `cep_sink_matches_total`/`cep_sink_bytes_total`."""
+    def _decode_flat_bytes(self, counts, gidx, name, live, events) -> Dict[Any, List[SinkMatch]]:
+        """The sink-to-bytes decode: JSON payloads, or Arrow column
+        buffers wrapped into IPC streams, and ident frames from the native
+        decoder (or `sink_match_from_sequence` of the Python walk),
+        counted in `cep_sink_matches_total`/`cep_sink_bytes_total`."""
+        fmt = self.sink_format
         if not self.native:
-            out = {k: [sink_match_from_sequence(s, "json") for s in v]
+            out = {k: [sink_match_from_sequence(s, fmt) for s in v]
                    for k, v in self._decode_flat_python(counts, gidx, name, live, events).items()}
         else:
-            per_key = self._native_decoder().decode_matches_json(
-                counts, gidx, name, live, self.query.name_of_id, events,
-                Staged, Sequence, json_fragment)
-            out = {self.keys[k]: [SinkMatch("json", *item) for item in items]
-                   for k, items in enumerate(per_key) if items}
+            dec = self._native_decoder()
+            fn = dec.decode_matches_json if fmt == "json" else dec.decode_matches_arrow
+            per_key = fn(counts, gidx, name, live, self.query.name_of_id, events,
+                         Staged, Sequence, json_fragment)
+            out = {}
+            for k, items in enumerate(per_key):
+                if not items:
+                    continue
+                if fmt == "json":
+                    out[self.keys[k]] = [SinkMatch(fmt, *item) for item in items]
+                else:
+                    out[self.keys[k]] = [
+                        SinkMatch(fmt, arrow_ipc_from_columns(so, sd, vo, vd, rows), ident, last)
+                        for so, sd, vo, vd, rows, ident, last in items]
         n_matches = sum(len(v) for v in out.values())
         if n_matches:
             self._m_sink_matches.inc(n_matches)

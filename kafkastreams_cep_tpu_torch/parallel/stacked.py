@@ -17,11 +17,14 @@ Matches route back to their owning query by the chain's stage-name id
 (`qid_of_name_id`); per-query outputs equal running each query on its
 own engine (tests/test_torch_stacked.py pins the equivalence).
 
-Differences from the JAX class, both the port's `BatchedDeviceNFA`'s:
-`device=` and `engine=` ("cuda" | "torch") pass through; `mesh=` is
-refused (multi-card sharding is not ported) and `drain_mode` takes only
-"flat". A stacked query has no host stages, so exact replay is off and a
-fold divergence warns (the JAX behaviour).
+`drain_mode` passes through as in the JAX class: "flat" (the default) or
+"pool", whose `decode_matches` carries the same attribution
+(`qid_of_name_id`). Differences from the JAX class, both the port's
+`BatchedDeviceNFA`'s: `device=` and `engine=` ("cuda" | "torch") and the
+engine's other options pass through; `mesh=` is refused (multi-card
+sharding is not ported). A stacked query has no host stages, so exact
+replay is off and a fold divergence warns (the JAX behaviour); the bytes
+sinks are refused (their bytes carry no query).
 """
 from __future__ import annotations
 
@@ -56,9 +59,7 @@ class StackedQueryEngine:
         **opts: Any,
     ) -> None:
         if mesh is not None:
-            raise ValueError("mesh= is not ported (ROADMAP.md item A 12)")
-        if drain_mode != "flat":
-            raise ValueError(f"drain_mode {drain_mode!r} is not ported; the port drains 'flat'")
+            raise ValueError("mesh= is not ported (ROADMAP.md queue A, multi-GPU key sharding)")
         self.query = compile_multi_query(named_queries, schema)
         self.query_names: List[str] = list(self.query.query_names or [])
         self.engine = BatchedDeviceNFA(
@@ -68,6 +69,7 @@ class StackedQueryEngine:
             device=device,
             engine=engine,
             auto_drain=auto_drain,
+            drain_mode=drain_mode,
             **opts,
         )
 

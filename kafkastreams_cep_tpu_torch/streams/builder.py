@@ -11,9 +11,12 @@ and, through `.to(topic)`, a sink topic of the builder's `RecordLog`.
 Runtimes:
   * "cuda" (the port's default): `DeviceCEPProcessor`, the batched
     engine and its step kernel on the card. `device=`, `engine=`,
-    `config=`, `batch_size=`, `initial_keys=`, `sink_format=`, `native=`,
-    `auto_drain=`, `target_emit_ms=`, `provenance_sample=` and
-    `watermark_gen=` pass through to the processor and its engine. A
+    `config=`, `batch_size=`, `initial_keys=`, `sink_format=` ("objects",
+    "json" or "arrow"), `drain_mode=` ("flat" or "pool"), `native=`,
+    `auto_drain=`, `target_emit_ms=`, `provenance_sample=`,
+    `compile_telemetry=` and `watermark_gen=` pass through to the
+    processor and its engine, as does every other keyword of
+    `BatchedDeviceNFA`; the JAX engine's `mesh=` is not one of them. A
     config with `reorder_capacity > 0` arms the processor's event-time
     gate.
   * "host": the per-record `CEPProcessor` (streams/processor.py) over the
@@ -683,7 +686,7 @@ class Topology:
         """Route [(key, Sequence | SinkMatch)] results downstream.
 
         Record metadata comes from the match's completing (last) event. A
-        SinkMatch (sink_format="json") is admitted by its ident frames
+        SinkMatch (sink_format "json" or "arrow") is admitted by its ident frames
         (`admit_ident`, bitwise the digest `admit` gives the same match)
         and sinks its pre-serialized payload."""
         emitted: List[Record] = []

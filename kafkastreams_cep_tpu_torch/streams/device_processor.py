@@ -55,10 +55,11 @@ class DeviceCEPProcessor(Generic[K, V]):
 
     `process()` enqueues and flushes once `batch_size` records are
     pending; `flush()` forces the pending micro-batch through the engine
-    and returns [(key, Sequence)] in per-key emission order. With
-    `sink_format="json"` (one of `**engine_opts`, which pass through to
-    `BatchedDeviceNFA`, as do `device=` and `engine=`) every flush yields
-    `(key, SinkMatch)` pairs instead.
+    and returns [(key, Sequence)] in per-key emission order.
+    `**engine_opts` pass through to `BatchedDeviceNFA` (`device=`,
+    `engine=`, `drain_mode=`, `sink_format=`, `compile_telemetry=`, ...).
+    With `sink_format="json"` or `"arrow"` every flush yields `(key,
+    SinkMatch)` pairs instead.
     """
 
     #: Flush count after which a persistently tiny key population warns:

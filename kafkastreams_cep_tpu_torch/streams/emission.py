@@ -58,7 +58,7 @@ def identity_prefix(query: str, key: Any) -> bytes:
 
 def sequence_ident_frames(seq: Sequence) -> bytes:
     """The per-stage identity frame suffix of `sequence_identity`: what
-    the native sink-to-bytes decoder (decoder.cc emit_json) emits as
+    the native sink-to-bytes decoder (decoder.cc emit_bytes) emits as
     `ident`, byte-for-byte -- `EmissionGate.admit_ident` hashes
     `identity_prefix + frames` and must equal `admit`'s digest."""
     out = bytearray()

@@ -4,9 +4,15 @@ package's `streams/serde.py`).
 `sequence_to_json` reproduces the reference's output JSON shape byte for
 byte (reference: core/.../cep/JsonSequenceSerde.java:26-85) for the stock
 demo golden outputs. `SinkMatch` is what the sink-to-bytes decode
-(`sink_format="json"`, native/decoder.cc `decode_matches_json`) emits in
-place of a `Sequence`; `sink_match_from_sequence` is the host-Python
-reference for those bytes. `Queried` carries a query's event schema.
+(`sink_format="json"` or `"arrow"`, native/decoder.cc
+`decode_matches_json` / `decode_matches_arrow`) emits in place of a
+`Sequence`; `sink_match_from_sequence` is the host-Python reference for
+those bytes. `Queried` carries a query's event schema.
+
+The Arrow payload is one IPC stream of one record batch, a row per
+matched event (`ARROW_SINK_COLUMNS`). `pyarrow` is imported only when an
+Arrow payload is built or its schema asked for, so nothing else of the
+package needs it.
 """
 from __future__ import annotations
 
@@ -43,6 +49,12 @@ def sequence_to_json(sequence: Sequence) -> str:
     return json.dumps(sequence_to_dict(sequence), separators=(",", ":"))
 
 
+#: Arrow sink column names: one row per matched event, in
+#: Sequence.matched order. `value` holds the compact JSON fragment of
+#: `_event_value_repr(e.value)`, so any value type stays exact.
+ARROW_SINK_COLUMNS = ("stage", "value")
+
+
 def json_fragment(value: Any) -> str:
     """Compact JSON of one value -- the encoding `sequence_to_json` uses
     per event, and what the native decoder calls back into for any value
@@ -55,10 +67,63 @@ def sequence_to_json_bytes(sequence: Sequence) -> bytes:
     return sequence_to_json(sequence).encode("utf-8")
 
 
+def _arrow():
+    try:
+        import pyarrow as pa
+    except ImportError as e:
+        raise ImportError("sink_format='arrow' requires pyarrow (not installed)") from e
+    return pa
+
+
+def arrow_sink_schema():
+    """The per-match Arrow sink schema (stage: utf8, value: utf8)."""
+    pa = _arrow()
+    return pa.schema([(c, pa.utf8()) for c in ARROW_SINK_COLUMNS])
+
+
+def _arrow_ipc(stage_arr, value_arr) -> bytes:
+    pa = _arrow()
+    batch = pa.record_batch([stage_arr, value_arr], schema=arrow_sink_schema())
+    sink = pa.BufferOutputStream()
+    with pa.ipc.new_stream(sink, batch.schema) as w:
+        w.write_batch(batch)
+    return sink.getvalue().to_pybytes()
+
+
+def sequence_to_arrow_ipc(sequence: Sequence) -> bytes:
+    """Reference Arrow sink payload: one IPC stream holding one record
+    batch, one row per matched event (what the wrapped
+    decode_matches_arrow buffers serialize to)."""
+    pa = _arrow()
+    stages = [st.stage for st in sequence.matched for _ in st.events]
+    values = [json_fragment(_event_value_repr(e.value))
+              for st in sequence.matched for e in st.events]
+    return _arrow_ipc(pa.array(stages, pa.utf8()), pa.array(values, pa.utf8()))
+
+
+def arrow_ipc_from_columns(
+    stage_off: bytes,
+    stage_data: bytes,
+    value_off: bytes,
+    value_data: bytes,
+    rows: int,
+) -> bytes:
+    """Wrap the native decoder's raw column buffers (int32 offsets + utf8
+    data per string column) without a copy into the IPC stream
+    `sequence_to_arrow_ipc` produces."""
+    pa = _arrow()
+    stage = pa.Array.from_buffers(
+        pa.utf8(), rows, [None, pa.py_buffer(stage_off), pa.py_buffer(stage_data)])
+    value = pa.Array.from_buffers(
+        pa.utf8(), rows, [None, pa.py_buffer(value_off), pa.py_buffer(value_data)])
+    return _arrow_ipc(stage, value)
+
+
 class SinkMatch:
     """One decoded match already serialized to sink bytes.
 
-    `payload` is the sink record value (JSON text), `ident` the per-stage
+    `payload` is the sink record value (JSON text or an Arrow IPC
+    stream), `ident` the per-stage
     identity frames the EmissionGate digests (`admit_ident` -- digest
     parity with `admit(key, seq)` on the same match), `last_event` the
     completing event carrying the Record timestamp/topic/partition/offset.
@@ -145,13 +210,14 @@ def sink_match_from_sequence(sequence: Sequence, format: str) -> SinkMatch:
     native path emits."""
     from .emission import sequence_ident_frames
 
-    if format != "json":
+    if format == "json":
+        payload = sequence_to_json_bytes(sequence)
+    elif format == "arrow":
+        payload = sequence_to_arrow_ipc(sequence)
+    else:
         raise ValueError(f"unknown sink format {format!r}")
     last = sequence.matched[-1].events[-1] if sequence.matched else None
-    return SinkMatch(
-        format, sequence_to_json_bytes(sequence), sequence_ident_frames(sequence),
-        last, sequence,
-    )
+    return SinkMatch(format, payload, sequence_ident_frames(sequence), last, sequence)
 
 
 class Queried:

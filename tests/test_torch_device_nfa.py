@@ -11,7 +11,8 @@ plain GC mark; chip_smoke.py runs the kernels):
     the native decoder and, at its batch splits, through the Python pool
     walk (`decode_chains`), and the stock golden (4 matches);
   * against the JAX `DeviceNFA` (its XLA step) at both packages'
-    defaults: matches, and state and pool bitwise after every advance
+    defaults, each drain through the native `decode_matches` (the JAX
+    class's pool route): matches, and state and pool bitwise after every advance
     (each drain flushes the GC group), on the skip-till-any scenario,
     the fold scenario, tests/test_watermarks.py's skip-till-any pattern
     with a watermark column, and tests/test_torch_replay.py's fold seed
@@ -294,6 +295,21 @@ def _jax_pair(name):
     return dj, dp, ej, ep, bs, wm
 
 
+class _CountingDecoder:
+    """The native decoder, counting the pool decodes (`decode_matches`)
+    and refusing the flat table decode the engine no longer takes."""
+
+    def __init__(self):
+        from kafkastreams_cep_tpu_torch.native import load_decoder
+
+        self._dec = load_decoder()
+        self.calls = 0
+
+    def decode_matches(self, *args):
+        self.calls += 1
+        return self._dec.decode_matches(*args)
+
+
 def _same_state(dj, dp):
     for tree_j, tree_p in ((dj.state, dp.state), (dj.pool, dp.pool)):
         bad = [n for n in tree_j
@@ -315,7 +331,9 @@ def test_equals_the_jax_device_nfa_state_for_state(name):
     dj, dp, ej, ep, bs, wm = _jax_pair(name)
     drain_every = JAX_CASES[name][4]
     assert dp.exact_replay == dj.exact_replay
-    total = 0
+    # The drain goes the JAX class's pool route, through decode_matches.
+    dp._decoder = decoder = _CountingDecoder()
+    total = drains = fruitful = 0
     starts = range(0, len(ej), bs)
     for n, i in enumerate(starts):
         drained = (n + 1) % drain_every == 0 or i == starts[-1]
@@ -324,7 +342,12 @@ def test_equals_the_jax_device_nfa_state_for_state(name):
         total += len(mj)
         if drained:
             _same_state(dj, dp)  # each drain flushed the group
+            drains += 1
+            fruitful += bool(mp)
     assert total > 0
+    # One decode_matches call a drain with pending matches (and none for
+    # an empty ring); the decoder has no flat entry point to call.
+    assert 0 < fruitful <= decoder.calls <= drains
     if name.endswith("lane_drops"):
         assert dp.stats["lane_drops"] > 0
     assert dp.runs == dj.runs and dp.n_live == dj.n_live and dp.stats == dj.stats

@@ -22,7 +22,8 @@ over stacked and wide tables is tests/test_torch_step.py's):
     matches at every drain and the same snapshot bytes;
   * query attribution: the native decoder and the Python walk give the
     same (qid, Sequence) pairs, provenance names a match by its query,
-    and the JSON sink, the mesh and other drain modes are refused;
+    the JSON sink, the mesh and unknown drain modes are refused, and the
+    pool drain is accepted;
   * the wide stack (eight rotations of the flagship pattern: 72 stages,
     120 predicates) per query equals eight independent engines.
 The EngineConfigs are the JAX tests', so the JAX side reuses their
@@ -228,7 +229,10 @@ def test_stacked_engine_refuses_json_sinks_meshes_and_other_drain_modes():
     with pytest.raises(ValueError, match="mesh"):
         StackedQueryEngine(make(P), keys=keys, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="drain_mode"):
-        StackedQueryEngine(make(P), keys=keys, device="cpu", drain_mode="pool")
+        StackedQueryEngine(make(P), keys=keys, device="cpu", drain_mode="chains")
+    # The pool drain is ported (tests/test_torch_pool_drain.py holds it).
+    assert StackedQueryEngine(make(P), keys=keys, device="cpu",
+                              drain_mode="pool").engine.drain_mode == "pool"
 
 
 def test_wide_stack_per_query_equals_independent_engines():

@@ -19,8 +19,11 @@ EngineConfig so the JAX side compiles once per key extent:
     sink_format "objects" and "json", each against one JAX objects run
     (the JAX package pins its json bytes and digests to its objects
     run's);
-  * options the port lacks raise; every sink key carries a distinct
-    emission digest;
+  * options the port lacks (`mesh=`, `runtime="tpu"`, an unknown
+    keyword) raise, `compile_cost_estimates=True` raises, and the ported
+    ones (`drain_mode="pool"`, `sink_format="arrow"`, the host and auto
+    runtimes, `target_emit_ms`) reach the engine; every sink key carries
+    a distinct emission digest;
   * a record the schema cannot pack is quarantined alone, while a failed
     native build or a failure after the step raises out of the topology
     and re-runs nothing.
@@ -144,12 +147,14 @@ def _opt_id(case):
 # Options of the JAX engine the port has no parameter for raise TypeError
 # from the signature; values the port cannot honour raise ValueError. The
 # cases whose expected error is None were ported since (the host and auto
-# runtimes, the micro-drain dial) and must now be accepted.
+# runtimes, the micro-drain dial, the pool drain and the Arrow sink) and
+# must now be accepted; compile_cost_estimates=True is a parameter now
+# and raises ValueError (an nvcc build has no cost model).
 @pytest.mark.parametrize("opt", [
     ({"runtime": "host"}, None), ({"runtime": "tpu"}, ValueError),
-    ({"sink_format": "arrow"}, ValueError),
-    ({"compile_cost_estimates": True}, TypeError),
-    ({"target_emit_ms": 5.0}, None), ({"drain_mode": "pool"}, TypeError),
+    ({"sink_format": "arrow"}, None),
+    ({"compile_cost_estimates": True}, ValueError),
+    ({"target_emit_ms": 5.0}, None), ({"drain_mode": "pool"}, None),
     ({"mesh": object()}, TypeError),
     ({"runtime": "auto"}, None),
 ], ids=_opt_id)
@@ -162,17 +167,18 @@ def test_unported_options_raise(opt):
         return
     out = P.ComplexStreamsBuilder().stream("letters").query("q", letters_pattern(), **opts)
     proc = out.node.processor
-    if "target_emit_ms" in opt:
-        assert proc.engine.target_emit_ms == 5.0
-    else:
+    if "runtime" in opt:
         assert out.node.runtime == opt["runtime"]
         assert proc.runtime == "host" if opt["runtime"] == "auto" else proc.gate is None
+    else:
+        (name, value), = opt.items()
+        assert getattr(proc.engine, name) == value
 
 
 def test_unknown_engine_option_raises():
     with pytest.raises(TypeError):
         P.ComplexStreamsBuilder().stream("letters").query(
-            "q", letters_pattern(), runtime="cuda", device="cpu", compile_telemetry=False)
+            "q", letters_pattern(), runtime="cuda", device="cpu", no_such_engine_option=False)
 
 
 def test_sink_keys_carry_the_gate_digest_and_dedupe_replays():
