@@ -5,8 +5,9 @@
 
 Builds the step kernel from csrc/ with nvcc (one build per compiled query
 and capacity, the flagship's grown shape, phase 18's arm shape, the
-fold query of phase 13 and the stacked and single queries of phases
-20-21 included; the event-time phases and phases 22-23 reuse the
+fold query of phase 13, the stacked and single queries of phases
+20-21 and phase 25's soak hotspot included; the event-time phases and
+phases 22-24 reuse the
 flagship's build, and the shapes phase 18's autosizer grows to build
 inside that phase, timed), the group flush's GC mark and sweep kernels
 (csrc/gc_mark.cu and csrc/gc_sweep.cu, one build each) and the native
@@ -223,12 +224,39 @@ then:
      `decode_matches_arrow` and `decode_matches_json` (no pyarrow on the
      card): equal idents, Arrow rows == events. Prints the phase's
      seconds;
- 24. prints the kernel line (with the `wm`, `auto`, `controllers`,
-     `paced_driver`, `config4_stacked`, `wide_stack` and `single_key`
-     runs' numbers under nfa_step, gc_mark and gc_sweep, the grown
-     shapes' times and bounds among them, and the pool drain's walk as
-     gc_mark's `pool_drain` call site), the card line, and last the ok
-     line.
+ 24. a live shard migration at the flagship: phase 15's first
+     FLEET_BATCHES (4) batches, all 2048 keys, through `produce()` into a
+     `PartitionedRecordLog` over 3 in-process brokers (key k_i on
+     partition i % 4); two `ShardPipeline`s own partitions {0, 1} and
+     {2, 3}, a third owns all four (the reference: one pipeline, no
+     migration), each the gated flagship query at initial_keys 2048
+     (min-merge over its partitions); a round produces one batch and
+     polls every pipeline. After round 2, shard 0 is fenced,
+     checkpointed, restored on the card in a successor over another view
+     and resumed. Checks: the union of the shards' sinks equals the
+     reference's per key, each match once; the successor resumed at the
+     committed positions, not at 0; its first group flush holds every
+     gc_mark launch bitwise to `_walk` and the gc_sweep launch to
+     `_sweep`, its first step bitwise to the plain step; late 0, drops
+     0. Prints the checkpoint's bytes, the ms to fence, checkpoint,
+     close, restore and resume, records/s of each pipeline before and
+     after the move, and the launches;
+ 25. the soak entry: `python -m kafkastreams_cep_tpu_torch.faults soak
+     --quick --runtime mixed --transport socket --brokers 3` in a
+     subprocess (the hotspot on the card, loopback socket brokers, one
+     seeded broker kill and salvage rebalance, FleetController, the
+     scraper, chaos). Checks: exit 0, every SLO held
+     (`emission_integrity` included), platform "cuda", the hotspot on
+     "cuda", the artifact valid under faults/soak_schema.py, and the
+     first launch of each kernel at every shape the soak meets bitwise
+     to its plain version (`soak_child`); prints the summary line, each
+     SLO's value, the shapes checked and the launches;
+ 26. prints the kernel line (with the `wm`, `auto`, `controllers`,
+     `paced_driver`, `config4_stacked`, `wide_stack`, `single_key` and
+     `fleet` runs' numbers under nfa_step, gc_mark and gc_sweep, the
+     grown shapes' times and bounds among them, and the pool drain's
+     walk as gc_mark's `pool_drain` call site), the card line, and last
+     the ok line.
 
 Phases 20-22 each also hold both GC kernels to their plain versions on
 one captured flush, as phase 12 does (the wide stack's bitmaps must stay
@@ -245,6 +273,7 @@ import ctypes
 import gc
 import json
 import random
+import runpy
 import subprocess
 import sys
 import tempfile
@@ -258,6 +287,11 @@ import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
+#: Phase 24's depth: the first batches of phase 15's records (all keys).
+FLEET_BATCHES = 4
+#: Phase 25's soak, as a user runs it.
+SOAK_ARGS = ["soak", "--quick", "--runtime", "mixed", "--transport", "socket",
+             "--brokers", "3"]
 #: Phase 23's flagship batches through the pool drain (2 warm, 4 timed).
 POOL_WARM, POOL_BATCHES = 2, 6
 
@@ -362,6 +396,175 @@ def max_abs_diff(a: dict, b: dict) -> float:
     return max(float((a[n].double() - b[n].double()).abs().max()) for n in a if a[n].numel())
 
 
+def soak_child(argv: list) -> None:
+    """The body of phase 25's subprocess: `python -m
+    kafkastreams_cep_tpu_torch.faults` with `argv`, run through runpy with
+    the three kernels' wrappers watched. The first call of each wrapper
+    on the card at each shape it meets (the step at each engine shape the
+    autosizer builds, the mark and the sweep at each pool shape) is held
+    bitwise against its plain version -- `NfaStep._plain`
+    (build_plain_step), `_walk` and `_sweep` -- on a copy of the same
+    inputs; the launch counts are the wrappers' own, since the plain
+    versions launch nothing. Prints the launches and the checks on
+    stderr (LAUNCHES / CHECKS lines) and exits with the soak's code."""
+    from kafkastreams_cep_tpu_torch.ops import gc_kernel, gc_sweep, step_kernel
+
+    checks = {n: {"shapes": [], "max_abs_err": 0.0, "mismatches": []}
+              for n in ("nfa_step", "gc_mark", "gc_sweep")}
+    seen = set()
+
+    def copy(tree):
+        return {n: v.clone() for n, v in tree.items()}
+
+    def diff(a, b):
+        """0 when every leaf is bitwise equal, else the largest |a - b|
+        (inf where that is 0 or not a number)."""
+        if set(a) != set(b):
+            return float("inf")
+        worst = 0.0
+        for n in a:
+            if a[n].dtype != b[n].dtype or a[n].shape != b[n].shape:
+                return float("inf")
+            if not torch.equal(a[n], b[n]):
+                d = float((a[n].double() - b[n].double()).abs().max())
+                worst = max(worst, d if d > 0 else float("inf"))
+        return worst
+
+    def record(name, shape, err):
+        row = checks[name]
+        row["shapes"].append(shape)
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        if err != 0:
+            row["mismatches"].append(shape)
+
+    def fresh(name, key, device):
+        if device.type != "cuda" or (name, key) in seen:
+            return False
+        seen.add((name, key))
+        return True
+
+    step_call = step_kernel.NfaStep.__call__
+
+    def step_watched(self, state, xs):
+        (T, K), c = xs["valid"].shape, self.config
+        shape = f"T={T} K={K} lanes={c.lanes} nodes={c.nodes} matches={c.matches}"
+        if not fresh("nfa_step", (c, T, K), xs["valid"].device):
+            return step_call(self, state, xs)
+        s_in, x_in = copy(state), copy(xs)
+        s_out, ys = step_call(self, state, xs)
+        s_want, y_want = self._plain(s_in, x_in)
+        torch.cuda.synchronize()
+        record("nfa_step", shape, max(diff(s_out, s_want), diff(ys, y_want)))
+        return s_out, ys
+
+    mark_call = gc_kernel.GcMark.__call__
+
+    def mark_watched(self, marked, frontier, pred):
+        shape = f"BW={pred.shape[0]} K={pred.shape[1]}"
+        if not fresh("gc_mark", shape, pred.device):
+            return mark_call(self, marked, frontier, pred)
+        m_in, f_in = marked.clone(), frontier.clone()
+        got = mark_call(self, marked, frontier, pred)
+        want = gc_kernel._walk(m_in, f_in, pred)
+        torch.cuda.synchronize()
+        record("gc_mark", shape, diff({"marked": got}, {"marked": want}))
+        return got
+
+    sweep_call = gc_sweep.GcSweep.__call__
+
+    def sweep_watched(self, marked, marked_pin, state, pool, ys):
+        shape = (f"BW={marked.shape[0] - 1} K={marked.shape[1]} B={pool['node_event'].shape[0]}"
+                 f" lanes={state['node'].shape[0]} M={pool['pend'].shape[0]}")
+        if not fresh("gc_sweep", shape, pool["node_event"].device):
+            return sweep_call(self, marked, marked_pin, state, pool, ys)
+        args = (marked.clone(), marked_pin.clone(), copy(state), copy(pool), copy(ys))
+        got = sweep_call(self, marked, marked_pin, state, pool, ys)
+        want = gc_sweep._sweep(*args)
+        torch.cuda.synchronize()
+        record("gc_sweep", shape, diff(got, want))
+        return got
+
+    step_kernel.NfaStep.__call__ = step_watched
+    gc_kernel.GcMark.__call__ = mark_watched
+    gc_sweep.GcSweep.__call__ = sweep_watched
+    sys.argv = ["-m"] + list(argv)
+    try:
+        runpy.run_module("kafkastreams_cep_tpu_torch.faults", run_name="__main__",
+                         alter_sys=True)
+        rc = 0
+    except SystemExit as exc:
+        rc = exc.code
+    print("LAUNCHES " + json.dumps({"nfa_step": step_kernel.NfaStep.launches,
+                                    "gc_mark": gc_kernel.GcMark.launches,
+                                    "gc_sweep": gc_sweep.GcSweep.launches}), file=sys.stderr)
+    print("CHECKS " + json.dumps(checks), file=sys.stderr)
+    sys.exit(rc)
+
+
+def run_soak_entry() -> tuple:
+    """Phase 25: `python -m kafkastreams_cep_tpu_torch.faults` with
+    SOAK_ARGS in a subprocess (`soak_child`). Checks exit 0, every SLO
+    held, platform "cuda", the hotspot on the "cuda" runtime, the
+    artifact valid under faults/soak_schema.py, each kernel launched, and
+    each kernel's first launch at every shape of the run bitwise to its
+    plain version; returns the launch counts and those checks."""
+    from kafkastreams_cep_tpu_torch.faults.soak_schema import validate_soak
+
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_soak_") as tmp:
+        out = f"{tmp}/SOAK.json"
+        argv = SOAK_ARGS + ["--out", out, "--dir", f"{tmp}/work"]
+        code = (f"import sys; sys.path.insert(0, {str(root)!r}); import chip_smoke; "
+                f"chip_smoke.soak_child({argv!r})")
+        proc = subprocess.run([sys.executable, "-c", code], cwd=str(root),
+                              capture_output=True, text=True, timeout=300)
+        err = proc.stderr.splitlines()
+        if proc.returncode != 0:
+            raise AssertionError(f"soak exited {proc.returncode}: " + "\n".join(err[-30:]))
+        with open(out) as f:
+            doc = json.load(f)
+    launches = json.loads(next(line for line in err if line.startswith("LAUNCHES "))[9:])
+    checks = json.loads(next(line for line in err if line.startswith("CHECKS "))[7:])
+    summary = next(line for line in err if line.startswith("[soak] PASS") or
+                   line.startswith("[soak] FAIL"))
+    failed = [n for n, e in doc["slos"].items() if not e["ok"]]
+    if not doc["passed"] or failed:
+        raise AssertionError(f"soak: SLOs violated: {failed}")
+    if doc["soak"]["platform"] != "cuda" or doc["scenarios"]["hotspot"]["runtime"] != "cuda":
+        raise AssertionError(f"soak: platform {doc['soak']['platform']}, hotspot runtime "
+                             f"{doc['scenarios']['hotspot']['runtime']}")
+    errors = validate_soak(doc)
+    if errors:
+        raise AssertionError(f"soak artifact: {errors[:5]}")
+    for name, n in launches.items():
+        if int(n) <= 0:
+            raise AssertionError(f"soak: {name} was not launched")
+        row = checks[name]
+        if not row["shapes"]:
+            raise AssertionError(f"soak: no launch of {name} was held to its plain version")
+        if row["mismatches"]:
+            raise AssertionError(f"soak: {name} differs from its plain version (max |diff| "
+                                 f"{row['max_abs_err']}) at shapes {row['mismatches']}")
+    s = doc["soak"]
+    log(f"soak ({' '.join(SOAK_ARGS)}): {summary}")
+    log("soak SLOs: " + "; ".join(
+        f"{n} {'ok' if e['ok'] else 'VIOLATED'} value={e['value']} bound={e['bound']}"
+        + (" (excused)" if e["excused"] else "") for n, e in doc["slos"].items()))
+    for name, row in checks.items():
+        log(f"soak: {name} == its plain version bitwise at the first launch of each of the "
+            f"run's {len(row['shapes'])} shapes: {'; '.join(row['shapes'])}")
+    log(f"soak: platform {s['platform']}, hotspot runtime "
+        f"{doc['scenarios']['hotspot']['runtime']} ({doc['scenarios']['hotspot']['matches']} "
+        f"matches), {s['brokers']} brokers, {s['broker_kills']} broker kill(s), "
+        f"{s['rebalance_partitions_moved']} partitions ({s['rebalance_records_moved']} records) "
+        f"salvaged, {s['crashes']} crashes, controller ticks {doc['fleet'].get('ticks')}, "
+        f"{s['scrapes']} scrapes; artifact valid; launches {launches}; phase "
+        f"{time.perf_counter() - t0:.1f}s")
+    return launches, {n: {"checked_launches": len(row["shapes"]), "shapes": row["shapes"],
+                          "max_abs_err": row["max_abs_err"]} for n, row in checks.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -457,6 +660,15 @@ def main() -> int:
         P.compile_multi_query(stacked_models.rotated_skip_any_queries(17)),
         replace(flag_cfg, lanes=512, matches_per_step=128, nodes_per_step=512),
         skip_any.skip_any8_stream)
+    # Phase 25's soak: its hotspot query at its engine's shape (the
+    # subprocess finds the library built).
+    from kafkastreams_cep_tpu_torch.faults import soak as soak_mod
+    from kafkastreams_cep_tpu_torch.streams.device_processor import DeviceCEPProcessor
+
+    hot = soak_mod.build_fleet(0, "mixed", True, device="cpu")[0]
+    hot_eng = DeviceCEPProcessor(hot.query, hot.pattern_fn(), **hot.query_opts).engine
+    builds["soak_hotspot"] = (hot_eng.query, hot_eng.config, None)
+    del hot, hot_eng
 
     def timed_build(fn, *args):
         t = time.perf_counter()
@@ -1702,6 +1914,7 @@ def main() -> int:
     poison = (b"\x00not a pickle", b"\x00nor this")
     arrivals = [(k, shuffled[k][b * T + t]) for b in range(n_batches) for t in range(T)
                 for k in keys]
+    fleet_arrivals = arrivals[:FLEET_BATCHES * K * T]  # phase 24's
     del shuffled
 
     class LatencyRecorder:
@@ -2689,7 +2902,213 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- 24. the kernel line, the card line, the ok line ----------------------
+    # -- 24. live shard migration at the flagship: partitioned brokers -------
+    # Phase 15's first FLEET_BATCHES batches (all K keys, arrival order)
+    # go through produce() into a PartitionedRecordLog over 3 in-process
+    # brokers, key k_i on partition i % 4. Two ShardPipelines own
+    # partitions {0, 1} and {2, 3}; a third pipeline owns all four (the
+    # reference: the same records through one pipeline, no migration).
+    # Each pipeline's query is phase 15's gated flagship at full width
+    # (initial_keys K, the flagship EngineConfig, runtime="cuda"), its
+    # watermark a min-merge over its partitions. Each round produces one
+    # batch and polls every pipeline once; after round FLEET_BATCHES // 2
+    # shard 0 is fenced, checkpointed, restored on the card in a successor
+    # over another view of the brokers, and resumed.
+    from kafkastreams_cep_tpu_torch.state import serde as state_serde
+    from kafkastreams_cep_tpu_torch.streams.partition import PartitionedRecordLog
+    from kafkastreams_cep_tpu_torch.streams.rebalance import ShardPipeline
+
+    t_fleet = time.perf_counter()
+    shard_parts = {"s0": (0, 1), "s1": (2, 3), "ref": (0, 1, 2, 3)}
+    part_of = {k: i % 4 for i, k in enumerate(keys)}
+    brokers = [P.RecordLog() for _ in range(3)]
+    fleet_regs = {sid: MetricsRegistry() for sid in shard_parts}
+
+    def fleet_topology(log_, sid):
+        builder = P.ComplexStreamsBuilder(log=log_, app_id=f"fleet-{sid}")
+        builder.stream("letters").query(
+            "skip_any8", skip_any.skip_any8_pattern(), runtime="cuda", config=gated_cfg,
+            batch_size=per_flush, initial_keys=K, registry=fleet_regs[sid],
+            watermark_gen=MinMergeWatermark(per_source={
+                ("letters", p): BoundedOutOfOrderness(reorder_ms) for p in shard_parts[sid]}),
+        ).to(f"matches-{sid}")
+        return builder.build()
+
+    def fleet_view():
+        return PartitionedRecordLog(brokers, registry=fleet_regs["ref"])
+
+    view_a = fleet_view()
+    pipes = {sid: ShardPipeline(sid, fleet_topology, view_a,
+                                partitions={"letters": shard_parts[sid]},
+                                registry=fleet_regs[sid])
+             for sid in shard_parts}
+    polled = {(sid, half): [0, 0.0] for sid in ("s0", "s1", "ref") for half in (0, 1)}
+    migrate_round = FLEET_BATCHES // 2
+    produce_s, move = 0.0, {}
+    sk.NfaStep.launches = gk.GcMark.launches = gs.GcSweep.launches = 0
+    for rnd in range(FLEET_BATCHES):
+        t0 = time.perf_counter()
+        for key, e in fleet_arrivals[rnd * K * T:(rnd + 1) * K * T]:
+            P.produce(view_a, "letters", key, e.value, timestamp=e.timestamp,
+                      partition=part_of[key])
+        produce_s += time.perf_counter() - t0
+        half = int(rnd >= migrate_round)
+        for sid in ("s0", "s1", "ref"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n = pipes[sid].poll(commit=False)
+            torch.cuda.synchronize()
+            if sid == "s0" and "first_poll_ms" not in move and "restore_ms" in move:
+                move["first_poll_ms"] = (time.perf_counter() - t0) * 1e3
+            polled[(sid, half)][0] += n
+            polled[(sid, half)][1] += time.perf_counter() - t0
+        if rnd + 1 == migrate_round:
+            # The move: fence, checkpoint (a commit, then the frame),
+            # close the source, restore the successor on the card over a
+            # second view, then resume (its first poll, next round).
+            src = pipes["s0"]
+            t0 = time.perf_counter()
+            src.fence()
+            t1 = time.perf_counter()
+            blob = src.checkpoint()
+            t2 = time.perf_counter()
+            committed = dict(src.driver.positions())
+            src.driver.close(commit=False)  # the checkpoint committed
+            t3 = time.perf_counter()
+            view_b = PartitionedRecordLog(brokers, registry=fleet_regs["ref"],
+                                          assignment=view_a.assignment())
+            succ = ShardPipeline("s0", fleet_topology, view_b, registry=fleet_regs["s0"],
+                                 checkpoint=blob)
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            move.update(fence_ms=(t1 - t0) * 1e3, checkpoint_ms=(t2 - t1) * 1e3,
+                        close_ms=(t3 - t2) * 1e3, restore_ms=(t4 - t3) * 1e3,
+                        bytes=len(blob))
+            frame = state_serde.decode_shard_checkpoint(blob)
+            resumed = {tp: succ.driver.position(*tp) for tp in frame["positions"]}
+            if resumed != committed or not any(resumed.values()):
+                raise AssertionError(f"the successor resumed at {resumed}, the source "
+                                     f"committed {committed}")
+            eng = succ.topology.queries[0][1].processor.engine
+            if eng.device.type != "cuda":
+                raise AssertionError(f"the successor's engine is on {eng.device}")
+            succ_flush, succ_flushes = watch_flushes(eng, {1})
+            step_in, real_advance, advances = {}, eng._advance, [0]
+
+            def first_advance(state, xs):
+                advances[0] += 1
+                if advances[0] == 1:
+                    step_in["pair"] = (state, xs)
+                return real_advance(state, xs)
+
+            eng._advance = first_advance
+            pipes["s0"] = succ
+            del src, blob, frame
+    for sid in ("s0", "s1", "ref"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipes[sid].driver.drain_event_time(commit=False)
+        torch.cuda.synchronize()
+        polled[(sid, 1)][1] += time.perf_counter() - t0
+    fleet_launches = {"nfa_step": launched("fleet migration", sk.NfaStep.launches),
+                      "gc_mark": launched("fleet migration (gc_mark)", gk.GcMark.launches),
+                      "gc_sweep": launched("fleet migration (gc_sweep)", gs.GcSweep.launches)}
+    for sid, pipe in pipes.items():
+        proc = pipe.topology.queries[0][1].processor
+        no_drops(f"fleet {sid}", proc)
+        late = sum(v["value"] for v in (fleet_regs[sid].snapshot().get(
+            "cep_late_dropped_total") or {"values": []})["values"])
+        if late or proc.gate.occupancy:
+            raise AssertionError(f"fleet {sid}: {late} late drops, {proc.gate.occupancy} "
+                                 f"records left in the gate")
+
+    def sink_by_key(topics):
+        out, digests = {}, []
+        for topic in topics:
+            for r in view_a.read(topic):
+                k, d = decode_sink_key(r.key)
+                out.setdefault(k, []).append(r.value)
+                digests.append(d)
+        return out, digests
+
+    union, union_digests = sink_by_key(["matches-s0", "matches-s1"])
+    ref, ref_digests = sink_by_key(["matches-ref"])
+    if len(set(union_digests)) != len(union_digests):
+        raise AssertionError("fleet: the shards' sinks hold a match twice")
+    if union != ref or set(union_digests) != set(ref_digests) or not ref:
+        bad = [k for k in keys if union.get(k) != ref.get(k)]
+        raise AssertionError(f"fleet: the shards' sinks differ from the reference on "
+                             f"{len(bad)} keys")
+
+    # The successor's first group flush: each gc_mark launch bitwise the
+    # plain walk, the gc_sweep launch bitwise the plain sweep; its first
+    # step after the restore bitwise the plain step.
+    if 1 not in succ_flushes or "pair" not in step_in:
+        raise AssertionError("fleet: the successor flushed or stepped no batch")
+    marks0, sweeps0 = len(mark_rows), len(sweep_rows)
+    check_flush("fleet", succ_flush, succ_flushes[1], 1, True)
+    fleet_marks, fleet_sweep = mark_rows[marks0:], sweep_rows[sweeps0]
+    state, xs = step_in.pop("pair")
+    plain_g = build_plain_step(flag_q, gated_cfg)
+    s1, y1 = plain_g(state, xs)
+    s2, y2 = sk.launch(flag_lib, flag_q, gated_cfg, state, xs)
+    torch.cuda.synchronize()
+    fleet_step_err = max(max_abs_diff(s1, s2), max_abs_diff(y1, y2))
+    if fleet_step_err != 0:
+        raise AssertionError(f"fleet: the successor's first step differs from the plain "
+                             f"step by {fleet_step_err}")
+    fleet_step_ms = cuda_ms(lambda: sk.launch(flag_lib, flag_q, gated_cfg, state, xs), reps=20)
+    fleet_plain_ms = cuda_ms(lambda: plain_g(state, xs), reps=2)
+    ptrs, T_, K_, s_out, ys, keep = sk.prepare(flag_q, gated_cfg, state, xs, words)
+    fleet_bound_ms = bytes_moved(state, s_out, ys, keep) / HBM_BYTES_PER_S * 1e3
+    del s1, y1, s2, y2, ptrs, s_out, ys, keep, state, xs, plain_g
+    fleet_check = {
+        "nfa_step": dict(max_abs_err=fleet_step_err, ms=fleet_step_ms, plain_ms=fleet_plain_ms,
+                         bound_ms=fleet_bound_ms, bound_by="bytes", library_ms=None),
+        "gc_mark": dict(max_abs_err=0.0, library_ms=None, **fleet_marks[-1]),
+        "gc_sweep": dict(max_abs_err=0.0, library_ms=None, **fleet_sweep),
+    }
+    rates = {k: (n / s if s else 0.0) for k, (n, s) in polled.items()}
+    n_matches = sum(map(len, union.values()))
+    log(f"fleet (phase 15's first {FLEET_BATCHES} batches: {FLEET_BATCHES * K * T} records "
+        f"of {K} keys through produce() into a PartitionedRecordLog over 3 in-process "
+        f"brokers, 4 partitions, {produce_s:.1f} s; shards s0 = partitions {{0, 1}}, s1 = "
+        f"{{2, 3}}, each a gated flagship pipeline at initial_keys {K}): s0 migrated after "
+        f"round {migrate_round}: checkpoint {move['bytes']} B; fence {move['fence_ms']:.3f} ms, "
+        f"checkpoint {move['checkpoint_ms']:.1f} ms (a commit, then the frame), source close "
+        f"(no commit) {move['close_ms']:.1f} ms, restore on the card {move['restore_ms']:.1f} ms, resume "
+        f"(the successor's first poll, to its end) {move['first_poll_ms']:.1f} ms; the "
+        f"successor resumed at the committed positions {committed}")
+    log(f"fleet records/s before / after the move: s0 {rates[('s0', 0)]:.0f} / "
+        f"{rates[('s0', 1)]:.0f} (the successor), s1 {rates[('s1', 0)]:.0f} / "
+        f"{rates[('s1', 1)]:.0f}; the reference pipeline (all 4 partitions) "
+        f"{rates[('ref', 0)]:.0f} / {rates[('ref', 1)]:.0f}")
+    log(f"fleet: union of the shards' sinks == the reference's per key, {n_matches} matches, "
+        f"each once; late 0, drops 0; the successor's first flush: gc_mark == _walk and "
+        f"gc_sweep == _sweep bitwise, its first step == the plain step bitwise (kernel "
+        f"{fleet_step_ms:.4f} ms, plain {fleet_plain_ms:.3f} ms, bound {fleet_bound_ms:.4f} "
+        f"ms); launches: nfa_step {fleet_launches['nfa_step']}, gc_mark "
+        f"{fleet_launches['gc_mark']}, gc_sweep {fleet_launches['gc_sweep']}; phase "
+        f"{time.perf_counter() - t_fleet:.1f}s")
+    for pipe in pipes.values():
+        pipe.driver.close(commit=False)
+    del pipes, succ, eng, brokers, view_a, view_b, union, ref, fleet_arrivals
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 25. the soak entry on the card ---------------------------------------
+    soak_launches, soak_checks = run_soak_entry()
+    fleet = {n: {"launches": fleet_launches[n] + soak_launches[n],
+                 "migration_launches": fleet_launches[n], "soak_launches": soak_launches[n],
+                 "soak_check": soak_checks[n]}
+             for n in fleet_launches}
+    for n in fleet:
+        fleet[n].update(fleet_check[n])
+        fleet[n]["migration_max_abs_err"] = fleet_check[n]["max_abs_err"]
+        fleet[n]["max_abs_err"] = max(fleet_check[n]["max_abs_err"],
+                                      soak_checks[n]["max_abs_err"])
+
+    # -- 26. the kernel line, the card line, the ok line ----------------------
     log(f"chip_smoke ran {time.perf_counter() - T_START:.1f}s")
     kernels = [{
         "name": "nfa_step",
@@ -2722,6 +3141,7 @@ def main() -> int:
                        "predicates": wide_q.n_preds, "ptxas": ptxas["wide_stack"],
                        "library_ms": None, **wide_point},
         "single_key": {"launches": single_launches, "library_ms": None, **single_point},
+        "fleet": fleet["nfa_step"],
         "envelope": envelope,
     }, {
         "name": "gc_mark",
@@ -2744,6 +3164,7 @@ def main() -> int:
         "single_key": {"launches": single_gc_launches, "library_ms": None,
                        **single_marks[-1]},
         "pool_drain": pool_row,
+        "fleet": fleet["gc_mark"],
     }, {
         "name": "gc_sweep",
         "route": "cuda",
@@ -2763,6 +3184,7 @@ def main() -> int:
         "config4_stacked": {"launches": c4_sweep_launches, "library_ms": None, **c4_sweep},
         "wide_stack": {"launches": wide_sweep_launches, "library_ms": None, **wide_sweep},
         "single_key": {"launches": single_sweep_launches, "library_ms": None, **single_sweep},
+        "fleet": fleet["gc_sweep"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -47,6 +47,7 @@ from .streams.device_processor import DeviceCEPProcessor
 from .streams.driver import LogDriver, produce
 from .streams.log import RecordLog
 from .streams.processor import CEPProcessor
+from .streams.transport import RecordLogServer, SocketRecordLog, TransportError
 from .streams.serde import Queried, SinkMatch, sequence_to_dict, sequence_to_json
 from .time import (
     ArrivalOrderWatermark,
@@ -63,10 +64,10 @@ __all__ = [
     "DeviceCEPProcessor", "DeviceNFA", "DeweyVersion", "EdgeOperation", "EngineConfig",
     "Event", "EventSchema", "EventTimeGate", "IdleTimeout", "InvalidPatternException",
     "LogDriver", "MetricsRegistry", "MinMergeWatermark", "NFA", "NFAStates", "NFAStore",
-    "Pattern", "Queried", "QueryBuilder", "QueryStoreBuilders", "RecordLog",
+    "Pattern", "Queried", "QueryBuilder", "QueryStoreBuilders", "RecordLog", "RecordLogServer",
     "ReorderBuffer", "Selected", "Sequence", "SequenceBuilder", "SharedVersionedBuffer",
-    "SinkMatch", "SpanTracer", "Stage", "StackedQueryEngine", "Staged", "Stages",
-    "StateType", "States", "Strategy", "UnknownAggregateException", "agg",
+    "SinkMatch", "SocketRecordLog", "SpanTracer", "Stage", "StackedQueryEngine", "Staged", "Stages",
+    "StateType", "States", "Strategy", "TransportError", "UnknownAggregateException", "agg",
     "compile_multi_query", "compile_pattern", "compile_query", "const",
     "default_registry", "field", "initial_computation_stage", "key", "produce",
     "sequence_to_dict", "sequence_to_json", "timestamp", "topic_is", "value",

@@ -24,15 +24,64 @@ import threading
 from typing import Any, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 
 __all__ = [
+    "FAULT_SERIES",
     "Counter",
     "Gauge",
     "Histogram",
     "MetricsRegistry",
     "default_registry",
+    "fault_series_totals",
     "next_instance_id",
     "parse_prom_text",
     "registry_from_snapshot",
 ]
+
+#: The fault/robustness counter families every health surface
+#: reports together: the soak artifact carries them as its `faults` block
+#: (all-zero in a healthy run) and faults/soak_schema.py validates
+#: the block against this exact key set.
+FAULT_SERIES: Tuple[str, ...] = (
+    "cep_faults_injected_total",
+    "cep_retries_total",
+    "cep_overflow_backpressure_total",
+    "cep_overflow_dropped_total",
+    "cep_driver_dead_letters_total",
+    "cep_driver_restore_failures_total",
+    "cep_checkpoint_corrupt_total",
+    "cep_emit_deduped_total",
+    # Event-time gate loss families (time/gate.py): records the
+    # reorder stage discarded -- late beyond the watermark under
+    # late_policy=drop, or reorder-buffer overflow under on_overflow=drop.
+    "cep_late_dropped_total",
+    "cep_reorder_overflow_dropped_total",
+    # Wire-transport fault families (streams/transport.py):
+    # evidence of connection damage and its recovery -- all zero on a
+    # healthy loopback run, nonzero exactly when chaos (or a real
+    # network) bit and the reconnect/replay machinery engaged.
+    "cep_transport_retries_total",
+    "cep_transport_disconnects_total",
+    "cep_transport_stalls_total",
+    "cep_transport_torn_frames_total",
+    "cep_transport_dedup_total",
+    "cep_transport_server_restarts_total",
+)
+
+
+def fault_series_totals(*registries: "MetricsRegistry") -> Dict[str, float]:
+    """Label-summed totals of every FAULT_SERIES counter across the given
+    registries (0.0 for families never registered) -- one flat dict a
+    health check can assert all-zero on."""
+    out: Dict[str, float] = {name: 0.0 for name in FAULT_SERIES}
+    for reg in registries:
+        for name in FAULT_SERIES:
+            metric = reg.get(name)
+            if metric is None:
+                continue
+            out[name] += sum(
+                child.value for _lv, child in metric._sorted_children()
+            )
+    return out
+
 
 _NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
 _LABEL_RE = re.compile(r"^[a-zA-Z_][a-zA-Z0-9_]*$")

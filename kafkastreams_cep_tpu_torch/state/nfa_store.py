@@ -42,9 +42,14 @@ class EmitWatermark:
     after a crash, the driver re-scans only the tail past these positions
     to learn which matches the sink already saw (exactly-once recovery --
     streams/emission.py). Externalized like every other piece of execution
-    state: through the changelogged store stack, at commit time."""
+    state: through the changelogged store stack, at commit time.
+
+    `recovered` (the port's, absent from the JAX package's) holds the
+    digests recovered after a crash that replay had not regenerated by
+    that commit; a watermark without it reads as none."""
 
     sink_pos: Dict[str, int] = field(default_factory=dict)
+    recovered: List[bytes] = field(default_factory=list)
 
 
 class EmissionStore(Generic[K, V]):

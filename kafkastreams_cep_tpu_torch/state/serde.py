@@ -844,3 +844,139 @@ def graft_array_tree(
         )
         dst[sl] = arr[sl].astype(dst.dtype, copy=False)
     return target
+
+
+# ---------------------------------------------------------------------------
+# Shard checkpoints (live migration)
+# ---------------------------------------------------------------------------
+#: Format tag for a self-contained movable shard: everything a successor
+#: driver on another broker needs to resume a fenced shard mid-stream --
+#: consumer positions, per-broker transport sessions (the idempotent-
+#: producer identity, so server-side dedup spans the move), and per-query
+#: store/emission/event-time state. Distinct from KCT*/KCW1 so a shard
+#: frame can never be mistaken for an engine or gate snapshot.
+SHARD_MAGIC = b"KSH1"
+#: Tag of the port's optional shard-frame trailer: per query, the digests
+#: its emission gate recovered after a crash that replay had not yet
+#: regenerated when the frame was cut (streams/emission.py). It is written
+#: only when there are some, so every other frame is byte for byte the JAX
+#: package's, which has no such state (and refuses the trailer).
+SHARD_RECOVERED_TAG = b"KSHR"
+
+
+def encode_shard_checkpoint(shard: Dict[str, Any]) -> bytes:
+    """Seal one shard's movable state. Schema (all keys required):
+
+    - ``shard_id``: str -- the shard's stable name (also the app-id salt
+      for its changelog topics).
+    - ``group``: str -- the shard driver's consumer group.
+    - ``positions``: {(topic, partition): pos} -- committed consumer
+      positions at the fence point (`LogDriver.positions()`).
+    - ``sessions``: {broker_label: (session_bytes, seq)} -- per-broker
+      `SocketRecordLog.session_state()`; the successor client adopts
+      both so the broker's seq->offset dedup table keeps covering
+      appends issued before the move.
+    - ``queries``: {qname: {"runtime": str, "stores": bytes | None,
+      "sink_pos": {topic: pos}, "event_time": bytes | None}} -- the
+      store snapshot (host: `CheckpointCodec.encode_query_stores`;
+      device: `processor.snapshot()`), the EmissionGate watermark, and
+      the sealed event-time gate frame; optionally also "recovered":
+      [16-byte digest], the gate's outstanding recovered digests, which
+      go into the trailer.
+    """
+    w = _Writer()
+    w._buf.write(SHARD_MAGIC)
+    w.text(shard["shard_id"])
+    w.text(shard["group"])
+    positions = shard["positions"]
+    w.i32(len(positions))
+    for (topic, partition) in sorted(positions):
+        w.text(topic)
+        w.i32(int(partition))
+        w.i64(int(positions[(topic, partition)]))
+    sessions = shard["sessions"]
+    w.i32(len(sessions))
+    for label in sorted(sessions):
+        session, seq = sessions[label]
+        w.text(str(label))
+        w.blob(bytes(session))
+        w.i64(int(seq))
+    queries = shard["queries"]
+    w.i32(len(queries))
+    for qname in sorted(queries):
+        q = queries[qname]
+        w.text(qname)
+        w.text(q["runtime"])
+        stores = q.get("stores")
+        w.u8(0 if stores is None else 1)
+        if stores is not None:
+            w.blob(stores)
+        sink_pos = q.get("sink_pos") or {}
+        w.i32(len(sink_pos))
+        for topic in sorted(sink_pos):
+            w.text(topic)
+            w.i64(int(sink_pos[topic]))
+        gate = q.get("event_time")
+        w.u8(0 if gate is None else 1)
+        if gate is not None:
+            w.blob(gate)
+    recovered = {
+        qname: sorted(bytes(d) for d in queries[qname]["recovered"])
+        for qname in sorted(queries) if queries[qname].get("recovered")
+    }
+    if recovered:
+        w._buf.write(SHARD_RECOVERED_TAG)
+        w.i32(len(recovered))
+        for qname, digests in recovered.items():
+            w.text(qname)
+            w.i32(len(digests))
+            for digest in digests:
+                w.blob(digest)
+    return seal_frame(w.getvalue())
+
+
+def decode_shard_checkpoint(data: bytes) -> Dict[str, Any]:
+    """Inverse of `encode_shard_checkpoint`; raises `CheckpointError` on
+    a corrupt frame or a non-shard payload."""
+    r = _Reader(open_frame(data))
+    if r._read(4) != SHARD_MAGIC:
+        raise CheckpointError("bad shard checkpoint magic")
+    out: Dict[str, Any] = {
+        "shard_id": r.text(),
+        "group": r.text(),
+    }
+    positions: Dict[Tuple[str, int], int] = {}
+    for _ in range(r.i32()):
+        topic = r.text()
+        partition = r.i32()
+        positions[(topic, partition)] = r.i64()
+    out["positions"] = positions
+    sessions: Dict[str, Tuple[bytes, int]] = {}
+    for _ in range(r.i32()):
+        label = r.text()
+        session = r.blob()
+        sessions[label] = (session, r.i64())
+    out["sessions"] = sessions
+    queries: Dict[str, Dict[str, Any]] = {}
+    for _ in range(r.i32()):
+        qname = r.text()
+        q: Dict[str, Any] = {"runtime": r.text()}
+        q["stores"] = r.blob() if r.u8() else None
+        sink_pos: Dict[str, int] = {}
+        for _ in range(r.i32()):
+            topic = r.text()
+            sink_pos[topic] = r.i64()
+        q["sink_pos"] = sink_pos
+        q["event_time"] = r.blob() if r.u8() else None
+        queries[qname] = q
+    out["queries"] = queries
+    if r._pos < len(r._data):
+        if r._read(4) != SHARD_RECOVERED_TAG:
+            raise CheckpointError("bad shard checkpoint trailer")
+        for _ in range(r.i32()):
+            q = queries.get(r.text())
+            if q is None:
+                raise CheckpointError("shard checkpoint trailer names no query")
+            q["recovered"] = [bytes(r.blob()) for _ in range(r.i32())]
+    r.expect_end()
+    return out

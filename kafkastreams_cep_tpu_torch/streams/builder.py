@@ -180,6 +180,16 @@ class QueryNode:
         # Compile once; the builders share the compiled stages with the
         # processor (QueryStoreBuilders.java:50-56).
         self.store_builders = QueryStoreBuilders(name, pattern, strict_windows=strict_windows)
+        if int(device_opts.get("reorder_capacity", 0) or 0) > 0:
+            # An event-time gate checkpoints its buffers and arrival marks
+            # only at a commit, and its releases skip the per-record
+            # offset marks. So the three stores write back at the commit
+            # too: a crash then restores stores, gate and offsets of one
+            # commit, and the replay cannot run a released record through
+            # a match state that already holds it.
+            for builder in (self.store_builders.nfa, self.store_builders.buffer,
+                            self.store_builders.aggregates):
+                builder.with_caching_enabled()
         self.stores = self.store_builders.build_all(log, app_id)
         self.stores[emit_name] = self.emission_store
         # The host runtime's event-time knobs ride the query kwargs;
@@ -681,6 +691,16 @@ class Topology:
         for _stream, node, _out in self.queries:
             node.gate.recover(self.log, node.sink_topics)
         return n
+
+    def emission_outstanding(self) -> int:
+        """Digests the emission gates recovered after a crash that replay
+        has not regenerated yet, over every query (streams/emission.py)."""
+        return sum(node.gate.outstanding for _stream, node, _out in self.queries)
+
+    def settle_emission(self) -> int:
+        """Forget them (`EmissionGate.settle`): the caller has consumed
+        every source record that existed at the recovery."""
+        return sum(node.gate.settle() for _stream, node, _out in self.queries)
 
     def _emit_device(self, node: QueryNode, out: OutputStream, results) -> List[Record]:
         """Route [(key, Sequence | SinkMatch)] results downstream.

@@ -26,7 +26,7 @@ Records in source topics carry pickled keys/values by default; pass
 from __future__ import annotations
 
 import time
-from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 from ..faults import injection as _flt
 from ..faults.injection import with_retry
@@ -248,7 +248,12 @@ class LogDriver:
                 raise
             self._m_restore_s.set(time.perf_counter() - t0)
             self._m_restored.set(self.restored_records)
+        #: Each pumped (topic, partition)'s end offset when the emission
+        #: gates recovered digests replay has not regenerated; the commit
+        #: that finds every position there settles them (`_arm_settle`).
+        self._settle_at: Optional[Dict[Tuple[str, int], int]] = None
         self._load_committed()
+        self._arm_settle()
 
     # ------------------------------------------------------------- offsets
     def _load_committed(self) -> None:
@@ -263,6 +268,27 @@ class LogDriver:
             self._positions[(topic, partition)] = pos
             self._committed[(topic, partition)] = pos
 
+    def _source_partitions(self, topic: str) -> List[int]:
+        """The partitions of `topic` this driver pumps."""
+        scoped = (
+            self._partition_scope.get(topic)
+            if self._partition_scope is not None else None
+        )
+        return list(scoped) if scoped is not None else (self.log.partitions(topic) or [0])
+
+    def _arm_settle(self) -> None:
+        """After a restore or a migration: when the emission gates hold
+        recovered digests, note each pumped partition's end offset. Every
+        crash-window record lies below it, so once the consumer has passed
+        it, replay has regenerated all it will (streams/emission.py)."""
+        if not self.topology.emission_outstanding():
+            return
+        self._settle_at = {
+            (topic, partition): self.log.end_offset(topic, partition)
+            for topic in self.topology.source_topics
+            for partition in self._source_partitions(topic)
+        }
+
     def commit(self) -> None:
         """Durably record consumer positions after making the state they
         cover durable (the reference commits offsets and flushes stores
@@ -272,6 +298,11 @@ class LogDriver:
         fsynced BEFORE the offset record is appended and fsynced, so a crash
         between the two replays the interval (deduped by the HWM) instead of
         silently skipping records whose effects were lost."""
+        if self._settle_at is not None and all(
+            self._positions.get(tp, 0) >= end for tp, end in self._settle_at.items()
+        ):
+            self.topology.settle_emission()
+            self._settle_at = None
         with self.tracer.span("commit"):
             self.topology.flush_stores()
             self.log.flush()  # changelog + sink records durable first
@@ -316,6 +347,7 @@ class LogDriver:
             tp = (str(topic), int(partition))
             self._positions[tp] = int(pos)
             self._committed[tp] = int(pos)
+        self._arm_settle()
 
     def drain_event_time(self, commit: bool = True) -> int:
         """End-of-stream drain for event-time gates: force-
@@ -344,15 +376,7 @@ class LogDriver:
             # observed admission rate (an explicit max_records wins).
             budget = self.pacer.suggest_batch()
         for topic in self.topology.source_topics:
-            scoped = (
-                self._partition_scope.get(topic)
-                if self._partition_scope is not None else None
-            )
-            partitions = (
-                list(scoped) if scoped is not None
-                else (self.log.partitions(topic) or [0])
-            )
-            for partition in partitions:
+            for partition in self._source_partitions(topic):
                 start = self._positions.get((topic, partition), 0)
                 records = self.log.read(topic, partition, start, budget)
                 broker_for = getattr(self.log, "broker_for", None)

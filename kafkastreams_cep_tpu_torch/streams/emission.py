@@ -16,6 +16,18 @@ the embedded pipeline without a transaction coordinator:
     whatever landed there during the crash window is exactly the set of
     matches the sink already saw, and replay dedupes against it.
 
+Unlike the JAX package's copy, the recovered digests outlive the commits
+that follow a restore: a replay can regenerate a crash-window match
+several commits later -- an event-time gate releases a restored buffered
+record only when its watermark passes it, and a device micro-batch
+flushes when it fills. So the gate keeps the digests replay has not yet
+regenerated, and each commit persists them beside the watermark (which
+still rolls to the sink's end): a second crash, or a migration, hands
+them on. They go once the consumer has passed every source record that
+existed at the recovery (`settle`, called by `LogDriver.commit`): a digest
+that replay has not regenerated by then -- another query's on a shared
+sink topic, say -- never will be.
+
 The native sink-to-bytes decoder (native/decoder.cc `decode_matches_json`)
 emits `sequence_ident_frames` byte for byte, so `admit_ident` and `admit`
 give one digest for one match whichever format the engine decodes to.
@@ -159,6 +171,10 @@ class EmissionGate:
         #: pickles the key twice per match otherwise. Bounded; cleared
         #: wholesale on overflow (keys are usually few and stable).
         self._prefix_cache: Dict[Any, bytes] = {}
+        #: digests recovered after a crash that replay has not yet
+        #: regenerated; persisted at each commit until `settle` (module
+        #: docstring).
+        self._recovered: Set[bytes] = set()
 
     # ------------------------------------------------------------- admission
     def admit(self, key: Any, seq: Sequence) -> Optional[bytes]:
@@ -194,7 +210,8 @@ class EmissionGate:
         digest = hashlib.blake2b(
             base + n.to_bytes(8, "little"), digest_size=16
         ).digest()
-        if digest in self._emitted:
+        if digest in self._emitted or digest in self._recovered:
+            self._recovered.discard(digest)
             self._m_deduped.inc()
             return None
         self._emitted.add(digest)
@@ -203,34 +220,50 @@ class EmissionGate:
     # ------------------------------------------------------------ durability
     def commit(self, log: Optional[Any], sink_topics: List[str]) -> None:
         """Roll the watermark forward at the commit boundary: record each
-        sink topic's current end offset and clear the window (committed
+        sink topic's current end offset and the recovered digests still
+        waiting for their regeneration, and clear the window (committed
         consumer offsets now exceed every emitted match's completing
         offset, so nothing in it can regenerate)."""
         if log is not None and sink_topics:
             self.store.put(
                 EmitWatermark(
-                    sink_pos={t: log.end_offset(t) for t in sink_topics}
+                    sink_pos={t: log.end_offset(t) for t in sink_topics},
+                    recovered=sorted(self._recovered),
                 )
             )
         self._emitted.clear()
         self._occurrence.clear()
 
     def recover(self, log: Optional[Any], sink_topics: List[str]) -> int:
-        """Seed the window from the sink tail past the persisted watermark:
-        those records landed during the crash window (after the last
-        commit), and replay will regenerate exactly them. Returns how many
-        emitted digests were recovered."""
+        """Seed the dedup set from the persisted outstanding digests and
+        the sink tail past the persisted watermark: those records landed
+        during the crash window (after the last commit), and replay will
+        regenerate exactly them. Returns how many digests it holds."""
         self._emitted.clear()
         self._occurrence.clear()
-        if log is None or not sink_topics:
-            return 0
         wm = self.store.get()
+        # A watermark the JAX package wrote has no `recovered`.
+        self._recovered = set(getattr(wm, "recovered", None) or ())
+        if log is None or not sink_topics:
+            return len(self._recovered)
         sink_pos = wm.sink_pos if wm is not None else {}
-        n = 0
         for topic in sink_topics:
             for rec in log.read(topic, start=sink_pos.get(topic, 0)):
                 _key, digest = decode_sink_key(rec.key)
                 if digest is not None:
-                    self._emitted.add(digest)
-                    n += 1
+                    self._recovered.add(digest)
+        return len(self._recovered)
+
+    @property
+    def outstanding(self) -> int:
+        """Recovered digests replay has not regenerated yet."""
+        return len(self._recovered)
+
+    def settle(self) -> int:
+        """Forget the recovered digests that replay has not regenerated:
+        the caller has consumed every source record that existed when they
+        were recovered, so none of them can come back. Returns how many
+        went; the next commit persists the empty set."""
+        n = len(self._recovered)
+        self._recovered.clear()
         return n

@@ -188,13 +188,13 @@ def test_unpickler_maps_jax_paths_and_refuses_the_rest():
     got = serde.loads(pickle.dumps([lane, {"x": 1}]))
     assert type(got[0]) is _Lane and (got[0].index, got[0].key) == (3, "u1")
     assert got[1] == {"x": 1}
+    from kafkastreams_cep_tpu.analysis.core import Finding
     from kafkastreams_cep_tpu.faults.injection import TransientFault
-    from kafkastreams_cep_tpu.streams.partition import PartitionedRecordLog
     from kafkastreams_cep_tpu_torch.faults.injection import TransientFault as PortTransientFault
 
     assert type(serde.loads(pickle.dumps(TransientFault("site")))) is PortTransientFault
     with pytest.raises(pickle.UnpicklingError, match="no counterpart"):
-        serde.loads(pickle.dumps(PartitionedRecordLog))
+        serde.loads(pickle.dumps(Finding))
 
 
 # ----------------------------------------------------------- engine snapshots

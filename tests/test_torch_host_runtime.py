@@ -205,13 +205,23 @@ def _feed(topo, recs):
         topo.process(topic, key, value, timestamp=ts, offset=off)
 
 
+#: The changelogs of the three stores a gated port query writes back at
+#: the commit (streams/builder.py), where the JAX package's append every
+#: record's put: these compare at their newest record per key, the state
+#: a restore rebuilds. Every other changelog compares record by record.
+_WRITE_BACK_CHANGELOGS = ("states-changelog", "matched-changelog", "aggregates-changelog")
+
+
 def _changelogs(log, topics):
-    """Each changelog's records; the emission watermark's value pickles
-    its package's class, so it compares by content."""
+    """Each changelog's records, in order; those of the write-back stores
+    compacted to the newest record per key. The emission watermark's
+    value pickles its package's class, so it compares by content."""
     out = {}
     for t in topics:
         recs = [(r.key, r.value) for r in log.read(t)]
-        if t.endswith("-emitted-changelog"):
+        if t.endswith(_WRITE_BACK_CHANGELOGS):
+            recs = dict(recs)
+        elif t.endswith("-emitted-changelog"):
             recs = [(k, pickle.loads(v).sink_pos) for k, v in recs]
         out[t] = recs
     return out
@@ -221,7 +231,8 @@ def _changelogs(log, topics):
 def test_changelogs_equal_jax_and_restore_both_ways(source):
     """A gated host topology commits (flush_stores) after the first half:
     every changelog topic (states, buffers, aggregates, event time,
-    emission watermark) holds the JAX topology's bytes. A topology of the
+    emission watermark) holds the JAX topology's bytes, in order, the
+    write-back stores' at their newest record per key. A topology of the
     other package rebuilt on a copy of those changelogs restores and
     finishes the stream: its sink equals the uninterrupted run's."""
     recs = [(t, k, v, ts + (2 if i % 7 == 0 else 0), off)  # disorder within lateness

@@ -55,8 +55,17 @@ def test_port_import_loads_no_jax():
         "import kafkastreams_cep_tpu_torch.streams.driver\n"
         "import kafkastreams_cep_tpu_torch.obs.http, kafkastreams_cep_tpu_torch.obs.trace_export\n"
         "import kafkastreams_cep_tpu_torch.models.exchanges, kafkastreams_cep_tpu_torch.models.sensors\n"
+        "import kafkastreams_cep_tpu_torch.obs, kafkastreams_cep_tpu_torch.obs.merge\n"
+        "import kafkastreams_cep_tpu_torch.obs.scrape, kafkastreams_cep_tpu_torch.state.serde\n"
+        "import kafkastreams_cep_tpu_torch.streams.transport, kafkastreams_cep_tpu_torch.streams.partition\n"
+        "import kafkastreams_cep_tpu_torch.streams.rebalance, kafkastreams_cep_tpu_torch.ops.controller\n"
+        "import kafkastreams_cep_tpu_torch.models.letters, kafkastreams_cep_tpu_torch.models.adversarial\n"
+        "import kafkastreams_cep_tpu_torch.faults.soak, kafkastreams_cep_tpu_torch.faults.soak_schema\n"
+        "import kafkastreams_cep_tpu_torch.faults.harness, kafkastreams_cep_tpu_torch.faults.__main__\n"
+        "from kafkastreams_cep_tpu_torch.streams import SocketRecordLog, ComplexStreamsBuilder\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m.startswith('kafkastreams_cep_tpu.') or m == 'kafkastreams_cep_tpu']\n"
+        " or m.startswith('kafkastreams_cep_tpu.') or m == 'kafkastreams_cep_tpu'"
+        " or m == 'check_bench_schema']\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n"
     )
@@ -80,7 +89,7 @@ def test_port_sources_import_nothing_of_jax():
                 names = [node.module or ""]
             for name in names:
                 root = name.split(".")[0]
-                if root in ("jax", "jaxlib", "kafkastreams_cep_tpu"):
+                if root in ("jax", "jaxlib", "kafkastreams_cep_tpu", "check_bench_schema"):
                     offenders.append(f"{path.relative_to(REPO)}:{node.lineno} {name}")
     assert not offenders, offenders
 
