@@ -6,8 +6,8 @@
 Builds the step kernel from csrc/ with nvcc (one build per compiled query
 and capacity, the flagship's grown shape, phase 18's arm shape, the
 fold query of phase 13, the stacked and single queries of phases
-20-21 and phase 25's soak hotspot included; the event-time phases and
-phases 22-24 reuse the
+20-21, phase 25's soak hotspot and phase 26's dryrun included; the
+event-time phases, phases 22-24 and phase 26's mesh reuse the
 flagship's build, and the shapes phase 18's autosizer grows to build
 inside that phase, timed), the group flush's GC mark and sweep kernels
 (csrc/gc_mark.cu and csrc/gc_sweep.cu, one build each) and the native
@@ -251,12 +251,31 @@ then:
      first launch of each kernel at every shape the soak meets bitwise
      to its plain version (`soak_child`); prints the summary line, each
      SLO's value, the shapes checked and the launches;
- 26. prints the kernel line (with the `wm`, `auto`, `controllers`,
-     `paced_driver`, `config4_stacked`, `wide_stack`, `single_key` and
-     `fleet` runs' numbers under nfa_step, gc_mark and gc_sweep, the
-     grown shapes' times and bounds among them, and the pool drain's
-     walk as gc_mark's `pool_drain` call site), the card line, and last
-     the ok line.
+ 26. the key mesh: the flagship engine of phase 4 on a `key_mesh` over
+     every visible card, at least 2 shards (one card: a virtual mesh of 2
+     shards on it), 2 warm + 8 timed batches, each packed, advanced and
+     drained. Checks: the matches per key equal phase 4's, drops 0, each
+     kernel launched once a shard an advance (the step) or a group flush
+     (the mark and the sweep), and on each shard's first launch
+     `nfa_step`, `gc_mark` and `gc_sweep` bitwise equal to
+     `NfaStep._plain`, `_walk` and `_sweep` on the same inputs; the
+     snapshot frame equals an unsharded engine's after the same 10
+     batches; 0 host syncs over 8 deferred sharded advances; a sharded
+     `runtime="cuda"` topology's sink over 2 flushes equals phase 5's
+     first two flushes'; the dryrun (`parallel/dryrun.py`, stock query,
+     merged device registries) on a mesh of the same shard count. Prints
+     the mesh (devices, distinct count, virtual or not), events/s
+     sharded beside the unsharded engine's in the same phase and phase
+     4's, each kernel's ms a shard launch (CUDA events, on the shard's
+     first inputs) beside its bound, the launches per flush and the
+     phase's wall (`run_mesh_entry()` runs this phase alone, with its own
+     references, on every visible card);
+ 27. prints the kernel line (with the `wm`, `auto`, `controllers`,
+     `paced_driver`, `config4_stacked`, `wide_stack`, `single_key`,
+     `fleet` and `mesh` runs' numbers under nfa_step, gc_mark and
+     gc_sweep, the grown shapes' times and bounds among them, and the
+     pool drain's walk as gc_mark's `pool_drain` call site), the card
+     line, and last the ok line.
 
 Phases 20-22 each also hold both GC kernels to their plain versions on
 one captured flush, as phase 12 does (the wide stack's bitmaps must stay
@@ -372,6 +391,20 @@ def bytes_moved(state: dict, s_out: dict, ys: dict, keep: tuple) -> int:
     moved += sum(s_out[n].numel() * s_out[n].element_size() for n in s_out if n != "gc_phase")
     moved += sum(v.numel() * 4 for v in ys.values())
     return moved
+
+
+def sweep_bytes(marked, state, pool, want) -> int:
+    """Bytes one gc_sweep launch must move on this data: the marks read
+    once, the kept rows' event, name, pred and pin, the lanes, the ring
+    below each cursor and the per-key scalars read; every output plane
+    written once."""
+    BW, Kk = marked.shape[0] - 1, marked.shape[1]
+    B, R, M = pool["node_event"].shape[0], state["node"].shape[0], pool["pend"].shape[0]
+    kept = int(want["node_count"].sum())
+    below = int(pool["pend_pos"].clamp(0, M).sum())
+    reads = BW * Kk + kept * 13 + 2 * R * Kk * 4 + below * 4 + 3 * Kk * 4
+    writes = B * Kk * 13 + 2 * R * Kk * 4 + M * Kk * 4 + 3 * Kk * 4
+    return reads + writes
 
 
 def count_syncs(fn) -> int:
@@ -565,6 +598,307 @@ def run_soak_entry() -> tuple:
                           "max_abs_err": row["max_abs_err"]} for n, row in checks.items()}
 
 
+def mesh_phase(flag_q, flag_cfg, streams: dict, n_warm: int, n_timed: int,
+               ref_matches: dict = None, ref_sink: list = None,
+               unsharded_eps: float = None) -> dict:
+    """Phase 26: the flagship engine on `key_mesh` over every visible card,
+    at least 2 shards (a virtual mesh of 2 on one card), against the
+    unsharded engine on the same batches. `streams` holds every key's
+    events; `ref_matches` (phase 4's, JSON per key) and `ref_sink` (phase
+    5's sink) are the references when given, else an unsharded run and an
+    unsharded 2-flush topology made here. Raises on a failed check;
+    returns each kernel's `mesh` entry of the kernel line."""
+    import kafkastreams_cep_tpu_torch as P
+    from kafkastreams_cep_tpu_torch.models import skip_any
+    from kafkastreams_cep_tpu_torch.ops import gc_kernel as gk
+    from kafkastreams_cep_tpu_torch.ops import gc_sweep as gs
+    from kafkastreams_cep_tpu_torch.ops import step_kernel as sk
+    from kafkastreams_cep_tpu_torch.ops.engine import DROP_COUNTER_KEYS
+    from kafkastreams_cep_tpu_torch.parallel import key_mesh
+    from kafkastreams_cep_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    t_mesh = time.perf_counter()
+    keys = list(streams)
+    K, T = len(keys), skip_any.FLAGSHIP_T
+    n_batches = n_warm + n_timed
+    flag_lib = sk.load_library(sk.build_library(flag_q, flag_cfg))
+    words = int(flag_lib.nfa_step_scratch_words())
+    gc_lib = gk.load_library(gk.build_library())
+    sweep_lib = gs.load_library(gs.build_library())
+
+    def batch_of(b):
+        return {k: st[b * T:(b + 1) * T] for k, st in streams.items()}
+
+    def timed_run(eng):
+        """The batches packed, advanced and drained in turn, as phase 4
+        runs them: the matches (JSON per key), the host walls of the timed
+        batches, and the matches after the first two batches."""
+        out, walls, two = {}, {"pack": 0.0, "advance": 0.0, "drain": 0.0}, 0
+        torch.cuda.synchronize()
+        for b in range(n_batches):
+            t0 = time.perf_counter()
+            xs = eng.pack(batch_of(b))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            eng.advance_packed(xs, decode=False)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            for key, seqs in eng.drain().items():
+                out.setdefault(key, []).extend(P.sequence_to_json(sq) for sq in seqs)
+            t3 = time.perf_counter()
+            if b >= n_warm:
+                walls["pack"] += t1 - t0
+                walls["advance"] += t2 - t1
+                walls["drain"] += t3 - t2
+            if b == 1:
+                two = sum(map(len, out.values()))
+        return out, walls, two
+
+    def no_drops(label, eng):
+        drops = {k: eng.stats[k] for k in DROP_COUNTER_KEYS}
+        if any(drops.values()):
+            raise AssertionError(f"{label}: drop counters are not 0: {drops}")
+
+    def launched(label, n):
+        if n <= 0:
+            raise AssertionError(f"{label}: the kernel was not launched")
+        return n
+
+    mesh = key_mesh(max(2, torch.cuda.device_count()))
+    log(f"mesh: {mesh.describe()} ("
+        + (f"virtual: {mesh.size} shards on one card" if mesh.virtual else "one shard a card")
+        + ")")
+    checks = {n: [] for n in ("nfa_step", "gc_mark", "gc_sweep")}
+    inputs = {n: [] for n in checks}
+    first_calls = {n: 0 for n in checks}
+    real_step, real_mark, real_sweep = (sk.NfaStep.__call__, gk.GcMark.__call__,
+                                        gs.GcSweep.__call__)
+
+    def first_of_shard(name):
+        """True for each kernel's first mesh.size calls: one a shard, in
+        shard order (the engine maps its passes over the shards in turn)."""
+        first_calls[name] += 1
+        return first_calls[name] <= mesh.size
+
+    def tree_err(a, b):
+        bad = [n for n in a if a[n].dtype != b[n].dtype or not torch.equal(a[n], b[n])]
+        return float("inf") if bad or set(a) != set(b) else 0.0
+
+    def step_checked(self, state, xs):
+        if not first_of_shard("nfa_step"):
+            return real_step(self, state, xs)
+        s_in = {n: v.clone() for n, v in state.items()}
+        x_in = {n: v.clone() for n, v in xs.items()}
+        s_out, ys = real_step(self, state, xs)
+        s_want, y_want = self._plain(s_in, x_in)
+        torch.cuda.synchronize()
+        checks["nfa_step"].append(max(tree_err(s_out, s_want), tree_err(ys, y_want)))
+        inputs["nfa_step"].append((s_in, x_in, s_out, ys))
+        return s_out, ys
+
+    def mark_checked(self, marked, frontier, pred):
+        if not first_of_shard("gc_mark"):
+            return real_mark(self, marked, frontier, pred)
+        m_in, f_in = marked.clone(), frontier.contiguous().clone()
+        got = real_mark(self, marked, frontier, pred)
+        want = gk._walk(m_in, f_in, pred)
+        torch.cuda.synchronize()
+        checks["gc_mark"].append(tree_err({"m": got}, {"m": want}))
+        inputs["gc_mark"].append((m_in, f_in, pred, got))
+        return got
+
+    def sweep_checked(self, marked, marked_pin, state, pool, ys):
+        if not first_of_shard("gc_sweep"):
+            return real_sweep(self, marked, marked_pin, state, pool, ys)
+        args = (marked.clone(), marked_pin.clone(),
+                {n: state[n].contiguous().clone() for n in gs.STATE_OUT},
+                {n: v.clone() for n, v in pool.items()},
+                {n: ys[n].contiguous().clone() for n in gs.WINDOW_PLANES})
+        got = real_sweep(self, marked, marked_pin, state, pool, ys)
+        want = gs._sweep(*args)
+        torch.cuda.synchronize()
+        checks["gc_sweep"].append(tree_err(got, want))
+        inputs["gc_sweep"].append((args, want))
+        return got
+
+    # The sharded main path: counts zeroed just before, read just after.
+    sk.NfaStep.__call__, gk.GcMark.__call__ = step_checked, mark_checked
+    gs.GcSweep.__call__ = sweep_checked
+    sharded = P.BatchedDeviceNFA(flag_q, keys=keys, config=flag_cfg, mesh=mesh, engine="cuda")
+    try:
+        sk.NfaStep.launches = gk.GcMark.launches = gs.GcSweep.launches = 0
+        m_mesh, walls, _ = timed_run(sharded)
+        launches = {"nfa_step": sk.NfaStep.launches, "gc_mark": gk.GcMark.launches,
+                    "gc_sweep": gs.GcSweep.launches}
+        flushes = sharded.flushes
+    finally:
+        sk.NfaStep.__call__, gk.GcMark.__call__ = real_step, real_mark
+        gs.GcSweep.__call__ = real_sweep
+    for name, n in launches.items():
+        launched(f"mesh {name}", n)
+    if launches["nfa_step"] != n_batches * mesh.size:
+        raise AssertionError(f"nfa_step launched {launches['nfa_step']} times for "
+                             f"{n_batches} advances on {mesh.size} shards")
+    if launches["gc_mark"] != flushes * mesh.size or launches["gc_sweep"] != flushes * mesh.size:
+        raise AssertionError(f"gc_mark {launches['gc_mark']} / gc_sweep {launches['gc_sweep']} "
+                             f"launches for {flushes} flushes on {mesh.size} shards")
+    for name, errs in checks.items():
+        if len(errs) != mesh.size or any(errs):
+            raise AssertionError(f"mesh: {name} != its plain version on a shard's first "
+                                 f"launch (errors {errs}, {mesh.size} shards)")
+    no_drops("mesh", sharded)
+
+    # The unsharded engine on the same batches, in the same phase: matches
+    # (phase 4's where given), the snapshot frame and events/s.
+    whole = P.BatchedDeviceNFA(flag_q, keys=keys, config=flag_cfg, engine="cuda")
+    m_whole, whole_walls, two_flush_matches = timed_run(whole)
+    for label, ref in (("the unsharded run's", m_whole), ("phase 4's", ref_matches)):
+        if ref is not None and m_mesh != ref:
+            bad = [k for k in keys if m_mesh.get(k) != ref.get(k)]
+            raise AssertionError(f"mesh: matches differ from {label} on {len(bad)} keys")
+    blob_whole = whole.snapshot()
+    del whole
+    if sharded.snapshot() != blob_whole:
+        raise AssertionError("mesh: the sharded engine's snapshot != the unsharded engine's")
+    del sharded, blob_whole
+    eps = n_timed * K * T / sum(walls.values())
+    whole_eps = n_timed * K * T / sum(whole_walls.values())
+    log(f"mesh: {n_timed * K * T} events in {n_timed} timed batches, {eps:.0f} events/s end "
+        f"to end on {mesh.size} shards, {whole_eps:.0f} unsharded in this phase (phase 4: "
+        f"{unsharded_eps or 0:.0f}); ms per batch sharded / unsharded: " + ", ".join(
+            f"{k} {v / n_timed * 1e3:.2f} / {whole_walls[k] / n_timed * 1e3:.2f}"
+            for k, v in walls.items())
+        + f"; matches == the unsharded run's per key"
+        + (" == phase 4's" if ref_matches is not None else "")
+        + f", drops 0, snapshot frame == the unsharded engine's, launches {launches} "
+        f"({flushes} group flushes: per flush nfa_step {mesh.size}, gc_mark {mesh.size}, "
+        f"gc_sweep {mesh.size}); every kernel == its plain version on each shard's first "
+        f"launch")
+
+    # Each kernel a shard launch, on the inputs of the shard's first launch.
+    rows = {n: [] for n in checks}
+    for sh, dev_s in enumerate(mesh.devices):
+        with torch.cuda.device(dev_s):
+            s_in, x_in, s_out, ys = inputs["nfa_step"][sh]
+            ptrs, T_, K_, _s, _y, keep = sk.prepare(flag_q, flag_cfg, s_in, x_in, words)
+            ms = cuda_ms(lambda: sk.call(flag_lib, ptrs, T_, K_, dev_s), reps=20)
+            moved = bytes_moved(s_in, s_out, ys, keep)
+            rows["nfa_step"].append(dict(
+                shard=sh, device=str(dev_s), K=K_, ms=ms, bytes=moved,
+                bound_ms=moved / HBM_BYTES_PER_S * 1e3, max_abs_err=checks["nfa_step"][sh]))
+            del _s, _y, keep
+            m_in, f_in, pr, got = inputs["gc_mark"][sh]
+            BW, Kk = pr.shape
+            moved = 2 * m_in.numel() + f_in.numel() * 4 + int((got[:BW] & ~m_in[:BW]).sum()) * 4
+            ms = cuda_ms(lambda: gk.launch(gc_lib, m_in, f_in, pr), reps=20)
+            rows["gc_mark"].append(dict(
+                shard=sh, device=str(dev_s), K=Kk, BW=BW, ms=ms, bytes=moved,
+                bound_ms=moved / HBM_BYTES_PER_S * 1e3, max_abs_err=checks["gc_mark"][sh]))
+            args, want = inputs["gc_sweep"][sh]
+            moved = sweep_bytes(args[0], args[2], args[3], want)
+            ms = cuda_ms(lambda: gs.launch(sweep_lib, *args), reps=20)
+            rows["gc_sweep"].append(dict(
+                shard=sh, device=str(dev_s), K=Kk, ms=ms, bytes=moved,
+                bound_ms=moved / HBM_BYTES_PER_S * 1e3, max_abs_err=checks["gc_sweep"][sh]))
+    del inputs
+    for name, rs in rows.items():
+        log(f"mesh {name}, ms a shard launch (CUDA events, its first inputs): " + "; ".join(
+            f"shard {r['shard']} on {r['device']} {r['ms']:.4f} (bound {r['bound_ms']:.4f})"
+            for r in rs))
+
+    # 0 host syncs over 8 deferred sharded advances (pre-packed, a ring of
+    # 8 pages: no drain is due).
+    deferred = P.BatchedDeviceNFA(flag_q, keys=keys, mesh=mesh, engine="cuda",
+                                  config=replace(flag_cfg, matches=n_timed * flag_cfg.matches))
+    xs_list = [deferred.pack(batch_of(b)) for b in range(n_timed)]
+    torch.cuda.synchronize()
+
+    def deferred_advances():
+        for xs_ in xs_list:
+            deferred.advance_packed(xs_, decode=False)
+
+    syncs = count_syncs(deferred_advances)
+    deferred.drain()
+    no_drops("mesh deferred", deferred)
+    if syncs:
+        raise AssertionError(f"{syncs} host syncs over {n_timed} deferred sharded advances")
+    del deferred, xs_list
+
+    # A sharded runtime="cuda" topology over 2 flushes: its sink equals the
+    # unsharded topology's (phase 5's first two flushes where given).
+    def topology_sink(mesh_):
+        sink_log = P.RecordLog()
+        builder = P.ComplexStreamsBuilder(log=sink_log)
+        out = builder.stream("letters").query(
+            "skip_any8", skip_any.skip_any8_pattern(), runtime="cuda",
+            config=P.EngineConfig(**skip_any.FLAGSHIP_CONFIG), batch_size=K * T,
+            initial_keys=K, mesh=mesh_, engine="cuda").to("matches")
+        topo = builder.build()
+        t0 = time.perf_counter()
+        for b in range(2):
+            for key, e in ((k, streams[k][b * T + t]) for t in range(T) for k in keys):
+                topo.process("letters", key, e.value, timestamp=e.timestamp, offset=e.offset)
+        wall = time.perf_counter() - t0
+        if out.node.processor.engine.n_shards != (1 if mesh_ is None else mesh_.size):
+            raise AssertionError("the topology's engine has the wrong shard count")
+        return [(r.key, r.value) for r in sink_log.read("matches")], wall
+
+    sk.NfaStep.launches = gk.GcMark.launches = gs.GcSweep.launches = 0
+    mesh_sink, topo_s = topology_sink(mesh)
+    topo_launches = {"nfa_step": launched("mesh topology", sk.NfaStep.launches),
+                     "gc_mark": launched("mesh topology gc_mark", gk.GcMark.launches),
+                     "gc_sweep": launched("mesh topology gc_sweep", gs.GcSweep.launches)}
+    ref = ref_sink[:two_flush_matches] if ref_sink is not None else topology_sink(None)[0]
+    if len(mesh_sink) != two_flush_matches or mesh_sink != ref:
+        raise AssertionError(f"mesh topology: {len(mesh_sink)} sink records, not the unsharded "
+                             f"topology's first two flushes' ({two_flush_matches})")
+    log(f"mesh topology: 2 flushes of {K * T} records, {2 * K * T / topo_s:.0f} records/s, "
+        f"sink == the unsharded topology's" + (" (phase 5's first two flushes)"
+                                                if ref_sink is not None else "")
+        + f", {two_flush_matches} records; launches {topo_launches}")
+    dry = dryrun_multichip(mesh.size)
+    wall = time.perf_counter() - t_mesh
+    log(f"mesh: dryrun on {dry['mesh']}: merged n_events {dry['n_events']}, runs per device "
+        f"{dry['runs_per_device']}; host syncs over {n_timed} deferred sharded advances "
+        f"{syncs}; phase {wall:.1f}s")
+    return {n: {"shards": mesh.size, "devices": [str(d) for d in mesh.devices],
+                "distinct_devices": mesh.distinct, "virtual": mesh.virtual,
+                "launches": launches[n], "launches_per_flush": launches[n] / flushes,
+                "topology_launches": topo_launches[n],
+                "max_abs_err": max(r["max_abs_err"] for r in rows[n]),
+                "ms": max(r["ms"] for r in rows[n]),
+                "bound_ms": max(r["bound_ms"] for r in rows[n]),
+                "bound_by": "bytes", "library_ms": None, "per_shard": rows[n],
+                "events_per_s": eps, "unsharded_events_per_s": whole_eps,
+                "phase4_events_per_s": unsharded_eps,
+                "host_syncs_deferred": syncs, "phase_s": wall}
+            for n in rows}
+
+
+def run_mesh_entry() -> dict:
+    """Phase 26 alone, with its own references (an unsharded run and an
+    unsharded 2-flush topology), on every visible card: `python3 -c
+    "import chip_smoke; chip_smoke.run_mesh_entry()"`. Prints each card's
+    name and power limit and the kernels' `mesh` entries as JSON."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import kafkastreams_cep_tpu_torch as P
+    from kafkastreams_cep_tpu_torch.models import skip_any
+
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    log(f"cards: {out.splitlines()}; torch {torch.__version__}")
+    flag_q = P.compile_query(P.compile_pattern(skip_any.skip_any8_pattern()), None)
+    flag_cfg = P.EngineConfig(**skip_any.FLAGSHIP_CONFIG)
+    rng = random.Random(7)
+    keys = [f"k{i}" for i in range(skip_any.FLAGSHIP_KEYS)]
+    streams = {k: skip_any.skip_any8_stream(rng, skip_any.FLAGSHIP_T * 10) for k in keys}
+    entry = mesh_phase(flag_q, flag_cfg, streams, 2, 8)
+    print(json.dumps({"mesh": entry}))
+    return entry
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -586,7 +920,7 @@ def main() -> int:
     from kafkastreams_cep_tpu_torch.ops import step_kernel as sk
     from kafkastreams_cep_tpu_torch.ops.engine import DROP_COUNTER_KEYS
     from kafkastreams_cep_tpu_torch.ops.step import build_plain_step
-    from kafkastreams_cep_tpu_torch.parallel.batched import pow2_at_least
+    from kafkastreams_cep_tpu_torch.parallel.batched import land_table, pow2_at_least
     from kafkastreams_cep_tpu_torch.streams.emission import decode_sink_key
 
     dev = torch.device("cuda")
@@ -665,6 +999,10 @@ def main() -> int:
     from kafkastreams_cep_tpu_torch.faults import soak as soak_mod
     from kafkastreams_cep_tpu_torch.streams.device_processor import DeviceCEPProcessor
 
+    # Phase 26's dryrun (the stock query at its tiny shape).
+    from kafkastreams_cep_tpu_torch.parallel.dryrun import dryrun_query
+
+    builds["mesh_dryrun"] = (*dryrun_query(), None)
     hot = soak_mod.build_fleet(0, "mixed", True, device="cpu")[0]
     hot_eng = DeviceCEPProcessor(hot.query, hot.pattern_fn(), **hot.query_opts).engine
     builds["soak_hotspot"] = (hot_eng.query, hot_eng.config, None)
@@ -1475,7 +1813,7 @@ def main() -> int:
         f"crash point {(t3 - t2) * 1e3:.1f} ms; time to recover {(t3 - t0) * 1e3:.1f} ms; "
         f"sink == phase 5's: {len(sink)} matches, each once; nfa_step launches "
         f"{crash_launches}")
-    del obj_sink, sink, order
+    del sink, order
 
     # -- 12. the GC mark kernel against the plain walk ------------------------
     def watch_flushes(eng, at):
@@ -1531,19 +1869,6 @@ def main() -> int:
             return flush(*inputs)
         finally:
             engine_mod.gc_mark, engine_mod.gc_sweep = gk.gc_mark, gs.gc_sweep
-
-    def sweep_bytes(marked, state, pool, want):
-        """Bytes one gc_sweep launch must move on this data: the marks read
-        once, the kept rows' event, name, pred and pin, the lanes, the ring
-        below each cursor and the per-key scalars read; every output plane
-        written once."""
-        BW, Kk = marked.shape[0] - 1, marked.shape[1]
-        B, R, M = pool["node_event"].shape[0], state["node"].shape[0], pool["pend"].shape[0]
-        kept = int(want["node_count"].sum())
-        below = int(pool["pend_pos"].clamp(0, M).sum())
-        reads = BW * Kk + kept * 13 + 2 * R * Kk * 4 + below * 4 + 3 * Kk * 4
-        writes = B * Kk * 13 + 2 * R * Kk * 4 + M * Kk * 4 + 3 * Kk * 4
-        return reads + writes
 
     mark_rows, sweep_rows, flush_rows, gc_err, sweep_err = [], [], [], 0.0, 0.0
 
@@ -2409,7 +2734,7 @@ def main() -> int:
         f"{n_polled / drive_s:.0f} over {whole_polls} polls of {poll_records}); budgets: first "
         f"{budgets[:12]}, then {sorted(set(budgets[12:]))}; sink == phase 15's per key, "
         f"{len(paced_sink)} matches each once; nfa_step launches {paced_launches}")
-    del paced_sink, whole_sink, engine_matches
+    del paced_sink, whole_sink
 
     # Kernel vs plain step on one (state, xs) of a new path, timed both
     # ways, with the byte bound of the launch.
@@ -2865,10 +3190,8 @@ def main() -> int:
     fstreams = flagship_streams(pool_keys)
     feng.advance_packed(feng.pack({k: st[:T] for k, st in fstreams.items()}), decode=False)
     fraw = feng._pull_raw("drain")
-    if fraw["event"] is not None:
-        fraw["event"].synchronize()
+    land_table(fraw)
     ftable = fraw["table"]
-    ftable = ftable.numpy() if isinstance(ftable, torch.Tensor) else ftable
     fplanes = [np.moveaxis(ftable[i], -1, 0) for i in range(3)]
     fcounts = np.ascontiguousarray(fraw["counts"], np.int32)
     dec = native.load_decoder()
@@ -3108,7 +3431,12 @@ def main() -> int:
         fleet[n]["max_abs_err"] = max(fleet_check[n]["max_abs_err"],
                                       soak_checks[n]["max_abs_err"])
 
-    # -- 26. the kernel line, the card line, the ok line ----------------------
+    # -- 26. the key mesh: the flagship sharded over a KeyMesh ---------------
+    mesh_entry = mesh_phase(flag_q, flag_cfg, streams, n_warm, n_timed,
+                            ref_matches=engine_matches, ref_sink=obj_sink, unsharded_eps=e2e_eps)
+    del obj_sink, engine_matches
+
+    # -- 27. the kernel line, the card line, the ok line ----------------------
     log(f"chip_smoke ran {time.perf_counter() - T_START:.1f}s")
     kernels = [{
         "name": "nfa_step",
@@ -3142,6 +3470,7 @@ def main() -> int:
                        "library_ms": None, **wide_point},
         "single_key": {"launches": single_launches, "library_ms": None, **single_point},
         "fleet": fleet["nfa_step"],
+        "mesh": mesh_entry["nfa_step"],
         "envelope": envelope,
     }, {
         "name": "gc_mark",
@@ -3165,6 +3494,7 @@ def main() -> int:
                        **single_marks[-1]},
         "pool_drain": pool_row,
         "fleet": fleet["gc_mark"],
+        "mesh": mesh_entry["gc_mark"],
     }, {
         "name": "gc_sweep",
         "route": "cuda",
@@ -3185,6 +3515,7 @@ def main() -> int:
         "wide_stack": {"launches": wide_sweep_launches, "library_ms": None, **wide_sweep},
         "single_key": {"launches": single_sweep_launches, "library_ms": None, **single_sweep},
         "fleet": fleet["gc_sweep"],
+        "mesh": mesh_entry["gc_sweep"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -19,9 +19,13 @@ the table cannot rot. Inside the hot set these are findings:
     `not`, `and`/`or` operands) of a tensor value.
 
 A tensor value is a local dataflow approximation: parameters with the
-engine's tensor names, `self.state` / `self.pool`, results of `torch.*`
-calls (but `torch.cuda.*`) and of the engine's dispatch attributes, and
-anything derived from them by arithmetic, indexing or method calls.
+engine's tensor names, `self.state` / `self.pool` and their per-shard
+lists `self._state` / `self._pool` (a key mesh, parallel/key_shard.py),
+results of `torch.*` calls (but `torch.cuda.*`) and of the engine's
+dispatch attributes (the per-shard map among them), and anything derived
+from them by arithmetic, indexing, method calls, `zip` / `enumerate` /
+`list` / `tuple`, comprehensions and iteration; a container a tensor is
+stored into (`d[k] = t`) is one too.
 `.shape`, `.dtype`, `.device`, `.ndim` and the methods in `HOST_METHODS`
 leave the set. `EXCEPTIONS` lists the functions allowed a host read, each
 with its reason.
@@ -51,6 +55,8 @@ HOT_PATHS: Dict[str, Tuple[str, ...]] = {
         "BatchedDeviceNFA._occupancy_bound",
         "BatchedDeviceNFA._profile_mark",
         "BatchedDeviceNFA._read_profiles",
+        "BatchedDeviceNFA._shard_xs",
+        "BatchedDeviceNFA._map_shards",
     ),
     # The single-key engine's advance with decode=False (its drain is the
     # sync point): the pack, the step, the append and the group flush.
@@ -60,7 +66,7 @@ HOT_PATHS: Dict[str, Tuple[str, ...]] = {
         "DeviceNFA._ledger_append",
         "DeviceNFA._flush_group",
     ),
-    "parallel/key_shard.py": ("build_batched_advance",),
+    "parallel/key_shard.py": ("build_batched_advance", "shard_xs"),
     "ops/engine.py": ("build_append_post", "build_flush_post"),
     "ops/step_kernel.py": ("NfaStep.__call__",),
     "ops/step.py": ("build_plain_step",),
@@ -79,14 +85,19 @@ EXCEPTIONS: Dict[Tuple[str, str], str] = {
 ARRAY_PARAMS = {
     "state", "pool", "xs", "ys", "st", "window", "page_roots", "marked", "marked_pin", "frontier",
     "pred", "ids", "roots", "w_match", "w_mroot", "group_ys", "group_roots", "leaf",
-    "tree", "mask", "vals", "remap_full", "regs", "cols",
+    "tree", "mask", "vals", "remap_full", "regs", "cols", "per_shard",
 }
 META_ATTRS = {"shape", "dtype", "device", "ndim", "is_cuda", "layout"}
 HOST_METHODS = {
     "size", "dim", "numel", "data_ptr", "element_size", "stride", "is_contiguous",
     "get_device", "type",
 }
-DISPATCH = ("self._advance", "self._append", "self._flush", "self._plain")
+DISPATCH = ("self._advance", "self._append", "self._flush", "self._plain", "self._map_shards",
+            "self._shard_xs")
+#: Builtins whose result carries their arguments' tensors.
+CARRIERS = {"zip", "enumerate", "list", "tuple"}
+#: Attributes that hold tensors (whole trees or one tree a shard).
+TENSOR_ATTRS = ("self.state", "self.pool", "self._state", "self._pool")
 ALWAYS = {"item", "cpu", "synchronize"}
 ON_TENSOR = {"tolist", "numpy"}
 SCALARIZE = {"bool", "int", "float"}
@@ -162,13 +173,16 @@ class _Traced:
         for node in ast.walk(fn):
             if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda)):
                 a = node.args
-                for arg in a.posonlyargs + a.args + a.kwonlyargs:
-                    if arg.arg in ARRAY_PARAMS:
+                for arg in a.posonlyargs + a.args + a.kwonlyargs + [a.vararg]:
+                    if arg is not None and arg.arg in ARRAY_PARAMS:
                         self.names.add(arg.arg)
         binds = []
         for node in ast.walk(fn):
             if isinstance(node, ast.Assign):
                 binds += [(t, node.value) for t in node.targets]
+                # `d[k] = tensor` makes the container `d` a tensor value.
+                binds += [(t.value, node.value) for t in node.targets
+                          if isinstance(t, ast.Subscript) and isinstance(t.value, ast.Name)]
             elif isinstance(node, (ast.AugAssign, ast.AnnAssign)) and node.value is not None:
                 binds.append((node.target, node.value))
             elif isinstance(node, (ast.For, ast.comprehension)):
@@ -192,10 +206,10 @@ class _Traced:
         if isinstance(node, ast.Attribute):
             if node.attr in META_ATTRS:
                 return False
-            if _dotted(node) in ("self.state", "self.pool"):
+            if _dotted(node) in TENSOR_ATTRS:
                 return True
             return self.tensor(node.value)
-        if isinstance(node, ast.Subscript):
+        if isinstance(node, (ast.Subscript, ast.Starred)):
             return self.tensor(node.value)
         if isinstance(node, ast.Call):
             dotted = _dotted(node.func)
@@ -204,6 +218,8 @@ class _Traced:
                     return True
                 if dotted.startswith(DISPATCH):
                     return True
+                if dotted in CARRIERS:
+                    return any(self.tensor(a) for a in node.args)
             if isinstance(node.func, ast.Attribute):
                 if node.func.attr in HOST_METHODS | ON_TENSOR:
                     return False
@@ -224,6 +240,10 @@ class _Traced:
             return self.tensor(node.body) or self.tensor(node.orelse)
         if isinstance(node, (ast.Tuple, ast.List)):
             return any(self.tensor(e) for e in node.elts)
+        if isinstance(node, (ast.ListComp, ast.GeneratorExp)):
+            return self.tensor(node.elt)
+        if isinstance(node, ast.DictComp):
+            return self.tensor(node.value)
         return False
 
 

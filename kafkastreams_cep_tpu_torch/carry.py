@@ -7,10 +7,16 @@ and `pool` as numpy arrays (e.g. `{k: np.asarray(v) for k, v in
 eng.state.items()}`) and returns the port's tensors on `device`;
 `state_to_numpy` goes back. This is the engine's counterpart of loading a
 model's weights into a ported model.
+
+A JAX engine on a key mesh holds its state sharded; `np.asarray` gathers
+it. `state_from_numpy(..., mesh=)` splits such a gathered tree into one
+tree a shard of the port's mesh (parallel/key_shard.py), each on its
+shard's device, as `BatchedDeviceNFA.state` takes them, and
+`state_to_numpy` gathers per-shard lists back into whole arrays.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -32,18 +38,31 @@ def _to_torch(tree: Mapping[str, Any], device) -> Dict[str, torch.Tensor]:
     return out
 
 
+Tree = Dict[str, torch.Tensor]
+
+
 def state_from_numpy(
-    state: Mapping[str, Any], pool: Mapping[str, Any], device="cpu"
-) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
-    """(state, pool) numpy leaves -> the port's tensors on `device`."""
-    return _to_torch(state, device), _to_torch(pool, device)
+    state: Mapping[str, Any], pool: Mapping[str, Any], device="cpu", mesh: Optional[Any] = None,
+) -> Tuple[Union[Tree, List[Tree]], Union[Tree, List[Tree]]]:
+    """(state, pool) numpy leaves -> the port's tensors on `device`, or,
+    with a `KeyMesh`, one tree a shard on the shard's device (the key
+    extent must divide by the mesh's shard count)."""
+    if mesh is None:
+        return _to_torch(state, device), _to_torch(pool, device)
+    from .parallel.key_shard import shard_state
+
+    return (shard_state(_to_torch(state, "cpu"), mesh),
+            shard_state(_to_torch(pool, "cpu"), mesh))
 
 
-def state_to_numpy(
-    state: Mapping[str, torch.Tensor], pool: Mapping[str, torch.Tensor]
-) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
-    """The port's (state, pool) tensors -> numpy leaves."""
-    return (
-        {k: v.detach().cpu().numpy() for k, v in state.items()},
-        {k: v.detach().cpu().numpy() for k, v in pool.items()},
-    )
+def _to_numpy(tree: Union[Mapping[str, torch.Tensor], List[Mapping[str, torch.Tensor]]]):
+    if isinstance(tree, (list, tuple)):
+        return {k: np.concatenate([t[k].detach().cpu().numpy() for t in tree], axis=-1)
+                for k in tree[0]}
+    return {k: v.detach().cpu().numpy() for k, v in tree.items()}
+
+
+def state_to_numpy(state, pool) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
+    """The port's (state, pool) tensors -> numpy leaves; per-shard lists
+    of trees are joined along the key axis."""
+    return _to_numpy(state), _to_numpy(pool)

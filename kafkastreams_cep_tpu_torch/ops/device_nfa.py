@@ -51,7 +51,6 @@ from ..faults.injection import TransientFault, with_retry
 from ..obs.registry import MetricsRegistry, next_instance_id
 from ..parallel.batched import (
     check_drop_counters,
-    fold_group_window,
     pruned_events,
     replay_ledger_overflowed,
     resolve_device,
@@ -66,6 +65,7 @@ from .engine import (
     EngineConfig,
     build_append_post,
     build_flush_post,
+    concat_group_window,
     drain_pend,
     eval_stateless_preds,
 )
@@ -362,7 +362,13 @@ class DeviceNFA:
 
     def _flush_group(self) -> None:
         """Fold the accumulated group window back into the node region."""
-        fold_group_window(self)
+        if not self._group_ys:
+            return
+        ys_cat, roots_cat = concat_group_window(self._group_ys, self._group_roots)
+        self._group_ys = []
+        self._group_roots = []
+        self.state, self.pool = self._flush(self.state, self.pool, ys_cat, roots_cat)
+        self.flushes += 1
 
     def _native_decoder(self):
         if self._decoder is None:
@@ -476,4 +482,4 @@ class DeviceNFA:
     def _prune_events(self) -> None:
         """Bound the host event registry to the pool-referenced events,
         once it outgrows its threshold (the pull is a sync point)."""
-        self._events = pruned_events(self._events, self.pool, self.events_prune_threshold)
+        self._events = pruned_events(self._events, [self.pool], self.events_prune_threshold)

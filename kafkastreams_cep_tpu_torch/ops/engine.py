@@ -34,7 +34,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -432,13 +432,16 @@ def build_flush_post(query: CompiledQuery, config: EngineConfig):
 
 
 # ------------------------------------------------------------------- drain
-def drain_probe(pool: State) -> Tensor:
+def drain_probe(pool: State, pending: Optional[bool] = None) -> Tensor:
     """[3, K] = (pend_count, pend_pos, chain-depth bound). The bound comes
     from pointer doubling over the pred graph (ceil(log2 B) rounds) and is
-    only computed when something is pending."""
+    only computed when something is pending: in this pool, or, for one
+    shard of a key mesh, wherever `pending` says (any shard)."""
     pred = pool["node_pred"]
     B = pred.shape[0]
-    if int(pool["pend_count"].sum()) > 0:
+    if pending is None:
+        pending = int(pool["pend_count"].sum()) > 0
+    if pending:
         valid = pool["node_event"] >= 0
         d = valid.to(torch.int32)
         j = torch.where(valid, pred, torch.full_like(pred, -1))

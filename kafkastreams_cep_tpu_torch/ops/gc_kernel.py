@@ -34,7 +34,7 @@ from typing import Dict, Optional
 
 import torch
 
-from .kernel_build import CSRC, compile_source
+from .kernel_build import CSRC, compile_source, on_device
 
 Tensor = torch.Tensor
 KERNEL_SOURCE = CSRC / "gc_mark.cu"
@@ -108,21 +108,23 @@ def launch(lib: ctypes.CDLL, marked: Tensor, frontier: Tensor, pred: Tensor,
            keys_per_block: int = 0, global_bitmaps: bool = False) -> Tensor:
     """Run the compiled mark on tensors on the library's device (the card
     for sm_90a builds, the CPU for the emulation build): a new [BW + 1, K]
-    bool tensor. Does not synchronize. `keys_per_block` 0 lets the kernel
-    choose the walk's keys a block from BW and K; `global_bitmaps` walks in
-    place in the packed words even where shared memory would hold them
-    (the tests use both to run every geometry at small shapes)."""
+    bool tensor, launched with its device current. Does not synchronize.
+    `keys_per_block` 0 lets the kernel choose the walk's keys a block from
+    BW and K; `global_bitmaps` walks in place in the packed words even
+    where shared memory would hold them (the tests use both to run every
+    geometry at small shapes)."""
     check_inputs(marked, frontier, pred)
     BW, K = pred.shape
     F = frontier.shape[0]
     out = torch.empty_like(marked)
     words = torch.empty(lib.gc_mark_words(BW, K), dtype=torch.int32, device=pred.device)
-    stream = (torch.cuda.current_stream(pred.device).cuda_stream
-              if pred.device.type == "cuda" else 0)
-    err = lib.gc_mark_launch(
-        marked.data_ptr(), frontier.data_ptr(), pred.data_ptr(), out.data_ptr(), F, BW, K,
-        keys_per_block, words.data_ptr(), int(global_bitmaps), ctypes.c_void_p(stream),
-    )
+    with on_device(pred.device):
+        stream = (torch.cuda.current_stream(pred.device).cuda_stream
+                  if pred.device.type == "cuda" else 0)
+        err = lib.gc_mark_launch(
+            marked.data_ptr(), frontier.data_ptr(), pred.data_ptr(), out.data_ptr(), F, BW, K,
+            keys_per_block, words.data_ptr(), int(global_bitmaps), ctypes.c_void_p(stream),
+        )
     if err != 0:
         raise RuntimeError(f"gc_mark kernel launch failed: cudaError {err}")
     return out

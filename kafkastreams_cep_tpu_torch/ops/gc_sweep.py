@@ -36,7 +36,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from .kernel_build import CSRC, compile_source
+from .kernel_build import CSRC, compile_source, on_device
 
 Tensor = torch.Tensor
 State = Dict[str, Tensor]
@@ -192,7 +192,8 @@ def launch(lib: ctypes.CDLL, marked: Tensor, marked_pin: Tensor, state: State, p
            ys: State, keys_per_block: int = 0, global_bitmaps: bool = False) -> State:
     """Run the compiled sweep on tensors on the library's device (the card
     for sm_90a builds, the CPU for the emulation build): new planes, as
-    `_sweep` returns them. Does not synchronize. `keys_per_block` 0 lets
+    `_sweep` returns them, launched with their device current. Does not
+    synchronize. `keys_per_block` 0 lets
     the kernel choose from BW and K; `global_bitmaps` puts bitmaps and
     prefix counts in a global scratch even where shared memory would hold
     them (the tests use both to run every geometry at small shapes)."""
@@ -223,11 +224,12 @@ def launch(lib: ctypes.CDLL, marked: Tensor, marked_pin: Tensor, state: State, p
     if global_bitmaps or lib.gc_sweep_scratch_words(BW, K) > 0:
         scratch = torch.empty(-(-K // kpb) * lib.gc_sweep_block_words(BW, kpb),
                               dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else 0
-    err = lib.gc_sweep_launch(
-        ptrs, dims, words.data_ptr(), scratch.data_ptr() if scratch is not None else None,
-        ctypes.c_void_p(stream),
-    )
+    with on_device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else 0
+        err = lib.gc_sweep_launch(
+            ptrs, dims, words.data_ptr(), scratch.data_ptr() if scratch is not None else None,
+            ctypes.c_void_p(stream),
+        )
     if err != 0:
         raise RuntimeError(f"gc_sweep kernel launch failed: cudaError {err}")
     return out

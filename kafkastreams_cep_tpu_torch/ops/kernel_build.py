@@ -16,9 +16,16 @@ compiled. A missing compiler or a failed
 build raises RuntimeError. Every compiler run of this process is logged
 in `BUILDS` as (stem, target, seconds); a cache hit runs nothing and logs
 nothing.
+
+Every launch runs under `on_device(<its tensors' device>)`: the CUDA
+runtime's per-device state -- `cudaFuncSetAttribute` (the mark's and the
+sweep's dynamic shared memory), the module a launch loads, the stream --
+acts on the current device, so a shard on another card of a key mesh
+(parallel/key_shard.py) is launched there and nowhere else.
 """
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import os
 import re
@@ -28,6 +35,8 @@ import tempfile
 import time
 from pathlib import Path
 from typing import List, Optional, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = CSRC / "_build"
@@ -105,3 +114,9 @@ def compile_source(src: str, stem: str, target: str = "sm_90a",
         os.replace(Path(tmp) / "log", lib.with_suffix(".log"))
         os.replace(tmp_lib, lib)
     return lib
+
+
+def on_device(device: torch.device):
+    """The guard a launch runs under: `device` made the current CUDA
+    device for its extent (nothing for the CPU emulation's tensors)."""
+    return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()

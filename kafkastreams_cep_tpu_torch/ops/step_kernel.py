@@ -30,7 +30,7 @@ import torch
 
 from .codegen import XI_FIXED, field_layout, query_header, wide_masks
 from .engine import WM_NONE, EngineConfig, node_window_cap
-from .kernel_build import CSRC, compile_source
+from .kernel_build import CSRC, compile_source, on_device
 from .step import COUNTER_FIELDS, build_plain_step
 from .tables import CompiledQuery
 
@@ -200,10 +200,11 @@ def prepare(query: CompiledQuery, config: EngineConfig, state, xs, scratch_words
 
 
 def call(lib: ctypes.CDLL, ptrs, T: int, K: int, device: torch.device) -> None:
-    """One launch of the compiled kernel on the device's current stream;
-    raises if the launch was refused."""
-    stream = torch.cuda.current_stream(device).cuda_stream if device.type == "cuda" else 0
-    err = lib.nfa_step_launch(ptrs, T, K, ctypes.c_void_p(stream))
+    """One launch of the compiled kernel on the device's current stream,
+    with that device current; raises if the launch was refused."""
+    with on_device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream if device.type == "cuda" else 0
+        err = lib.nfa_step_launch(ptrs, T, K, ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"nfa_step kernel launch failed: cudaError {err}")
 

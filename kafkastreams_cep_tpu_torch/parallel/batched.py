@@ -124,8 +124,26 @@ the Python walk alike; parallel/stacked.py splits them by query. Such a
 table set has no host stages, so exact replay stays off, and the bytes
 sinks are refused (their bytes carry no query).
 
-Left for a later slice (see ROADMAP.md): the mesh. The JAX engine's
-`mesh=` is not a parameter here, so passing it raises TypeError.
+Key mesh (`mesh=`, parallel/key_shard.py `KeyMesh`; the JAX engine's
+`mesh=`): the key axis is padded to a multiple of the mesh's shard count
+(`K_padded`; padding keys never receive a valid event) and cut into
+contiguous blocks, one a shard. Each shard's state, pool, packed columns
+and group window live on its device, and every device pass -- the step,
+the pend append, the group flush with `gc_mark` and `gc_sweep`, the
+probes, the flat flatten and the pool drain's compaction -- runs once a
+shard on that shard's block, with no collective. The host side runs once
+for the whole key axis: keys, event registry, pack, decode, replay and
+the capacity guards, whose bounds (the probes' maxima, the drain
+tables' extents) are maxima over every shard, so a sharded engine pulls
+the tables, and gives the matches, state and snapshot frames, of the
+unsharded one. `self.state` / `self.pool` read the shards gathered on
+the first shard's device (a whole tree assigned to them is split); the
+per-shard trees are `_state` / `_pool`. `stats` sums the shards,
+`shard_stats()` gives per-shard totals (`cep_shard_state_counter`), and
+`device_registries()` one registry a shard for obs/merge.py. `add_keys`,
+`restore(mesh=)` and `resize` re-partition: a frame taken at one shard
+count restores at any other, or without a mesh.
+
 `compile_cost_estimates=True` raises ValueError: an nvcc build has no
 cost model to read.
 
@@ -191,10 +209,15 @@ from ..streams.serde import (
 )
 from .key_shard import (
     ENGINES,
+    STAT_KEYS,
+    KeyMesh,
     build_batched_advance,
-    global_stats,
+    gather_state,
     init_batched_pool,
     init_batched_state,
+    padded_extent,
+    shard_state,
+    shard_xs,
 )
 
 #: Rebase margin: keys first seen after the base is fixed may start up to
@@ -272,32 +295,35 @@ def replay_ledger_overflowed(eng: Any, bound: str) -> None:
         )
 
 
-def fold_group_window(eng: Any) -> bool:
-    """The group flush: fold eng's accumulated group window back into the
-    node region. False when the group is empty."""
-    if not eng._group_ys:
-        return False
-    ys_cat, roots_cat = concat_group_window(eng._group_ys, eng._group_roots)
-    eng._group_ys = []
-    eng._group_roots = []
-    eng.state, eng.pool = eng._flush(eng.state, eng.pool, ys_cat, roots_cat)
-    eng.flushes += 1
-    return True
-
-
-def pruned_events(events: Dict[int, Event], pool: Dict[str, torch.Tensor], threshold: int,
+def pruned_events(events: Dict[int, Event], pools: Seq[Dict[str, torch.Tensor]], threshold: int,
                   hwm: Optional[int] = None) -> Dict[int, Event]:
     """The host event registry bounded, once it outgrows `threshold`, to
-    the pool-referenced events (and any packed past `hwm`): a new dict,
-    or `events` itself below the threshold. The distinct referenced ids
-    are found on the device: only they cross to the host, not the whole
-    node plane."""
+    the events the pools (one a shard) reference (and any packed past
+    `hwm`): a new dict, or `events` itself below the threshold. The
+    distinct referenced ids are found on each pool's device: only they
+    cross to the host, not the whole node plane."""
     if len(events) <= threshold:
         return events
-    ev = pool["node_event"]
-    live_gidx = set(torch.unique(ev[ev >= 0]).cpu().tolist())
+    live_gidx = set()
+    for pool in pools:
+        ev = pool["node_event"]
+        live_gidx.update(torch.unique(ev[ev >= 0]).cpu().tolist())
     return {g: e for g, e in events.items()
             if g in live_gidx or (hwm is not None and g > hwm)}
+
+
+def land_table(raw: Dict[str, Any]) -> None:
+    """A flat pull's table on the host: wait for each shard's copy (its
+    CUDA event), drop the device tables the copies read, and join the
+    shards' parts along the key axis into `raw["table"]`, a [3, Mb, Cb, K]
+    numpy array (the one part itself without a mesh)."""
+    for event in raw.pop("events", ()):
+        event.synchronize()
+    raw.pop("sources", None)
+    tables = raw.pop("tables", None)
+    if tables is not None:
+        parts = [t.numpy() if isinstance(t, torch.Tensor) else t for t in tables]
+        raw["table"] = parts[0] if len(parts) == 1 else np.concatenate(parts, axis=-1)
 
 
 class BatchedDeviceNFA:
@@ -314,6 +340,7 @@ class BatchedDeviceNFA:
         schema: Optional[EventSchema] = None,
         config: Optional[EngineConfig] = None,
         device: Any = None,
+        mesh: Optional[KeyMesh] = None,
         engine: Optional[str] = None,
         events_prune_threshold: int = 1 << 16,
         native: bool = True,
@@ -358,7 +385,21 @@ class BatchedDeviceNFA:
             if sink_format == "arrow":
                 arrow_sink_schema()  # ImportError without pyarrow
         self.config = config if config is not None else EngineConfig()
+        if mesh is not None and not isinstance(mesh, KeyMesh):
+            raise TypeError(f"mesh must be a KeyMesh (parallel/key_shard.py key_mesh), got "
+                            f"{type(mesh).__name__}")
+        #: The key mesh (module doc) or None; its first device is the
+        #: engine's `device`, where gathered reads land.
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None and torch.device(device).type != mesh.devices[0].type:
+                raise ValueError(f"device {device!r} is not of the mesh's type ({mesh!r})")
+            device = mesh.devices[0]
         self.device = resolve_device(device)
+        #: One device a shard: the mesh's, or the engine's device alone.
+        self._devices: List[torch.device] = (
+            list(mesh.devices) if mesh is not None else [self.device])
+        self.n_shards = len(self._devices)
         if engine is None:
             engine = "cuda" if self.device.type == "cuda" else "torch"
         if engine not in ENGINES:
@@ -378,17 +419,23 @@ class BatchedDeviceNFA:
         if not self.keys:
             raise ValueError("BatchedDeviceNFA needs at least one key")
         self.K = len(self.keys)
+        #: The key extent the device holds: K padded to a multiple of the
+        #: shard count (K without a mesh).
+        self.K_padded = padded_extent(self.K, self.n_shards)
         self.key_index: Dict[Any, int] = {k: i for i, k in enumerate(self.keys)}
-        self.state = init_batched_state(self.query, self.config, self.K, self.device)
-        self.pool = init_batched_pool(self.query, self.config, self.K, self.device)
+        #: One (state, pool) tree a shard, each on its shard's device;
+        #: every pass builds new lists (the replay snapshot keeps old ones).
+        self._state = self._place(init_batched_state(self.query, self.config, self.K_padded))
+        self._pool = self._place(init_batched_pool(self.query, self.config, self.K_padded))
         self._advance = build_batched_advance(self.query, self.config, engine)
         self._append = build_append_post(self.config)
         self._flush = build_flush_post(self.query, self.config)
         #: GC group cadence: the pend append runs every advance, the
-        #: mark/sweep folds the accumulated window back every G-th.
+        #: mark/sweep folds the accumulated window back every G-th. The
+        #: window holds, per advance, one entry a shard.
         self.gc_group = max(int(self.config.gc_group), 1)
-        self._group_ys: List[Dict[str, torch.Tensor]] = []
-        self._group_roots: List[torch.Tensor] = []
+        self._group_ys: List[List[Dict[str, torch.Tensor]]] = []
+        self._group_roots: List[List[torch.Tensor]] = []
         self.events_prune_threshold = events_prune_threshold
         self._events: Dict[int, Event] = {}
         self._next_gidx = 0
@@ -436,19 +483,20 @@ class BatchedDeviceNFA:
         self.exact_replay = bool(exact_replay) and supports_replay(self.query)
         self.replays = 0
         self._warned_collisions = False
-        #: The interval's starting generation (state, pool), by reference;
-        #: None while replay is off, so no dead generation stays alive.
-        self._snap: Optional[Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]] = (
-            (self.state, self.pool) if self.exact_replay else None)
+        #: The interval's starting generation (state, pool), one tree a
+        #: shard each, by reference; None while replay is off, so no dead
+        #: generation stays alive.
+        self._snap_shards: Optional[Tuple[List[Dict[str, torch.Tensor]], List[Dict[str, torch.Tensor]]]] = (
+            (self._state, self._pool) if self.exact_replay else None)
         #: The interval's event ledger: (gidx [T, K], valid [T, K]) of each
         #: advanced batch, host arrays from `pack_host` (or the device
-        #: columns of externally packed xs, read at the drain).
+        #: columns of externally packed xs, one a shard, read at the drain).
         self._interval_packs: List[Tuple[Any, Any]] = []
         self._interval_overflow = False
         #: Host (gidx, valid) of packed batches not yet advanced, FIFO.
         self._pack_meta: deque = deque()
         #: seq_collisions per key at the interval's start.
-        self._collision_base = np.zeros(self.K, np.int64)
+        self._collision_base = np.zeros(self.K_padded, np.int64)
         if profile_every is not None and int(profile_every) < 1:
             raise ValueError(f"profile_every must be >= 1, got {profile_every}")
         #: Sampled compute timing: every advance with profile_sync, every
@@ -575,51 +623,159 @@ class BatchedDeviceNFA:
         self._m_compute_advance = compute.labels(instance=inst, phase="advance")
         self._m_compute_post = compute.labels(instance=inst, phase="post")
 
+    # ------------------------------------------------------------ shards
+    @property
+    def state(self) -> Dict[str, torch.Tensor]:
+        """The engine state, every key: the one shard's tree, or the
+        shards gathered on the first shard's device (a copy)."""
+        return self._state[0] if self.n_shards == 1 else gather_state(self._state)
+
+    @state.setter
+    def state(self, tree) -> None:
+        self._state = self._place(tree)
+
+    @property
+    def pool(self) -> Dict[str, torch.Tensor]:
+        """The node pool and pending-match ring, as `state` reads."""
+        return self._pool[0] if self.n_shards == 1 else gather_state(self._pool)
+
+    @pool.setter
+    def pool(self, tree) -> None:
+        self._pool = self._place(tree)
+
+    def _place(self, tree) -> List[Dict[str, Any]]:
+        """One tree a shard on its device: a whole K_padded tree (tensors
+        or numpy) is split into the shards' blocks; a list of per-shard
+        trees is taken as it is."""
+        if isinstance(tree, (list, tuple)):
+            if len(tree) != self.n_shards:
+                raise ValueError(f"{len(tree)} shard trees for {self.n_shards} shards")
+            return list(tree)
+        if self.mesh is None:
+            return [{k: torch.as_tensor(v).to(self.device) for k, v in tree.items()}]
+        return shard_state(tree, self.mesh)
+
+    def _map_shards(self, fn, *per_shard: Seq[Any]) -> List[Any]:
+        """fn over the shards (the port's shard_map): one call a shard, on
+        that shard's trees, in shard order."""
+        return [fn(*args) for args in zip(*per_shard)]
+
+    def _shard_of(self, key: Any) -> Tuple[int, int]:
+        """(shard, column within the shard) of a key."""
+        return divmod(self.key_index[key], self.K_padded // self.n_shards)
+
+    def _host_tree(self, trees: Seq[Dict[str, torch.Tensor]]) -> Dict[str, np.ndarray]:
+        """Per-shard trees joined on the host: one numpy array a leaf."""
+        return {k: np.concatenate([t[k].cpu().numpy() for t in trees], axis=-1)
+                for k in trees[0]}
+
+    def _host_counter(self, name: str) -> np.ndarray:
+        """One [K_padded] counter of every shard on the host, int64."""
+        return np.concatenate([st[name].cpu().numpy() for st in self._state]).astype(np.int64)
+
+    def _counter_totals(self, names: Seq[str]) -> np.ndarray:
+        """[n_shards, len(names)] int64 sums of [K] counters, one host
+        copy a shard."""
+        return np.stack([
+            torch.stack([st[n].sum() for n in names]).cpu().numpy().astype(np.int64)
+            for st in self._state])
+
     # ------------------------------------------------------------------ API
     def add_keys(self, new_keys: Seq[Any]) -> None:
         """Grow the key axis: fresh engine state and pool for each new key,
-        concatenated on the trailing key axis. The group window is flushed
-        first: it carries the old key extent. The kernel takes K at each
-        launch, so nothing is rebuilt; callers grow geometrically all the
-        same (streams/device_processor.py doubles)."""
+        concatenated on the trailing key axis (and, under a mesh, the key
+        axis re-partitioned into the new blocks, so keys move between
+        shards, as the JAX engine's `shard_state` re-shards). The group
+        window is flushed first: it carries the old key extent. The kernel
+        takes K at each launch, so nothing is rebuilt; callers grow
+        geometrically all the same (streams/device_processor.py doubles)."""
         new_keys = list(new_keys)
         for k in new_keys:
             if k in self.key_index:
                 raise KeyError(f"key {k!r} already assigned")
         self._flush_group()
-        n = len(new_keys)
-        fresh_state = init_batched_state(self.query, self.config, n, self.device)
-        fresh_pool = init_batched_pool(self.query, self.config, n, self.device)
-        self.state = {k: torch.cat([v, fresh_state[k]], dim=-1) for k, v in self.state.items()}
-        self.pool = {k: torch.cat([v, fresh_pool[k]], dim=-1) for k, v in self.pool.items()}
-        if self.exact_replay:
-            # The new keys' interval starts at their init state.
-            snap_s, snap_p = self._snap
-            self._snap = (
-                {k: torch.cat([v, fresh_state[k]], dim=-1) for k, v in snap_s.items()},
-                {k: torch.cat([v, fresh_pool[k]], dim=-1) for k, v in snap_p.items()},
-            )
-            self._collision_base = np.concatenate(
-                [self._collision_base, np.zeros(n, np.int64)])
+        k_pad = padded_extent(self.K + len(new_keys), self.n_shards)
+        n = k_pad - self.K_padded
+
+        def grown(trees, fresh):
+            whole = gather_state(trees)
+            return self._place({k: torch.cat([v, fresh[k].to(v.device)], dim=-1)
+                                for k, v in whole.items()})
+
+        if n > 0:
+            fresh_state = init_batched_state(self.query, self.config, n, self.device)
+            fresh_pool = init_batched_pool(self.query, self.config, n, self.device)
+            self._state = grown(self._state, fresh_state)
+            self._pool = grown(self._pool, fresh_pool)
+            if self.exact_replay:
+                # The new keys' interval starts at their init state.
+                snap_s, snap_p = self._snap_shards
+                self._snap_shards = (grown(snap_s, fresh_state), grown(snap_p, fresh_pool))
+                self._collision_base = np.concatenate(
+                    [self._collision_base, np.zeros(n, np.int64)])
+            self.K_padded = k_pad
         self.keys.extend(new_keys)
         self.K = len(self.keys)
         self.key_index = {k: i for i, k in enumerate(self.keys)}
 
     @property
     def stats(self) -> Dict[str, int]:
-        """Cross-key counter totals (one reduction + one host copy); the
-        `cep_engine_state_counter` gauges ride this explicit pull."""
-        pulled = {k: int(v) for k, v in global_stats(self.state).items()}
-        out = {k: pulled[k] for k in STATE_COUNTER_KEYS}
+        """Cross-key counter totals (a reduction a shard, summed on the
+        host); the `cep_engine_state_counter` gauges ride this explicit
+        pull."""
+        totals = self._counter_totals(STATE_COUNTER_KEYS).sum(axis=0)
+        out = {k: int(v) for k, v in zip(STATE_COUNTER_KEYS, totals)}
         for k, v in out.items():
             self._m_state.labels(instance=self.instance_id, counter=k).set(v)
         return out
 
+    def shard_stats(self) -> Dict[str, np.ndarray]:
+        """Per-shard counter totals, [n_shards] a counter (the counters of
+        `global_stats`, `runs` among them; one shard without a mesh). An
+        explicit pull; the `cep_shard_state_counter{counter, shard}`
+        gauges ride it, and `device_registries()` is built from it."""
+        totals = self._counter_totals(STAT_KEYS)
+        gauge = self.metrics.gauge(
+            "cep_shard_state_counter",
+            "Engine state counter totals per mesh shard (explicit pull)",
+            labels=("instance", "counter", "shard"),
+        )
+        out = {name: totals[:, i] for i, name in enumerate(STAT_KEYS)}
+        for name, arr in out.items():
+            for sh in range(arr.shape[0]):
+                gauge.labels(instance=self.instance_id, counter=name, shard=str(sh)).set(int(arr[sh]))
+        return out
+
+    def device_registries(self) -> Dict[str, MetricsRegistry]:
+        """One MetricsRegistry a mesh shard, keyed by the shard index
+        ("0".."n-1"): its counters as `cep_device_state_total{counter}` and
+        its live runs as the `cep_device_runs` gauge, the shapes
+        obs/merge.py merges (counters sum to the global totals, gauges
+        keep a `device` label). One `shard_stats` pull feeds them all."""
+        pulled = self.shard_stats()
+        out: Dict[str, MetricsRegistry] = {}
+        for sh in range(self.n_shards):
+            reg = MetricsRegistry()
+            counters = reg.counter(
+                "cep_device_state_total", "Engine state counter totals on one device",
+                labels=("counter",),
+            )
+            for name, arr in pulled.items():
+                if name == "runs":
+                    reg.gauge("cep_device_runs", "Live runs resident on one device").set(
+                        int(arr[sh]))
+                else:
+                    counters.labels(counter=name).inc(int(arr[sh]))
+            out[str(sh)] = reg
+        return out
+
     def runs(self, key: Any) -> int:
-        return int(self.state["runs"][self.key_index[key]])
+        sh, j = self._shard_of(key)
+        return int(self._state[sh]["runs"][j])
 
     def n_live(self, key: Any) -> int:
-        return int(self.state["active"][:, self.key_index[key]].sum())
+        sh, j = self._shard_of(key)
+        return int(self._state[sh]["active"][:, j].sum())
 
     def pack(
         self,
@@ -644,7 +800,7 @@ class BatchedDeviceNFA:
         omitted, expiry runs on the event timestamps. A record the schema
         cannot pack raises here, and the engine is left as it was.
         """
-        lists: List[Seq[Event]] = [() for _ in range(self.K)]
+        lists: List[Seq[Event]] = [() for _ in range(self.K_padded)]
         T = 0
         min_first: Optional[int] = None
         for key, evs in events_by_key.items():
@@ -665,7 +821,7 @@ class BatchedDeviceNFA:
             # minus a margin, so keys that start a little earlier stay >= 0.
             self._ts_base = min_first - TS_REBASE_MARGIN_MS
 
-        K = self.K
+        K = self.K_padded
         schema = self.query.schema
         cols: Dict[str, np.ndarray] = {
             f"f:{name}": np.zeros((T, K), dtype) for name, dtype in schema.fields.items()
@@ -709,15 +865,18 @@ class BatchedDeviceNFA:
             self._pack_meta.append((gidx, valid))
         return cols
 
-    def upload(self, cols: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    def upload(self, cols: Dict[str, np.ndarray]) -> Any:
         """Copy `pack_host`'s columns to the device and evaluate the
-        stateless predicates there."""
-        xs = {k: torch.from_numpy(v).to(self.device) for k, v in cols.items()}
-        xs["spred"] = eval_stateless_preds(self.query, xs)
-        return xs
+        stateless predicates there. Under a mesh: one dict a shard, its
+        key block on its device (what `advance_packed` takes)."""
+        shards = ([{k: torch.from_numpy(v).to(self.device) for k, v in cols.items()}]
+                  if self.mesh is None else shard_xs(cols, self.mesh))
+        for xs in shards:
+            xs["spred"] = eval_stateless_preds(self.query, xs)
+        return shards[0] if self.mesh is None else shards
 
     def _wm_column(self, lists, watermarks, T: int) -> np.ndarray:
-        wm_col = np.full((T, self.K), WM_NONE, np.int32)
+        wm_col = np.full((T, self.K_padded), WM_NONE, np.int32)
         if np.isscalar(watermarks):
             for k, evs in enumerate(lists):
                 if evs:
@@ -799,12 +958,15 @@ class BatchedDeviceNFA:
         return self.advance_packed(self.pack(events_by_key, watermarks))
 
     def advance_packed(
-        self, xs: Dict[str, torch.Tensor], decode: bool = True
+        self, xs: Any, decode: bool = True
     ) -> Dict[Any, List[Sequence]]:
-        """Advance with pre-packed columns. With decode=False no host sync
-        happens on the advance itself; matches wait in the ring until
-        `drain()` (or an auto-drain pulls them, see the module doc)."""
-        T = int(xs["valid"].shape[0])
+        """Advance with pre-packed columns (`pack`'s: under a mesh one dict
+        a shard; a whole [T, K_padded] dict is split here). With
+        decode=False no host sync happens on the advance itself; matches
+        wait in the ring until `drain()` (or an auto-drain pulls them, see
+        the module doc)."""
+        xs = self._shard_xs(xs)
+        T = int(xs[0]["valid"].shape[0])
         step_cap = T * self.config.matches_per_step
         if self.config.on_overflow == "block":
             self._block_admission(step_cap)
@@ -843,25 +1005,29 @@ class BatchedDeviceNFA:
         t0 = time.perf_counter()
         marks = [self._profile_mark()] if sampled else None
         if _flt.ACTIVE is None:
-            self.state, ys = self._advance(self.state, xs)
+            stepped = self._map_shards(self._advance, self._state, xs)
         else:
             # `engine.device_step` transient site: the step is functional
             # (state reassigned only on success), so a bounded retry is
             # exact.
             def _step():
                 _flt.ACTIVE.fire("engine.device_step")
-                return self._advance(self.state, xs)
+                return self._map_shards(self._advance, self._state, xs)
 
-            self.state, ys = with_retry(
+            stepped = with_retry(
                 _step, site="engine.device_step",
                 retry_on=(TransientFault,), registry=self.metrics,
             )
+        self._state = [st for st, _ys in stepped]
+        ys = [y for _st, y in stepped]
         t_adv = time.perf_counter()
         if sampled:
             marks.append(self._profile_mark())
-        self.state, self.pool, page_roots = self._append(self.state, self.pool, ys)
-        self._group_ys.append({k: ys[k] for k in ("w_event", "w_name", "w_pred")})
-        self._group_roots.append(page_roots)
+        appended = self._map_shards(self._append, self._state, self._pool, ys)
+        self._state = [st for st, _pl, _r in appended]
+        self._pool = [pl for _st, pl, _r in appended]
+        self._group_ys.append([{k: y[k] for k in ("w_event", "w_name", "w_pred")} for y in ys])
+        self._group_roots.append([r for _st, _pl, r in appended])
         if len(self._group_ys) >= self.gc_group:
             self._flush_group()
         self._m_gc_phase.set(len(self._group_ys))
@@ -875,7 +1041,7 @@ class BatchedDeviceNFA:
             self._dispatch_pos_probe()
         # Slots from the shape: counting valid events would read the device.
         self.timings.record_advance(
-            t_adv - t0, int(np.prod(tuple(xs["valid"].shape))),
+            t_adv - t0, sum(int(np.prod(tuple(x["valid"].shape))) for x in xs),
             post_s=time.perf_counter() - t_adv,
         )
         if (
@@ -954,10 +1120,10 @@ class BatchedDeviceNFA:
         return self._encode_snapshot(self._snapshot_arrays())
 
     def _snapshot_arrays(self) -> Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]:
-        """Flush the group and copy state and pool to the host."""
+        """Flush the group and copy state and pool (every shard, joined
+        along the key axis) to the host."""
         self._flush_group()
-        return ({k: v.cpu().numpy() for k, v in self.state.items()},
-                {k: v.cpu().numpy() for k, v in self.pool.items()})
+        return self._host_tree(self._state), self._host_tree(self._pool)
 
     def _encode_snapshot(self, arrays) -> bytes:
         state_np, pool_np = arrays
@@ -981,14 +1147,18 @@ class BatchedDeviceNFA:
         config: Optional[EngineConfig] = None,
         **opts: Any,
     ) -> "BatchedDeviceNFA":
-        """A new engine from a `snapshot()` of either package's engine.
+        """A new engine from a `snapshot()` of either package's engine
+        (`opts` as the constructor's, `mesh=` among them).
 
         A snapshot taken at other capacities grafts into `config`'s shape,
         or raises `ShapeRestoreError` when its live state does not fit. A
-        JAX Pallas engine pads its key axis to a multiple of 8: padding
-        columns must hold the init state and are dropped (a column that
-        does not raises `CheckpointError`). The restored engine holds
-        exactly one state column per key."""
+        JAX Pallas engine pads its key axis to a multiple of 8, and an
+        engine on a mesh to a multiple of its shard count: padding columns
+        must hold the init state (a column that does not raises
+        `CheckpointError`). The restored engine holds one state column per
+        key, padded with init columns to its own `K_padded`, so a frame
+        taken at one shard count restores at any other, or without a
+        mesh."""
         r = serde._Reader(serde.open_frame(data))
         serde.read_magic(r)
         keys = serde.loads(r.blob())
@@ -1022,10 +1192,13 @@ class BatchedDeviceNFA:
                     if not np.array_equal(src[name][..., bat.K:], ref[name][..., bat.K:]):
                         raise serde.CheckpointError(
                             f"key padding column of {name!r} holds live state")
-        bat.state = {k: torch.from_numpy(np.ascontiguousarray(tree[k][..., :bat.K])).to(bat.device)
-                     for k in init_s}
-        bat.pool = {k: torch.from_numpy(np.ascontiguousarray(pool_tree[k][..., :bat.K])).to(bat.device)
-                    for k in init_p}
+        n_pad = bat.K_padded - bat.K
+        pads = (init_batched_state(bat.query, bat.config, n_pad),
+                init_batched_pool(bat.query, bat.config, n_pad))
+        for attr, src, ref, pad in (("state", tree, init_s, pads[0]),
+                                    ("pool", pool_tree, init_p, pads[1])):
+            setattr(bat, attr, {k: np.concatenate([src[k][..., :bat.K], pad[k].numpy()], axis=-1)
+                                for k in ref})
         bat._events = serde.decode_event_registry(r.blob())
         bat._next_gidx = r.i64()
         bat._processed_gidx = bat._next_gidx - 1  # no pre-packed xs survive
@@ -1039,12 +1212,13 @@ class BatchedDeviceNFA:
         # The restored ring may hold undrained matches: seed the capacity
         # guard with its cursor, and re-baseline the drop counters (the
         # policy acts on deltas, not on historic totals).
-        bat._pend_accum = int(bat.pool["pend_pos"].max())
-        bat._drop_base = {k: int(bat.state[k].sum()) for k in DROP_COUNTER_KEYS}
+        bat._pend_accum = max(int(pl["pend_pos"].max()) for pl in bat._pool)
+        drops = bat._counter_totals(DROP_COUNTER_KEYS).sum(axis=0)
+        bat._drop_base = {k: int(v) for k, v in zip(DROP_COUNTER_KEYS, drops)}
         if bat.exact_replay:
             # The next interval starts at the restored generation.
-            bat._snap = (bat.state, bat.pool)
-            bat._collision_base = bat.state["seq_collisions"].cpu().numpy().astype(np.int64)
+            bat._snap_shards = (bat._state, bat._pool)
+            bat._collision_base = bat._host_counter("seq_collisions")
         return bat
 
     def resize(self, config: EngineConfig) -> bool:
@@ -1065,18 +1239,16 @@ class BatchedDeviceNFA:
         self._shutdown_worker()
         self._flush_group()
 
-        def to_host(tree):
-            return {k: v.cpu().numpy() for k, v in tree.items()}
-
-        state_np, pool_np = to_host(self.state), to_host(self.pool)
+        to_host = self._host_tree
+        state_np, pool_np = to_host(self._state), to_host(self._pool)
         serde.check_restore_capacity(
             state_np, pool_np, lanes=config.lanes, nodes=config.nodes,
             matches=config.matches, where="resize",
         )
         snap_np = None
-        if self._snap is not None:
+        if self._snap_shards is not None:
             # The interval replays from this generation: it must fit too.
-            snap_np = (to_host(self._snap[0]), to_host(self._snap[1]))
+            snap_np = (to_host(self._snap_shards[0]), to_host(self._snap_shards[1]))
             serde.check_restore_capacity(
                 snap_np[0], snap_np[1], lanes=config.lanes, nodes=config.nodes,
                 matches=config.matches, where="resize (replay snapshot)",
@@ -1088,17 +1260,16 @@ class BatchedDeviceNFA:
 
         def graft(src_state, src_pool):
             tgt_s = {k: v.numpy().copy() for k, v in
-                     init_batched_state(self.query, config, self.K).items()}
+                     init_batched_state(self.query, config, self.K_padded).items()}
             tgt_p = {k: v.numpy().copy() for k, v in
-                     init_batched_pool(self.query, config, self.K).items()}
+                     init_batched_pool(self.query, config, self.K_padded).items()}
             serde.graft_array_tree(src_state, tgt_s)
             serde.graft_array_tree(src_pool, tgt_p)
-            return ({k: torch.from_numpy(v).to(self.device) for k, v in tgt_s.items()},
-                    {k: torch.from_numpy(v).to(self.device) for k, v in tgt_p.items()})
+            return self._place(tgt_s), self._place(tgt_p)
 
-        self.state, self.pool = graft(state_np, pool_np)
+        self._state, self._pool = graft(state_np, pool_np)
         if snap_np is not None:
-            self._snap = graft(*snap_np)
+            self._snap_shards = graft(*snap_np)
         self.config = config
         self._advance = advance
         self._append = build_append_post(config)
@@ -1142,7 +1313,7 @@ class BatchedDeviceNFA:
     def _check_drop_counters(self, drained: Optional[Dict] = None) -> None:
         """The overflow policy (`check_drop_counters`) on the counters
         summed over the keys."""
-        totals = torch.stack([self.state[k].sum() for k in DROP_COUNTER_KEYS]).tolist()
+        totals = self._counter_totals(DROP_COUNTER_KEYS).sum(axis=0).tolist()
         check_drop_counters(self, totals, drained if drained is not None else {})
 
     def _block_admission(self, step_cap: int) -> None:
@@ -1190,7 +1361,7 @@ class BatchedDeviceNFA:
         else:
             self._flush_group()
             if self.drain_mode == "flat":
-                raw = self._pull_raw_flat(self.pool)
+                raw = self._pull_raw_flat(self._pool)
             else:
                 raw = self._pull_raw_pool()
         if raw is not None:
@@ -1210,17 +1381,12 @@ class BatchedDeviceNFA:
     def _decode_job(
         self, raw: Dict[str, Any], events: Dict[int, Event],
     ) -> Tuple[Dict[Any, List[Any]], Dict[str, float]]:
-        """On the worker: wait for the flat table's copy (its CUDA event),
-        then decode the pulled table (provenance sampled under the pull's
-        trigger). Returns the matches and the pull's (copy wait included)
-        and decode's walls and bytes."""
+        """On the worker: wait for the flat table's copies (their CUDA
+        events), then decode the pulled table (provenance sampled under the
+        pull's trigger). Returns the matches and the pull's (copy wait
+        included) and decode's walls and bytes."""
         t0 = time.perf_counter()
-        event = raw.pop("event", None)
-        if event is not None:
-            event.synchronize()
-        raw.pop("source", None)  # the device table, alive until the copy landed
-        if isinstance(raw.get("table"), torch.Tensor):
-            raw["table"] = raw["table"].numpy()
+        land_table(raw)
         t1 = time.perf_counter()
         trigger = raw.get("trigger", "drain")
         if "table" in raw:
@@ -1231,14 +1397,16 @@ class BatchedDeviceNFA:
                          "decode_s": time.perf_counter() - t1, "bytes": raw["bytes"]}
 
     # ------------------------------------------------------------ exact replay
-    def _ledger_append(self, xs: Dict[str, torch.Tensor]) -> None:
+    def _ledger_append(self, xs: List[Dict[str, torch.Tensor]]) -> None:
         """Take the advancing batch's event ledger into the interval: the
-        host copies `pack_host` made, or, for externally packed xs, the
-        device columns themselves (read at the drain, so the advance does
-        not synchronize). Past `REPLAY_LEDGER_MAX_BATCHES` the interval
-        degrades to detection: one warning, the overflow gauge, and under
-        on_overflow="raise" a `CEPOverflowError`."""
-        entry = self._pack_meta.popleft() if self._pack_meta else (xs["gidx"], xs["valid"])
+        host copies `pack_host` made, or, for externally packed xs (one
+        dict a shard), the device columns themselves (read at the drain,
+        so the advance does not synchronize). Past
+        `REPLAY_LEDGER_MAX_BATCHES` the interval degrades to detection:
+        one warning, the overflow gauge, and under on_overflow="raise" a
+        `CEPOverflowError`."""
+        entry = (self._pack_meta.popleft() if self._pack_meta else
+                 (tuple(x["gidx"] for x in xs), tuple(x["valid"] for x in xs)))
         if len(self._interval_packs) < self.REPLAY_LEDGER_MAX_BATCHES:
             self._interval_packs.append(entry)
             return
@@ -1246,13 +1414,29 @@ class BatchedDeviceNFA:
         self._interval_packs = []
         replay_ledger_overflowed(self, f"{self.REPLAY_LEDGER_MAX_BATCHES} batches")
 
+    def _shard_columns(self, trees: Seq[Dict[str, torch.Tensor]], names: Seq[str],
+                       keys: np.ndarray) -> Dict[str, np.ndarray]:
+        """The columns of the global key indices `keys` (ascending) of
+        every leaf in `names`, host numpy in that order: one gather and
+        one copy a leaf a shard that holds any of them."""
+        span = self.K_padded // self.n_shards
+        parts: Dict[str, List[np.ndarray]] = {n: [] for n in names}
+        for sh, tree in enumerate(trees):
+            local = keys[(keys >= sh * span) & (keys < (sh + 1) * span)] - sh * span
+            if local.size == 0:
+                continue
+            idx = torch.as_tensor(local, dtype=torch.long, device=self._devices[sh])
+            for n in names:
+                parts[n].append(tree[n].index_select(-1, idx).cpu().numpy())
+        return {n: np.concatenate(p, axis=-1) for n, p in parts.items()}
+
     def _replay_boundary(self, out: Dict[Any, List[Any]]) -> Dict[Any, List[Any]]:
         """At a drain: each key whose seq_collisions moved since the
         interval's start replays the interval through the host oracle,
         built from the interval's snapshot; the oracle's matches replace
         the key's drained ones and its device state is rebuilt from the
         oracle. Then the next interval starts here."""
-        cur = self.state["seq_collisions"].cpu().numpy().astype(np.int64)
+        cur = self._host_counter("seq_collisions")
         hot = np.flatnonzero(cur > self._collision_base[: cur.shape[0]])
         if hot.size:
             self._m_divergence.set(1)
@@ -1266,7 +1450,7 @@ class BatchedDeviceNFA:
         if hot.size and self._interval_packs and not self._interval_overflow:
             self._replay_keys(hot, out)
         self._collision_base = cur
-        self._snap = (self.state, self.pool)
+        self._snap_shards = (self._state, self._pool)
         self._interval_packs = []
         self._interval_overflow = False
         self._m_ledger_overflow.set(0)
@@ -1274,17 +1458,14 @@ class BatchedDeviceNFA:
 
     def _replay_keys(self, hot: np.ndarray, out: Dict[Any, List[Any]]) -> None:
         """Replay the interval of the keys `hot` (a drain-time host step:
-        one gather and one copy per leaf for all of them)."""
-        idx = torch.as_tensor(hot, dtype=torch.long, device=self.device)
-
-        def columns(tree, names):
-            return {n: tree[n].index_select(-1, idx).cpu().numpy() for n in names}
-
-        snap_state, snap_pool = self._snap
-        s_np = columns(snap_state, snap_state.keys())
-        p_np = columns(snap_pool, ("node_event", "node_name", "node_pred", "node_count"))
-        c_np = columns(self.state, STATE_COUNTER_KEYS)
-        packs = [tuple(a.cpu().numpy() if isinstance(a, torch.Tensor) else a for a in e)
+        one gather and one copy per leaf a shard for all of them)."""
+        snap_state, snap_pool = self._snap_shards
+        s_np = self._shard_columns(snap_state, list(snap_state[0]), hot)
+        p_np = self._shard_columns(
+            snap_pool, ("node_event", "node_name", "node_pred", "node_count"), hot)
+        c_np = self._shard_columns(self._state, STATE_COUNTER_KEYS, hot)
+        packs = [tuple(a if isinstance(a, np.ndarray) else
+                       np.concatenate([t.cpu().numpy() for t in a], axis=-1) for a in e)
                  for e in self._interval_packs]
         ts_base = self._ts_base if self._ts_base is not None else 0
         writes: Dict[int, Tuple[Dict[str, np.ndarray], Dict[str, np.ndarray]]] = {}
@@ -1343,23 +1524,30 @@ class BatchedDeviceNFA:
     ) -> None:
         """Write resynced keys' columns ({key index: (state, pool)}, numpy
         per key) into new state and pool tensors, one `index_copy` per
-        leaf: the old tensors, which the interval snapshot may hold, are
-        never written."""
-        ks = sorted(writes)
-        idx = torch.as_tensor(ks, dtype=torch.long, device=self.device)
-        for which, attr in enumerate(("state", "pool")):
-            tree = dict(getattr(self, attr))
-            for name, leaf in tree.items():
-                cols = np.stack([np.asarray(writes[k][which][name]) for k in ks], axis=-1)
-                src = torch.as_tensor(cols).to(dtype=leaf.dtype, device=leaf.device)
-                tree[name] = leaf.index_copy(leaf.dim() - 1, idx, src)
-            setattr(self, attr, tree)
+        leaf of each shard that holds any: the old tensors, which the
+        interval snapshot may hold, are never written."""
+        span = self.K_padded // self.n_shards
+        for which, attr in enumerate(("_state", "_pool")):
+            trees = list(getattr(self, attr))
+            for sh in range(self.n_shards):
+                ks = [k for k in sorted(writes) if k // span == sh]
+                if not ks:
+                    continue
+                idx = torch.as_tensor([k - sh * span for k in ks], dtype=torch.long,
+                                      device=self._devices[sh])
+                tree = dict(trees[sh])
+                for name, leaf in tree.items():
+                    cols = np.stack([np.asarray(writes[k][which][name]) for k in ks], axis=-1)
+                    src = torch.as_tensor(cols).to(dtype=leaf.dtype, device=leaf.device)
+                    tree[name] = leaf.index_copy(leaf.dim() - 1, idx, src)
+                trees[sh] = tree
+            setattr(self, attr, trees)
 
     def _detect_divergence(self) -> None:
         """Replay off on a folding query: the first drain that sees a
         collision warns once and sets the persistent gauge; under
         on_overflow="raise" it raises."""
-        if int(self.state["seq_collisions"].sum()) == 0:
+        if not self._counter_totals(("seq_collisions",)).any():
             return
         self._warned_collisions = True
         self._m_divergence.set(1)
@@ -1384,11 +1572,12 @@ class BatchedDeviceNFA:
     # ------------------------------------------------------------- profiling
     def _profile_mark(self) -> Any:
         """A timing mark of a sampled advance: a CUDA event recorded on
-        the current stream on the card, the wall clock on the CPU (where
-        the passes run synchronously)."""
+        the current stream on the card (the first shard's device: with
+        shards on several cards it times that card's work), the wall clock
+        on the CPU (where the passes run synchronously)."""
         if self.device.type == "cuda":
             ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
+            ev.record(torch.cuda.current_stream(self.device))
             return ev
         return time.perf_counter()
 
@@ -1409,21 +1598,25 @@ class BatchedDeviceNFA:
 
     def _dispatch_pos_probe(self) -> None:
         """Start an asynchronous copy of [max ring cursor, max region fill,
-        max live lanes per key] to the host: a pinned buffer and an event
-        on the card (no synchronization), the result itself on the CPU."""
-        arr = torch.stack([
-            self.pool["pend_pos"].max().to(torch.int64),
-            self.pool["node_count"].max().to(torch.int64),
-            self.state["active"].sum(0).max(),
-        ])
-        event = None
-        if arr.device.type == "cuda":
-            host = torch.empty(3, dtype=torch.int64, pin_memory=True)
-            host.copy_(arr, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record()
-            arr = host
-        self._pos_probes.append((self._drain_epoch, self._pend_accum, arr, event))
+        max live lanes per key] of each shard to the host: a pinned buffer
+        and an event a shard on the card (no synchronization), the result
+        itself on the CPU. The read takes the maxima over the shards."""
+        hosts, events = [], []
+        for st, pl in zip(self._state, self._pool):
+            arr = torch.stack([
+                pl["pend_pos"].max().to(torch.int64),
+                pl["node_count"].max().to(torch.int64),
+                st["active"].sum(0).max(),
+            ])
+            if arr.device.type == "cuda":
+                host = torch.empty(3, dtype=torch.int64, pin_memory=True)
+                host.copy_(arr, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(arr.device))
+                arr = host
+                events.append(event)
+            hosts.append(arr)
+        self._pos_probes.append((self._drain_epoch, self._pend_accum, hosts, events))
 
     def _occupancy_bound(self) -> Tuple[int, int, Optional[int]]:
         """(worst-case ring occupancy, freshest observed region fill,
@@ -1431,19 +1624,19 @@ class BatchedDeviceNFA:
 
         Occupancy is the freshest landed cursor probe plus the per-advance
         caps since it (the pure worst-case accumulator while none has
-        landed). A probe whose event has not completed is left for later:
-        reading it would synchronize. A probe that a ring clear retired
-        (an older drain epoch) still reads the live-lane count, which no
-        pull changes: with a pull at every advance (micro-drains, a
-        processor that drains every flush) no probe outlives its epoch,
+        landed). A probe whose events have not all completed is left for
+        later: reading it would synchronize. A probe that a ring clear
+        retired (an older drain epoch) still reads the live-lane count,
+        which no pull changes: with a pull at every advance (micro-drains,
+        a processor that drains every flush) no probe outlives its epoch,
         and the autosizer would never see the lanes. (The JAX engine drops
         such probes whole.)"""
         while self._pos_probes:
-            epoch, acc, host, event = self._pos_probes[0]
-            if event is not None and not event.query():
+            epoch, acc, hosts, events = self._pos_probes[0]
+            if not all(event.query() for event in events):
                 break
             self._pos_probes.popleft()
-            pos, fill, lanes = host.tolist()
+            pos, fill, lanes = np.max([host.tolist() for host in hosts], axis=0).tolist()
             self.lane_obs = lanes
             self._m_lane_occupancy.set(lanes)
             if epoch == self._drain_epoch:
@@ -1466,100 +1659,142 @@ class BatchedDeviceNFA:
         self._pos_obs = None
         self._pend_accum = 0
         if self._group_roots:
-            self._group_roots = [torch.full_like(r, -1) for r in self._group_roots]
+            self._group_roots = [[torch.full_like(r, -1) for r in roots]
+                                 for roots in self._group_roots]
+
+    def _shard_xs(self, xs: Any) -> List[Dict[str, torch.Tensor]]:
+        """`advance_packed`'s columns as one dict a shard: `upload`'s list
+        as it is, a whole [T, K_padded] dict split into the key blocks."""
+        if isinstance(xs, (list, tuple)):
+            if len(xs) != self.n_shards:
+                raise ValueError(f"{len(xs)} column shards for {self.n_shards} shards")
+            return list(xs)
+        return [xs] if self.mesh is None else shard_xs(xs, self.mesh)
 
     def _flush_group(self) -> None:
-        """Fold the accumulated group window back into the node region."""
-        if fold_group_window(self):
-            self._m_flushes.inc()
-            self._m_gc_phase.set(0)
+        """Fold the accumulated group window back into the node region:
+        the group flush once a shard, on that shard's window."""
+        if not self._group_ys:
+            return
+        windows = [concat_group_window([ys[sh] for ys in self._group_ys],
+                                       [roots[sh] for roots in self._group_roots])
+                   for sh in range(self.n_shards)]
+        self._group_ys = []
+        self._group_roots = []
+        flushed = self._map_shards(lambda st, pl, win: self._flush(st, pl, *win),
+                                   self._state, self._pool, windows)
+        self._state = [st for st, _pl in flushed]
+        self._pool = [pl for _st, pl in flushed]
+        self.flushes += 1
+        self._m_flushes.inc()
+        self._m_gc_phase.set(0)
 
-    def _window_pool_view(self) -> Dict[str, torch.Tensor]:
-        """Mid-group drain view: node planes with the group's window
-        segments appended past the region (padded to the full group
+    def _window_pool_view(self) -> List[Dict[str, torch.Tensor]]:
+        """Mid-group drain view, one a shard: node planes with the group's
+        window segments appended past the region (padded to the full group
         extent with invalid rows), so window ids index it directly."""
         if not self._group_ys:
-            return self.pool
+            return self._pool
         planes = {"node_event": "w_event", "node_name": "w_name", "node_pred": "w_pred"}
-        out = dict(self.pool)
         n_pad = self.gc_group - len(self._group_ys)
-        segs_by_plane = {p: [self.pool[p]] for p in planes}
-        for ys in self._group_ys:
-            win = window_planes(ys)
-            for plane, wkey in planes.items():
-                segs_by_plane[plane].append(win[wkey])
-        for plane, segs in segs_by_plane.items():
-            if n_pad > 0:
-                segs.append(torch.full(
-                    (n_pad * segs[1].shape[0],) + tuple(segs[1].shape[1:]), -1,
-                    dtype=segs[1].dtype, device=segs[1].device,
-                ))
-            out[plane] = torch.cat(segs, dim=0)
-        return out
+        views = []
+        for sh, pool in enumerate(self._pool):
+            out = dict(pool)
+            segs_by_plane = {p: [pool[p]] for p in planes}
+            for ys in self._group_ys:
+                win = window_planes(ys[sh])
+                for plane, wkey in planes.items():
+                    segs_by_plane[plane].append(win[wkey])
+            for plane, segs in segs_by_plane.items():
+                if n_pad > 0:
+                    segs.append(torch.full(
+                        (n_pad * segs[1].shape[0],) + tuple(segs[1].shape[1:]), -1,
+                        dtype=segs[1].dtype, device=segs[1].device,
+                    ))
+                out[plane] = torch.cat(segs, dim=0)
+            views.append(out)
+        return views
 
-    def _pull_raw_flat(self, pool_view) -> Optional[Dict[str, Any]]:
-        """One [3, K] probe (counts, cursors, chain-depth bound), then the
-        chain-flatten table sized to pow2 buckets of the probed maxima,
-        copied to the host once. Clears the ring. The pending, ring and
-        chain-depth gauges ride the probe."""
+    def _pull_raw_flat(self, views: List[Dict[str, torch.Tensor]]) -> Optional[Dict[str, Any]]:
+        """One [3, K] probe (counts, cursors, chain-depth bound; a [3, K/n]
+        part a shard), then the chain-flatten table sized to pow2 buckets
+        of the probed maxima over every key, one [3, Mb, Cb, K/n] part a
+        shard, each copied to the host once. Clears the ring. The pending,
+        ring and chain-depth gauges ride the probe."""
         t0 = time.perf_counter()
-        probe = drain_probe(pool_view).cpu().numpy()
+        # The depth bound is walked on every shard when any key is pending
+        # (so the table's Cb is the unsharded engine's).
+        pending = None if len(views) == 1 else any(
+            bool((v["pend_count"] > 0).any()) for v in views)
+        probe = np.concatenate([drain_probe(v, pending).cpu().numpy() for v in views], axis=-1)
         counts = probe[0]
         self._m_pending.set(int(counts.sum()))
         self._m_pend_occupancy.set(int(probe[1].max()))
         self._m_chain_depth.set(int(probe[2].max()))
         if counts.sum() == 0:
             if int(probe[1].max()) > 0:
-                self.pool = drain_pend(self.pool)
+                self._pool = [drain_pend(pl) for pl in self._pool]
             self._ring_cleared()
             return None
-        Mb = pow2_at_least(int(counts.max()), pool_view["pend"].shape[0])
-        Cb = pow2_at_least(int(probe[2].max()), pool_view["node_event"].shape[0])
-        source = build_chain_flatten(Mb, Cb)(pool_view)
-        event = None
-        if source.device.type == "cuda":
-            # The copy into pinned memory is queued, not waited on: the
-            # worker waits on the event. The ring clear below runs after
-            # it on the same stream.
-            table = torch.empty(source.shape, dtype=source.dtype, pin_memory=True)
-            table.copy_(source, non_blocking=True)
-            event = torch.cuda.Event()
-            event.record()
-        else:
-            table = source.numpy()
-        self.pool = drain_pend(self.pool)
+        Mb = pow2_at_least(int(counts.max()), views[0]["pend"].shape[0])
+        Cb = pow2_at_least(int(probe[2].max()), views[0]["node_event"].shape[0])
+        flatten = build_chain_flatten(Mb, Cb)
+        sources = [flatten(v) for v in views]
+        tables, events = [], []
+        for source in sources:
+            if source.device.type == "cuda":
+                # The copy into pinned memory is queued, not waited on: the
+                # worker waits on the event. The ring clear below runs
+                # after it on the same stream.
+                table = torch.empty(source.shape, dtype=source.dtype, pin_memory=True)
+                table.copy_(source, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(source.device))
+                events.append(event)
+            else:
+                table = source.numpy()
+            tables.append(table)
+        self._pool = [drain_pend(pl) for pl in self._pool]
         self._ring_cleared()
-        return {"counts": counts, "table": table, "event": event, "source": source,
-                "pull_s": time.perf_counter() - t0,
-                "bytes": int(probe.nbytes + source.numel() * source.element_size())}
+        raw = {"counts": counts, "tables": tables, "events": events, "sources": sources,
+               "pull_s": time.perf_counter() - t0,
+               "bytes": int(probe.nbytes + sum(t.numel() * t.element_size() for t in sources))}
+        if not events:
+            land_table(raw)  # on the CPU the table is on the host already
+        return raw
 
     def _pull_raw_pool(self) -> Optional[Dict[str, Any]]:
         """The pool drain's pull (module doc): one [2, K] probe (counts,
-        cursors), then `drain_compact` -- the closure marked from the
-        ring's occupied prefix, whose extent the probe gives, and
-        compacted to its rank space -- and the remapped ring's valid ids
-        moved to each key's front; the ring sliced at pow2(max count) and
-        the closure's [3, Bb, K] planes at pow2(max closure) are copied to
-        the host, synchronously. Clears the ring. The pending and ring
-        gauges ride the probe."""
+        cursors), then `drain_compact` on each shard -- the closure marked
+        from the ring's occupied prefix, whose extent (the largest cursor
+        over every key) the probe gives, and compacted to its rank space
+        -- and the remapped ring's valid ids moved to each key's front;
+        the ring sliced at pow2(max count) and the closure's [3, Bb, K]
+        planes at pow2(max closure), both over every key, are copied to
+        the host, synchronously, and joined along the key axis. Clears the
+        ring. The pending and ring gauges ride the probe."""
         t0 = time.perf_counter()
-        both = torch.stack([self.pool["pend_count"], self.pool["pend_pos"]]).cpu().numpy()
+        both = np.concatenate([torch.stack([pl["pend_count"], pl["pend_pos"]]).cpu().numpy()
+                               for pl in self._pool], axis=-1)
         counts = both[0]
         self._m_pending.set(int(counts.sum()))
         self._m_pend_occupancy.set(int(both[1].max()))
         if counts.sum() == 0:
             if int(both[1].max()) > 0:
-                self.pool = drain_pend(self.pool)
+                self._pool = [drain_pend(pl) for pl in self._pool]
             self._ring_cleared()
             return None
-        B, M = self.pool["node_event"].shape[0], self.pool["pend"].shape[0]
-        pend_r, nodes3, pcount = self._drain_compact(self.pool, int(both[1].max()))
-        compacted, _ = compact_valid_front(pend_r)
-        Bb = pow2_at_least(int(pcount.max()), B)
+        B, M = self._pool[0]["node_event"].shape[0], self._pool[0]["pend"].shape[0]
+        maxpos = int(both[1].max())
+        compacts = [self._drain_compact(pl, maxpos) for pl in self._pool]
+        Bb = pow2_at_least(max(int(pcount.max()) for _p, _n, pcount in compacts), B)
         Mb = pow2_at_least(int(counts.max()), M)
-        pulled = nodes3[:, :Bb].cpu().numpy()  # one [3, Bb, K] copy
-        pend_np = compacted[:Mb].cpu().numpy()
-        self.pool = drain_pend(self.pool)
+        # One [3, Bb, K/n] and one [Mb, K/n] copy a shard.
+        pulled = np.concatenate([nodes3[:, :Bb].cpu().numpy() for _p, nodes3, _c in compacts],
+                                axis=-1)
+        pend_np = np.concatenate([compact_valid_front(pend_r)[0][:Mb].cpu().numpy()
+                                  for pend_r, _n, _c in compacts], axis=-1)
+        self._pool = [drain_pend(pl) for pl in self._pool]
         self._ring_cleared()
         return {
             "counts": counts,
@@ -1814,5 +2049,5 @@ class BatchedDeviceNFA:
     def _prune_events(self) -> None:
         """Bound the host event registry: keep pool-referenced events plus
         anything packed ahead of the processed watermark."""
-        self._events = pruned_events(self._events, self.pool, self.events_prune_threshold,
+        self._events = pruned_events(self._events, self._pool, self.events_prune_threshold,
                                      self._processed_gidx)

@@ -21,8 +21,8 @@ own engine (tests/test_torch_stacked.py pins the equivalence).
 "pool", whose `decode_matches` carries the same attribution
 (`qid_of_name_id`). Differences from the JAX class, both the port's
 `BatchedDeviceNFA`'s: `device=` and `engine=` ("cuda" | "torch") and the
-engine's other options pass through; `mesh=` is refused (multi-card
-sharding is not ported). A stacked query has no host stages, so exact
+engine's other options pass through. `mesh=` (parallel/key_shard.py
+`key_mesh`) shards the key axis as the JAX class's does. A stacked query has no host stages, so exact
 replay is off and a fold divergence warns (the JAX behaviour); the bytes
 sinks are refused (their bytes carry no query).
 """
@@ -58,8 +58,6 @@ class StackedQueryEngine:
         device: Any = None,
         **opts: Any,
     ) -> None:
-        if mesh is not None:
-            raise ValueError("mesh= is not ported (ROADMAP.md queue A, multi-GPU key sharding)")
         self.query = compile_multi_query(named_queries, schema)
         self.query_names: List[str] = list(self.query.query_names or [])
         self.engine = BatchedDeviceNFA(
@@ -67,6 +65,7 @@ class StackedQueryEngine:
             keys=keys,
             config=config,
             device=device,
+            mesh=mesh,
             engine=engine,
             auto_drain=auto_drain,
             drain_mode=drain_mode,

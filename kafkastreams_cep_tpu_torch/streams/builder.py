@@ -16,9 +16,9 @@ Runtimes:
     `auto_drain=`, `target_emit_ms=`, `provenance_sample=`,
     `compile_telemetry=` and `watermark_gen=` pass through to the
     processor and its engine, as does every other keyword of
-    `BatchedDeviceNFA`; the JAX engine's `mesh=` is not one of them. A
-    config with `reorder_capacity > 0` arms the processor's event-time
-    gate.
+    `BatchedDeviceNFA`, `mesh=` (parallel/key_shard.py `key_mesh`: the
+    key axis sharded over several devices) among them. A config with
+    `reorder_capacity > 0` arms the processor's event-time gate.
   * "host": the per-record `CEPProcessor` (streams/processor.py) over the
     three host stores (state/builders.py). Its event-time knobs are query
     kwargs (`reorder_capacity`, `lateness_ms`, `late_policy`,

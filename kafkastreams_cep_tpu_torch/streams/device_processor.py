@@ -57,7 +57,10 @@ class DeviceCEPProcessor(Generic[K, V]):
     pending; `flush()` forces the pending micro-batch through the engine
     and returns [(key, Sequence)] in per-key emission order.
     `**engine_opts` pass through to `BatchedDeviceNFA` (`device=`,
-    `engine=`, `drain_mode=`, `sink_format=`, `compile_telemetry=`, ...).
+    `mesh=`, `engine=`, `drain_mode=`, `sink_format=`,
+    `compile_telemetry=`, ...), and to the engine `restore` rebuilds: a
+    restore's own `mesh=` may name another shard count than the
+    snapshot's engine had, or none.
     With `sink_format="json"` or `"arrow"` every flush yields `(key,
     SinkMatch)` pairs instead.
     """

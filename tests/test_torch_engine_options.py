@@ -200,31 +200,37 @@ def _keywords(fn):
                                               (JaxStacked, StackedQueryEngine)],
                          ids=["BatchedDeviceNFA", "StackedQueryEngine"])
 def test_every_jax_keyword_but_mesh_is_a_port_keyword(jax_cls, port_cls):
+    # mesh= is ported too (tests/test_torch_mesh.py): no JAX keyword is missing.
     jax_kw, port_kw = _keywords(jax_cls.__init__), _keywords(port_cls.__init__)
     missing = [n for n in jax_kw if n not in port_kw]
-    assert missing == (["mesh"] if port_cls is P.BatchedDeviceNFA else [])
-    for name in ("drain_mode", "sink_format", "compile_telemetry", "compile_cost_estimates"):
+    assert missing == []
+    for name in ("drain_mode", "sink_format", "compile_telemetry", "compile_cost_estimates",
+                 "mesh"):
         if name in jax_kw:
             assert name in port_kw
 
 
 def test_topology_passes_every_jax_engine_keyword_through():
-    """Each JAX engine keyword but mesh (and those the processor sets:
-    the query and its name, the keys, the schema, the config, the
-    registry) reaches the port's engine through a runtime="cuda" query."""
+    """Each JAX engine keyword (but those the processor sets: the query
+    and its name, the keys, the schema, the config, the registry) reaches
+    the port's engine through a runtime="cuda" query, `mesh=` among them
+    (a virtual mesh on the CPU); a mesh= that is not a KeyMesh raises
+    TypeError, from the query and from the engine."""
     params = inspect.signature(P.BatchedDeviceNFA.__init__).parameters
     set_by_processor = {"stages_or_query", "query_name", "keys", "schema", "config",
                         "registry"}
     passed = {}
     for name in _keywords(JaxBatched.__init__):
-        if name in set_by_processor or name == "mesh":
+        if name in set_by_processor:
             continue
         passed[name] = params[name].default
-    passed.update(engine="torch", drain_mode="pool", compile_telemetry=False)
+    mesh = P.parallel.key_mesh(2, devices=["cpu"])
+    passed.update(engine="torch", drain_mode="pool", compile_telemetry=False, mesh=mesh)
     out = P.ComplexStreamsBuilder().stream("t").query(
         "q", skip_any.skip_any8_pattern(), runtime="cuda", device="cpu", **passed)
     eng = out.node.processor.engine
     assert eng.drain_mode == "pool" and eng.compile_watch is None and eng.engine == "torch"
+    assert eng.mesh == mesh and eng.n_shards == 2
     with pytest.raises(TypeError):
         P.ComplexStreamsBuilder().stream("t").query(
             "q", skip_any.skip_any8_pattern(), runtime="cuda", device="cpu", mesh=object())

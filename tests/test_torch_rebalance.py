@@ -14,8 +14,8 @@ Counterparts of the JAX package's tests/test_rebalance.py: each test of
 the same name here, the migration on both runtimes as
 `test_live_migration_equals_jax_and_golden`, and the routing and
 checkpoint tests as the byte-equality tests. test_slice_merge_shard_tree_bitwise
-has none: it holds `parallel/key_shard.py`'s mesh path (multi-GPU key
-sharding), which this slice does not port. The JAX package's
+holds `parallel/key_shard.py`'s mesh path: its counterpart is
+tests/test_torch_mesh.py::test_slice_merge_shard_tree_equals_jax. The JAX package's
 tests/test_controller.py acceptance test is
 `test_fleet_controller_acceptance_two_brokers` here.
 """

@@ -229,7 +229,7 @@ def test_add_keys_mid_interval_stays_oracle_exact():
     _extend(got, bat.advance(_batch(streams, 0, ["kA", "kB"])))
     bat.advance_packed(bat.pack(_batch(streams, 1, ["kA", "kB"])), decode=False)
     bat.add_keys(["kC"])
-    assert bat._snap[0]["active"].shape[-1] == 3 and bat._collision_base.shape == (3,)
+    assert bat._snap_shards[0][0]["active"].shape[-1] == 3 and bat._collision_base.shape == (3,)
     for b in (2, 3):
         batch = _batch(streams, b, ["kA", "kB"])
         batch["kC"] = streams["kC"][(b - 2) * 10:(b - 1) * 10]
@@ -247,7 +247,8 @@ def test_resize_mid_interval_stays_oracle_exact_and_checks_the_snapshot():
     _extend(got, bat.advance(_batch(streams, 0)))
     bat.advance_packed(bat.pack(_batch(streams, 1)), decode=False)
     assert bat.resize(replace(bat.config, lanes=384, nodes=6144))
-    assert bat._snap[0]["active"].shape[0] == 384 and bat._snap[1]["node_event"].shape[0] == 6144
+    snap_state, snap_pool = (trees[0] for trees in bat._snap_shards)
+    assert snap_state["active"].shape[0] == 384 and snap_pool["node_event"].shape[0] == 6144
     for b in (2, 3):
         bat.advance_packed(bat.pack(_batch(streams, b)), decode=False)
     _extend(got, bat.drain())
@@ -257,9 +258,9 @@ def test_resize_mid_interval_stays_oracle_exact_and_checks_the_snapshot():
     # A shrink that the live state fits but the interval's snapshot does
     # not is refused, and the engine keeps its shape.
     live = int(bat.state["active"].sum(0).max())
-    snap_state, snap_pool = bat._snap
-    fat = dict(snap_state, active=torch.ones_like(snap_state["active"]))
-    bat._snap = (fat, snap_pool)
+    snap_state, snap_pool = bat._snap_shards
+    fat = dict(snap_state[0], active=torch.ones_like(snap_state[0]["active"]))
+    bat._snap_shards = ([fat], snap_pool)
     with pytest.raises(ShapeRestoreError, match="replay snapshot"):
         bat.resize(replace(bat.config, lanes=max(live, 1) + 1))
     assert bat.config.lanes == 384
@@ -277,7 +278,7 @@ def test_restore_rearms_replay():
     blob = bat.snapshot()
     restored = P.BatchedDeviceNFA.restore(P.compile_pattern(pattern), blob, device="cpu",
                                           config=P.EngineConfig(**CFG))
-    assert restored.exact_replay and restored._snap is not None
+    assert restored.exact_replay and restored._snap_shards is not None
     assert np.array_equal(restored._collision_base, bat.state["seq_collisions"].numpy())
     for b in (2, 3):
         restored.advance_packed(restored.pack(_batch(streams, b)), decode=False)
@@ -290,7 +291,7 @@ def test_resync_writes_new_tensors_and_leaves_the_snapshot():
     streams = _case(72)[0][1]
     bat = _port(72)
     bat.advance(_batch(streams, 0))
-    snap_state, snap_pool = bat._snap
+    snap_state, snap_pool = (trees[0] for trees in bat._snap_shards)
     held = ({n: v.clone() for n, v in snap_state.items()},
             {n: v.clone() for n, v in snap_pool.items()})
     k = 1
@@ -305,7 +306,7 @@ def test_resync_writes_new_tensors_and_leaves_the_snapshot():
     for tree, ref in zip((snap_state, snap_pool), held):
         for n, v in tree.items():
             assert torch.equal(v, ref[n]), f"the snapshot's {n} moved"
-    assert bat._snap[0] is snap_state and bat._snap[1] is snap_pool
+    assert bat._snap_shards[0][0] is snap_state and bat._snap_shards[1][0] is snap_pool
     assert bat.state["runs"] is not before[0]["runs"]
 
 
@@ -388,7 +389,7 @@ def test_processor_snapshot_and_restore_keep_replay_armed():
             got.setdefault(k, []).append(P.sequence_to_json(seq))
     blob = proc.snapshot()
     restored = DeviceCEPProcessor.restore("q", pattern, blob, **opts)
-    assert restored.engine.exact_replay and restored.engine._snap is not None
+    assert restored.engine.exact_replay and restored.engine._snap_shards is not None
     for key, letter, ts, offset in records[half:]:
         for k, seq in restored.process(key, letter, timestamp=ts, offset=offset):
             got.setdefault(k, []).append(P.sequence_to_json(seq))

@@ -226,8 +226,11 @@ def test_stacked_engine_refuses_json_sinks_meshes_and_other_drain_modes():
     make, keys, *_ = WORKLOADS["letters"]
     with pytest.raises(ValueError, match="stacked"):
         StackedQueryEngine(make(P), keys=keys, device="cpu", sink_format="json")
-    with pytest.raises(ValueError, match="mesh"):
+    # A mesh is ported (tests/test_torch_mesh.py): only a non-mesh raises.
+    with pytest.raises(TypeError, match="KeyMesh"):
         StackedQueryEngine(make(P), keys=keys, device="cpu", mesh=object())
+    assert StackedQueryEngine(make(P), keys=keys, device="cpu",
+                              mesh=P.parallel.key_mesh(2, devices=["cpu"])).engine.n_shards == 2
     with pytest.raises(ValueError, match="drain_mode"):
         StackedQueryEngine(make(P), keys=keys, device="cpu", drain_mode="chains")
     # The pool drain is ported (tests/test_torch_pool_drain.py holds it).

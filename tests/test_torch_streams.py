@@ -144,18 +144,18 @@ def _opt_id(case):
     return next(iter(opt)) + "=" + str(next(iter(opt.values())))[:12]
 
 
-# Options of the JAX engine the port has no parameter for raise TypeError
-# from the signature; values the port cannot honour raise ValueError. The
-# cases whose expected error is None were ported since (the host and auto
-# runtimes, the micro-drain dial, the pool drain and the Arrow sink) and
-# must now be accepted; compile_cost_estimates=True is a parameter now
-# and raises ValueError (an nvcc build has no cost model).
+# Values the port cannot honour raise: "tpu" and compile_cost_estimates=True
+# ValueError (an nvcc build has no cost model), a mesh= that is not a
+# KeyMesh TypeError. The cases whose expected error is None were ported
+# since (the host and auto runtimes, the micro-drain dial, the pool drain,
+# the Arrow sink and the key mesh) and must now be accepted.
 @pytest.mark.parametrize("opt", [
     ({"runtime": "host"}, None), ({"runtime": "tpu"}, ValueError),
     ({"sink_format": "arrow"}, None),
     ({"compile_cost_estimates": True}, ValueError),
     ({"target_emit_ms": 5.0}, None), ({"drain_mode": "pool"}, None),
     ({"mesh": object()}, TypeError),
+    ({"mesh": P.parallel.key_mesh(2, devices=["cpu"])}, None),
     ({"runtime": "auto"}, None),
 ], ids=_opt_id)
 def test_unported_options_raise(opt):
