@@ -11,8 +11,8 @@ event-time phases, phases 22-24 and phase 26's mesh reuse the
 flagship's build, and the shapes phase 18's autosizer grows to build
 inside that phase, timed), the group flush's GC mark and sweep kernels
 (csrc/gc_mark.cu and csrc/gc_sweep.cu, one build each) and the native
-packer, decoder and CRC-32C from native/ with g++, all started together,
-then:
+packer, decoder and CRC-32C from native/ with g++, all started together
+(phase 27's seeded capacity churn reuses the grown shape's build), then:
 
   1. prints the card (`nvidia-smi --query-gpu=name,power.limit`);
   2. builds every kernel and the three native extensions and prints the
@@ -270,12 +270,35 @@ then:
      first inputs) beside its bound, the launches per flush and the
      phase's wall (`run_mesh_entry()` runs this phase alone, with its own
      references, on every visible card);
- 27. prints the kernel line (with the `wm`, `auto`, `controllers`,
+ 27. the port's analysis, three checks, each in a child process of its
+     own, the three started together; a child that fails has its last
+     CHILD_TAIL lines printed on stderr with the phase and the check's
+     name, and the script exits 1:
+     (a) the static gate `python -m kafkastreams_cep_tpu_torch.analysis
+     --all --json` exits 0 with no active finding;
+     (b) `audit_child`: the kernel-build audit (analysis/kernel_audit.py)
+     at the flagship width on the card -- after its warm epoch (advances,
+     flushes, probes, a drain, a snapshot restored) the replay epochs
+     (drains, snapshot/restore round trips, identical traffic re-packed)
+     move none of cep_compiles_total{fn}, the compiler runs and the
+     modules loaded per device, launch every kernel, and hold each
+     kernel's first replay launch bitwise to its plain version; on a
+     machine with several cards the audit runs again on `key_mesh()`
+     over all of them; the seeded capacity churn reports CEP-J01;
+     (c) `lockmon_child`: the port's lock monitor around a flagship
+     `runtime="cuda"` topology pumped by a `LogDriver` with its
+     introspection plane (serve, clock and profile threads), a
+     `MetricsScraper` and the decode worker running together finds no
+     lock-order cycle, and a seeded two-lock inversion in the same child
+     is reported. Prints the counters, the launches, the lock graph's
+     edges and sites, and each child's seconds (`run_analysis_entry()`
+     runs this phase alone);
+ 28. prints the kernel line (with the `wm`, `auto`, `controllers`,
      `paced_driver`, `config4_stacked`, `wide_stack`, `single_key`,
-     `fleet` and `mesh` runs' numbers under nfa_step, gc_mark and
-     gc_sweep, the grown shapes' times and bounds among them, and the
-     pool drain's walk as gc_mark's `pool_drain` call site), the card
-     line, and last the ok line.
+     `fleet`, `mesh` and `kernel_audit` runs' numbers under nfa_step,
+     gc_mark and gc_sweep, the grown shapes' times and bounds among
+     them, and the pool drain's walk as gc_mark's `pool_drain` call
+     site), the card line, and last the ok line.
 
 Phases 20-22 each also hold both GC kernels to their plain versions on
 one captured flush, as phase 12 does (the wide stack's bitmaps must stay
@@ -296,6 +319,7 @@ import runpy
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 from concurrent.futures import ThreadPoolExecutor
@@ -429,39 +453,96 @@ def max_abs_diff(a: dict, b: dict) -> float:
     return max(float((a[n].double() - b[n].double()).abs().max()) for n in a if a[n].numel())
 
 
+def tree_copy(tree: dict) -> dict:
+    return {n: v.clone() for n, v in tree.items()}
+
+
+def tree_diff(a: dict, b: dict) -> float:
+    """0 when every leaf is bitwise equal, else the largest |a - b| (inf
+    where that is 0 or not a number)."""
+    if set(a) != set(b):
+        return float("inf")
+    worst = 0.0
+    for n in a:
+        if a[n].dtype != b[n].dtype or a[n].shape != b[n].shape:
+            return float("inf")
+        if not torch.equal(a[n], b[n]):
+            d = float((a[n].double() - b[n].double()).abs().max())
+            worst = max(worst, d if d > 0 else float("inf"))
+    return worst
+
+
+def watch_kernels(fresh, record):
+    """Wrap the three kernels' wrappers: a launch for which
+    `fresh(kernel, key, device)` is true is held bitwise against its plain
+    version -- `NfaStep._plain` (build_plain_step), `_walk`, `_sweep` --
+    on a copy of the same inputs, and `record(kernel, shape, max_abs_err)`
+    receives the result (0 when equal). The launch counts stay the
+    wrappers' own: the plain versions launch nothing. Returns a function
+    that puts the wrappers back."""
+    from kafkastreams_cep_tpu_torch.ops import gc_kernel, gc_sweep, step_kernel
+
+    calls = (step_kernel.NfaStep.__call__, gc_kernel.GcMark.__call__,
+             gc_sweep.GcSweep.__call__)
+
+    def step_watched(self, state, xs):
+        (T, K), c = xs["valid"].shape, self.config
+        shape = f"T={T} K={K} lanes={c.lanes} nodes={c.nodes} matches={c.matches}"
+        if not fresh("nfa_step", (c, T, K), xs["valid"].device):
+            return calls[0](self, state, xs)
+        s_in, x_in = tree_copy(state), tree_copy(xs)
+        s_out, ys = calls[0](self, state, xs)
+        s_want, y_want = self._plain(s_in, x_in)
+        torch.cuda.synchronize()
+        record("nfa_step", shape, max(tree_diff(s_out, s_want), tree_diff(ys, y_want)))
+        return s_out, ys
+
+    def mark_watched(self, marked, frontier, pred):
+        shape = f"BW={pred.shape[0]} K={pred.shape[1]}"
+        if not fresh("gc_mark", shape, pred.device):
+            return calls[1](self, marked, frontier, pred)
+        m_in, f_in = marked.clone(), frontier.clone()
+        got = calls[1](self, marked, frontier, pred)
+        want = gc_kernel._walk(m_in, f_in, pred)
+        torch.cuda.synchronize()
+        record("gc_mark", shape, tree_diff({"marked": got}, {"marked": want}))
+        return got
+
+    def sweep_watched(self, marked, marked_pin, state, pool, ys):
+        shape = (f"BW={marked.shape[0] - 1} K={marked.shape[1]} B={pool['node_event'].shape[0]}"
+                 f" lanes={state['node'].shape[0]} M={pool['pend'].shape[0]}")
+        if not fresh("gc_sweep", shape, pool["node_event"].device):
+            return calls[2](self, marked, marked_pin, state, pool, ys)
+        args = (marked.clone(), marked_pin.clone(), tree_copy(state), tree_copy(pool),
+                tree_copy(ys))
+        got = calls[2](self, marked, marked_pin, state, pool, ys)
+        want = gc_sweep._sweep(*args)
+        torch.cuda.synchronize()
+        record("gc_sweep", shape, tree_diff(got, want))
+        return got
+
+    def restore():
+        (step_kernel.NfaStep.__call__, gc_kernel.GcMark.__call__,
+         gc_sweep.GcSweep.__call__) = calls
+
+    step_kernel.NfaStep.__call__ = step_watched
+    gc_kernel.GcMark.__call__ = mark_watched
+    gc_sweep.GcSweep.__call__ = sweep_watched
+    return restore
+
+
 def soak_child(argv: list) -> None:
     """The body of phase 25's subprocess: `python -m
     kafkastreams_cep_tpu_torch.faults` with `argv`, run through runpy with
-    the three kernels' wrappers watched. The first call of each wrapper
-    on the card at each shape it meets (the step at each engine shape the
-    autosizer builds, the mark and the sweep at each pool shape) is held
-    bitwise against its plain version -- `NfaStep._plain`
-    (build_plain_step), `_walk` and `_sweep` -- on a copy of the same
-    inputs; the launch counts are the wrappers' own, since the plain
-    versions launch nothing. Prints the launches and the checks on
-    stderr (LAUNCHES / CHECKS lines) and exits with the soak's code."""
-    from kafkastreams_cep_tpu_torch.ops import gc_kernel, gc_sweep, step_kernel
-
+    the three kernels' wrappers watched (`watch_kernels`): the first call
+    of each wrapper on the card at each shape it meets (the step at each
+    engine shape the autosizer builds, the mark and the sweep at each
+    pool shape) is held bitwise against its plain version. Prints the
+    launches and the checks on stderr (LAUNCHES / CHECKS lines) and exits
+    with the soak's code."""
     checks = {n: {"shapes": [], "max_abs_err": 0.0, "mismatches": []}
               for n in ("nfa_step", "gc_mark", "gc_sweep")}
     seen = set()
-
-    def copy(tree):
-        return {n: v.clone() for n, v in tree.items()}
-
-    def diff(a, b):
-        """0 when every leaf is bitwise equal, else the largest |a - b|
-        (inf where that is 0 or not a number)."""
-        if set(a) != set(b):
-            return float("inf")
-        worst = 0.0
-        for n in a:
-            if a[n].dtype != b[n].dtype or a[n].shape != b[n].shape:
-                return float("inf")
-            if not torch.equal(a[n], b[n]):
-                d = float((a[n].double() - b[n].double()).abs().max())
-                worst = max(worst, d if d > 0 else float("inf"))
-        return worst
 
     def record(name, shape, err):
         row = checks[name]
@@ -476,50 +557,7 @@ def soak_child(argv: list) -> None:
         seen.add((name, key))
         return True
 
-    step_call = step_kernel.NfaStep.__call__
-
-    def step_watched(self, state, xs):
-        (T, K), c = xs["valid"].shape, self.config
-        shape = f"T={T} K={K} lanes={c.lanes} nodes={c.nodes} matches={c.matches}"
-        if not fresh("nfa_step", (c, T, K), xs["valid"].device):
-            return step_call(self, state, xs)
-        s_in, x_in = copy(state), copy(xs)
-        s_out, ys = step_call(self, state, xs)
-        s_want, y_want = self._plain(s_in, x_in)
-        torch.cuda.synchronize()
-        record("nfa_step", shape, max(diff(s_out, s_want), diff(ys, y_want)))
-        return s_out, ys
-
-    mark_call = gc_kernel.GcMark.__call__
-
-    def mark_watched(self, marked, frontier, pred):
-        shape = f"BW={pred.shape[0]} K={pred.shape[1]}"
-        if not fresh("gc_mark", shape, pred.device):
-            return mark_call(self, marked, frontier, pred)
-        m_in, f_in = marked.clone(), frontier.clone()
-        got = mark_call(self, marked, frontier, pred)
-        want = gc_kernel._walk(m_in, f_in, pred)
-        torch.cuda.synchronize()
-        record("gc_mark", shape, diff({"marked": got}, {"marked": want}))
-        return got
-
-    sweep_call = gc_sweep.GcSweep.__call__
-
-    def sweep_watched(self, marked, marked_pin, state, pool, ys):
-        shape = (f"BW={marked.shape[0] - 1} K={marked.shape[1]} B={pool['node_event'].shape[0]}"
-                 f" lanes={state['node'].shape[0]} M={pool['pend'].shape[0]}")
-        if not fresh("gc_sweep", shape, pool["node_event"].device):
-            return sweep_call(self, marked, marked_pin, state, pool, ys)
-        args = (marked.clone(), marked_pin.clone(), copy(state), copy(pool), copy(ys))
-        got = sweep_call(self, marked, marked_pin, state, pool, ys)
-        want = gc_sweep._sweep(*args)
-        torch.cuda.synchronize()
-        record("gc_sweep", shape, diff(got, want))
-        return got
-
-    step_kernel.NfaStep.__call__ = step_watched
-    gc_kernel.GcMark.__call__ = mark_watched
-    gc_sweep.GcSweep.__call__ = sweep_watched
+    watch_kernels(fresh, record)
     sys.argv = ["-m"] + list(argv)
     try:
         runpy.run_module("kafkastreams_cep_tpu_torch.faults", run_name="__main__",
@@ -527,9 +565,7 @@ def soak_child(argv: list) -> None:
         rc = 0
     except SystemExit as exc:
         rc = exc.code
-    print("LAUNCHES " + json.dumps({"nfa_step": step_kernel.NfaStep.launches,
-                                    "gc_mark": gc_kernel.GcMark.launches,
-                                    "gc_sweep": gc_sweep.GcSweep.launches}), file=sys.stderr)
+    print("LAUNCHES " + json.dumps(kernel_launches()), file=sys.stderr)
     print("CHECKS " + json.dumps(checks), file=sys.stderr)
     sys.exit(rc)
 
@@ -897,6 +933,365 @@ def run_mesh_entry() -> dict:
     entry = mesh_phase(flag_q, flag_cfg, streams, 2, 8)
     print(json.dumps({"mesh": entry}))
     return entry
+
+
+#: Phase 27's kernel-build audit in `audit_child`: (epochs, batches an
+#: epoch) of the same-shape replay, of the mesh replay (several cards)
+#: and of the seeded capacity churn.
+AUDIT_REPLAY, AUDIT_MESH, AUDIT_CHURN = (2, 1), (1, 1), (1, 1)
+#: Phase 27's lock-monitored topology: polls, and events a key a poll
+#: (each poll one flush of the flagship's 2048 keys).
+LOCKMON_POLLS, LOCKMON_T = 2, 16
+#: Lines of a failed phase-27 child printed before chip_smoke exits.
+CHILD_TAIL = 60
+
+
+def watch_first_launches():
+    """`watch_kernels` for the first launch of each kernel on the card
+    once the returned `arm` has been called. Returns (checks, arm,
+    restore): `checks` fills with {kernel: {"shape", "max_abs_err"}}."""
+    checks, armed = {}, [False]
+
+    def fresh(name, key, device):
+        if not armed[0] or device.type != "cuda" or name in checks:
+            return False
+        checks[name] = {"shape": None, "max_abs_err": None}
+        return True
+
+    def record(name, shape, err):
+        checks[name] = {"shape": shape, "max_abs_err": err}
+
+    def arm():
+        armed[0] = True
+
+    return checks, arm, watch_kernels(fresh, record)
+
+
+def kernel_launches() -> dict:
+    from kafkastreams_cep_tpu_torch.ops import gc_kernel, gc_sweep, step_kernel
+
+    return {"nfa_step": step_kernel.NfaStep.launches, "gc_mark": gc_kernel.GcMark.launches,
+            "gc_sweep": gc_sweep.GcSweep.launches}
+
+
+def audit_child() -> None:
+    """Phase 27 (b), in a child process: the kernel-build audit at the
+    flagship width on the card. The same-shape replay must move no
+    counter (compiles, builds, modules) and launch every kernel, the first
+    replay launch of each bitwise to its plain version; with several
+    cards it runs again on `key_mesh()` over all of them; the seeded
+    capacity churn must report CEP-J01. Prints one `AUDIT {json}` line;
+    exits 1 (cause on stderr) when a check fails."""
+    from kafkastreams_cep_tpu_torch.analysis.kernel_audit import run_kernel_build_audit
+
+    out, failures = {}, []
+    checks, arm, restore = watch_first_launches()
+    at_warm = {}
+
+    def on_warm():
+        at_warm.update(kernel_launches())
+        arm()
+
+    t0 = time.perf_counter()
+    report = {}
+    epochs, per_epoch = AUDIT_REPLAY
+    found = run_kernel_build_audit(device="cuda", epochs=epochs, batches_per_epoch=per_epoch,
+                                   on_warm=on_warm, report=report)
+    restore()
+    end = kernel_launches()
+    out["replay"] = report
+    out["launches"] = end
+    out["replay_launches"] = {n: end[n] - at_warm[n] for n in end}
+    out["first_replay_launch"] = checks
+    out["replay_s"] = time.perf_counter() - t0
+    failures += [f.render() for f in found]
+    for name in end:
+        if end[name] <= 0 or out["replay_launches"][name] <= 0:
+            failures.append(f"{name} was not launched in the replay ({out['replay_launches']})")
+        row = checks.get(name)
+        if row is None or row["max_abs_err"] != 0:
+            failures.append(f"{name}: first replay launch vs its plain version: {row}")
+    if torch.cuda.device_count() > 1:
+        from kafkastreams_cep_tpu_torch.parallel import key_mesh
+
+        t0 = time.perf_counter()
+        mesh_report = {}
+        epochs, per_epoch = AUDIT_MESH
+        found = run_kernel_build_audit(mesh=key_mesh(), epochs=epochs,
+                                       batches_per_epoch=per_epoch, report=mesh_report)
+        out["mesh"] = dict(mesh_report, seconds=time.perf_counter() - t0)
+        failures += [f.render() for f in found]
+    t0 = time.perf_counter()
+    epochs, per_epoch = AUDIT_CHURN
+    churn = run_kernel_build_audit(device="cuda", epochs=epochs, batches_per_epoch=per_epoch,
+                                   vary_shapes=True)
+    out["churn"] = [f.render() for f in churn]
+    out["churn_s"] = time.perf_counter() - t0
+    if not churn or any(f.code != "CEP-J01" for f in churn):
+        failures.append(f"the seeded capacity churn reported {out['churn']} (want CEP-J01)")
+    print("AUDIT " + json.dumps(out), flush=True)
+    if failures:
+        print("kernel audit failed:\n" + "\n".join(failures), file=sys.stderr)
+        sys.exit(1)
+
+
+def lockmon_child() -> None:
+    """Phase 27 (c), in a child process: the port's lock monitor armed
+    around a short flagship `runtime="cuda"` topology pumped by a
+    `LogDriver` with its introspection plane served (the serve, clock and
+    profile threads), a `MetricsScraper` over HTTP and the engine's decode
+    worker, all running together; then a seeded two-lock inversion in
+    the same process. The topology must show no lock-order cycle and the
+    inversion must be reported. Prints one `LOCKMON {json}` line; exits 1
+    (cause on stderr) when a check fails."""
+    import urllib.request
+
+    import kafkastreams_cep_tpu_torch as P
+    from kafkastreams_cep_tpu_torch.analysis.lockmon import lock_monitor
+    from kafkastreams_cep_tpu_torch.models import skip_any
+    from kafkastreams_cep_tpu_torch.obs.scrape import MetricsScraper
+
+    K, T = skip_any.FLAGSHIP_KEYS, LOCKMON_T
+    rng = random.Random(7)
+    keys = [f"k{i}" for i in range(K)]
+    streams = {k: skip_any.skip_any8_stream(rng, T * LOCKMON_POLLS) for k in keys}
+    out, failures, reports = {}, [], []
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_lockmon_") as tmp:
+        log = P.RecordLog(tmp)
+        for b in range(LOCKMON_POLLS):
+            for t in range(T):
+                for k in keys:
+                    e = streams[k][b * T + t]
+                    P.produce(log, "letters", k, e.value, timestamp=e.timestamp)
+        with lock_monitor() as mon:
+            reg = P.MetricsRegistry()
+            builder = P.ComplexStreamsBuilder(log=log)
+            builder.stream("letters").query(
+                "skip_any8", skip_any.skip_any8_pattern(), runtime="cuda",
+                config=P.EngineConfig(**skip_any.FLAGSHIP_CONFIG), batch_size=K * T,
+                initial_keys=K, registry=reg,
+            ).to("matches")
+            driver = P.LogDriver(builder.build(), group="g", registry=reg,
+                                 report_every_s=0.05, reporter=reports.append)
+            http = driver.serve_http(port=0)
+            http.profile_dir = f"{tmp}/profile"
+            scraper = MetricsScraper(url=http.url, every_s=0.05).start()
+            threads = set()
+            for poll in range(LOCKMON_POLLS):
+                if poll == 1:
+                    with urllib.request.urlopen(http.url + "/profilez?secs=0.2") as r:
+                        out["profilez"] = json.loads(r.read())
+                    threads |= {t.name for t in threading.enumerate()}
+                driver.poll(max_records=K * T)
+                threads |= {t.name for t in threading.enumerate()}
+                for path in ("/metrics", "/healthz"):
+                    with urllib.request.urlopen(http.url + path) as r:
+                        r.read()
+            driver.commit()
+            scraper.stop()
+            driver.close()
+            torch.cuda.synchronize()
+        out["records"] = log.end_offset("letters")
+        out["matches"] = log.end_offset("matches")
+        log.close()
+    cycles = mon.cycles()
+    nodes = {site for edge in mon.edges for site in edge}
+    out.update(edges=len(mon.edges), edge_sites=len(nodes), lock_sites=len(mon.sites),
+               acquires=mon.acquires, cycles=cycles, scrapes=scraper.scrapes,
+               reports=len(reports), threads=sorted(threads),
+               seconds=time.perf_counter() - t0)
+    want = ("kct-introspect-http", "kct-introspect-clock", "kct-introspect-profile",
+            "kct-soak-scraper", "cep-decode")
+    missing = [w for w in want if not any(name.startswith(w) for name in threads)]
+    if cycles:
+        failures.append("lock-order cycle(s) in the topology run:\n" + mon.report())
+    if missing:
+        failures.append(f"threads never seen running together: {missing} (saw {sorted(threads)})")
+    if out["matches"] <= 0 or scraper.scrapes <= 0 or not reports:
+        failures.append(f"the topology run did no work: {out}")
+    # The seeded inversion, in the same process: a -> b on one thread,
+    # b -> a on another (in turn, so nothing deadlocks).
+    with lock_monitor() as seeded:
+        a = threading.Lock()
+        b = threading.Lock()
+
+        def inverted():
+            with b:
+                with a:
+                    pass
+
+        with a:
+            with b:
+                pass
+        worker = threading.Thread(target=inverted, name="chip-smoke-inversion")
+        worker.start()
+        worker.join()
+    out["seeded_cycles"] = seeded.cycles()
+    if not any(len(set(c)) == 2 for c in out["seeded_cycles"]):
+        failures.append("the seeded two-lock inversion was not reported:\n" + seeded.report())
+    print("LOCKMON " + json.dumps(out), flush=True)
+    if failures:
+        print("lock monitor check failed:\n" + "\n".join(failures), file=sys.stderr)
+        sys.exit(1)
+
+
+def gate_cause(stdout: str) -> str:
+    """The static gate's active findings, one line each, from its --json
+    output (a long list of audited findings would push them out of the
+    tail)."""
+    try:
+        doc = json.loads(stdout)
+    except ValueError:
+        return ""
+    lines = [f"{f['path']}:{f['line']}: {f['code']} [{f['checker']}] {f['message']}"
+             for f in doc.get("findings", ()) if not f["suppressed"] and not f["baselined"]]
+    return f"the gate's {len(lines)} active finding(s):\n" + "\n".join(lines)
+
+
+#: {check name: fn(stdout) -> its cause in a few lines}, printed after a
+#: failed child's tail.
+CHILD_CAUSE = {"static_gate": gate_cause}
+
+
+def child_failed(phase: int, name: str, rc, stdout, stderr) -> None:
+    """Print a failed child's cause on stderr -- the phase, the check, its
+    last CHILD_TAIL lines and, for a check in CHILD_CAUSE, the cause it
+    names -- and exit 1."""
+    stdout, stderr = (x.decode(errors="replace") if isinstance(x, bytes) else (x or "")
+                      for x in (stdout, stderr))
+    tail = "\n".join((stdout + "\n" + stderr).splitlines()[-CHILD_TAIL:])
+    cause = CHILD_CAUSE[name](stdout) if name in CHILD_CAUSE else ""
+    print(f"chip_smoke: phase {phase} check {name} failed (exit {rc}); its last "
+          f"{CHILD_TAIL} lines:\n{tail}" + (f"\n{cause}" if cause else ""),
+          file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def run_children(phase: int, argvs: dict, timeout: float) -> tuple:
+    """Run each {name: argv} as a child process from the repo root, all
+    at once, their output in files. Returns ({name: stdout}, {name: its
+    seconds}). When one exits non-zero or the `timeout` passes, the others
+    are killed and the failed one's cause printed (exit 1)."""
+    root = str(Path(__file__).resolve().parent)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_children_") as tmp:
+        procs, files, walls = {}, {}, {}
+        t0 = time.perf_counter()
+        try:
+            for name, argv in argvs.items():
+                files[name] = (open(f"{tmp}/{name}.out", "w+"), open(f"{tmp}/{name}.err", "w+"))
+                procs[name] = subprocess.Popen(argv, cwd=root, stdout=files[name][0],
+                                               stderr=files[name][1], text=True)
+            failed = None
+            while len(walls) < len(procs) and failed is None:
+                time.sleep(0.1)
+                for name, proc in procs.items():
+                    if name not in walls and proc.poll() is not None:
+                        walls[name] = time.perf_counter() - t0
+                        if proc.returncode != 0:
+                            failed = (name, proc.returncode)
+                if failed is None and time.perf_counter() - t0 > timeout:
+                    failed = (next(n for n in procs if n not in walls), f"timeout {timeout:.0f}s")
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        texts = {}
+        for name, (out, err) in files.items():
+            out.seek(0)
+            err.seek(0)
+            texts[name] = (out.read(), err.read())
+            out.close()
+            err.close()
+    if failed is not None:
+        child_failed(phase, failed[0], failed[1], *texts[failed[0]])
+    return {n: t[0] for n, t in texts.items()}, walls
+
+
+def tagged(stdout: str, tag: str) -> dict:
+    return json.loads(next(line for line in stdout.splitlines()
+                           if line.startswith(tag + " "))[len(tag) + 1:])
+
+
+def analysis_phase(phase: int) -> dict:
+    """Phase 27: the port's analysis on the card, three checks, each in a
+    child process of its own, the three run at once (a failed one prints
+    its cause and ends the script; the others are stopped): (a) the static
+    gate, `python -m kafkastreams_cep_tpu_torch.analysis --all --json`,
+    must exit 0 with no active finding; (b) `audit_child`; (c)
+    `lockmon_child`. Returns the three children's results."""
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    child = f"import sys; sys.path.insert(0, {str(root)!r}); import chip_smoke; chip_smoke."
+    outs, walls = run_children(phase, {
+        "kernel_audit": [sys.executable, "-c", child + "audit_child()"],
+        "lock_monitor": [sys.executable, "-c", child + "lockmon_child()"],
+        "static_gate": [sys.executable, "-m", "kafkastreams_cep_tpu_torch.analysis", "--all",
+                        "--json"],
+    }, 300)
+    doc = json.loads(outs["static_gate"])
+    if doc["active"] != 0:
+        child_failed(phase, "static_gate", f"{doc['active']} active finding(s)",
+                     outs["static_gate"], "")
+    perf_md = root / "PERF.md"
+    gate_res = {"active": doc["active"], "audited": sum(f["suppressed"] for f in doc["findings"]),
+                "roots": doc["roots"],
+                "perf_md_copy_checked": perf_md.exists() and "<!-- ceplint-torch:metrics-"
+                "dictionary:begin -->" in perf_md.read_text(encoding="utf-8")}
+    audit = tagged(outs["kernel_audit"], "AUDIT")
+    lockmon = tagged(outs["lock_monitor"], "LOCKMON")
+    rep = audit["replay"]
+    log(f"analysis gate: exit 0, {gate_res['active']} active finding(s), "
+        f"{gate_res['audited']} pragma-audited, roots {gate_res['roots']}; PERF.md's copy "
+        f"of the metrics dictionary checked: {gate_res['perf_md_copy_checked']}")
+    log(f"kernel audit at K={rep['keys']} T={rep['T']} lanes {rep['lanes']} nodes {rep['nodes']}"
+        f" matches {rep['matches']} on {rep['device']}: counters after the warm epoch "
+        f"{rep['warm']}, after each replay epoch {rep['epochs']}; replay launches "
+        f"{audit['replay_launches']} (all {audit['launches']}); first replay launch vs plain "
+        f"{audit['first_replay_launch']}; {rep['matches_drained']} matches drained; replay "
+        f"{audit['replay_s']:.1f}s; seeded churn {audit['churn_s']:.1f}s: {audit['churn']}"
+        + (f"; mesh {audit['mesh']}" if "mesh" in audit else ""))
+    log(f"lock monitor over the flagship topology ({lockmon['records']} records, "
+        f"{lockmon['matches']} matches, threads {lockmon['threads']}): {lockmon['cycles']} "
+        f"cycle(s), {lockmon['edges']} edge(s) over {lockmon['edge_sites']} site(s), "
+        f"{lockmon['lock_sites']} lock site(s), {lockmon['acquires']} acquires, "
+        f"{lockmon['scrapes']} scrapes, {lockmon['reports']} reports, profilez "
+        f"{lockmon['profilez']}; seeded inversion: {lockmon['seeded_cycles']}")
+    wall = time.perf_counter() - t_phase
+    log(f"phase {phase} {wall:.1f}s (children started together; each ended after "
+        + ", ".join(f"{n} {w:.1f}s" for n, w in walls.items()) + ")")
+    return {"gate": gate_res, "audit": audit, "lockmon": lockmon, "phase_s": wall,
+            "child_s": walls}
+
+
+def run_analysis_entry() -> dict:
+    """Phase 27 alone on the card: builds the flagship's step kernel and
+    its grown shape (the seeded churn's) and the GC kernels in parallel,
+    then runs the phase: `python3 -c "import chip_smoke;
+    chip_smoke.run_analysis_entry()"`."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import kafkastreams_cep_tpu_torch as P
+    from kafkastreams_cep_tpu_torch.models import skip_any
+    from kafkastreams_cep_tpu_torch.ops import gc_kernel as gk
+    from kafkastreams_cep_tpu_torch.ops import gc_sweep as gs
+    from kafkastreams_cep_tpu_torch.ops import step_kernel as sk
+
+    log(f"card: {card_line()}")
+    q = P.compile_query(P.compile_pattern(skip_any.skip_any8_pattern()), None)
+    cfg = P.EngineConfig(**skip_any.FLAGSHIP_CONFIG)
+    with ThreadPoolExecutor(max_workers=4) as ex:
+        futs = [ex.submit(sk.build_library, q, cfg),
+                ex.submit(sk.build_library, q, replace(cfg, lanes=2 * cfg.lanes,
+                                                       nodes=2 * cfg.nodes)),
+                ex.submit(gk.build_library), ex.submit(gs.build_library)]
+        for f in futs:
+            f.result()
+    out = analysis_phase(27)
+    print(json.dumps({"analysis": {"gate": out["gate"], "phase_s": out["phase_s"]}}))
+    return out
 
 
 def main() -> int:
@@ -3436,7 +3831,18 @@ def main() -> int:
                             ref_matches=engine_matches, ref_sink=obj_sink, unsharded_eps=e2e_eps)
     del obj_sink, engine_matches
 
-    # -- 27. the kernel line, the card line, the ok line ----------------------
+    # -- 27. the port's analysis: static gate, kernel audit, lock monitor ----
+    analysis = analysis_phase(27)
+    audit = analysis["audit"]
+    audit_rows = {n: {"launches": audit["replay_launches"][n],
+                      "all_launches": audit["launches"][n],
+                      "max_abs_err": audit["first_replay_launch"][n]["max_abs_err"],
+                      "checked_shape": audit["first_replay_launch"][n]["shape"],
+                      "counters_warm": audit["replay"]["warm"],
+                      "counters_replayed": audit["replay"]["epochs"][-1]}
+                  for n in audit["launches"]}
+
+    # -- 28. the kernel line, the card line, the ok line ----------------------
     log(f"chip_smoke ran {time.perf_counter() - T_START:.1f}s")
     kernels = [{
         "name": "nfa_step",
@@ -3471,6 +3877,7 @@ def main() -> int:
         "single_key": {"launches": single_launches, "library_ms": None, **single_point},
         "fleet": fleet["nfa_step"],
         "mesh": mesh_entry["nfa_step"],
+        "kernel_audit": audit_rows["nfa_step"],
         "envelope": envelope,
     }, {
         "name": "gc_mark",
@@ -3495,6 +3902,7 @@ def main() -> int:
         "pool_drain": pool_row,
         "fleet": fleet["gc_mark"],
         "mesh": mesh_entry["gc_mark"],
+        "kernel_audit": audit_rows["gc_mark"],
     }, {
         "name": "gc_sweep",
         "route": "cuda",
@@ -3516,6 +3924,7 @@ def main() -> int:
         "single_key": {"launches": single_sweep_launches, "library_ms": None, **single_sweep},
         "fleet": fleet["gc_sweep"],
         "mesh": mesh_entry["gc_sweep"],
+        "kernel_audit": audit_rows["gc_sweep"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

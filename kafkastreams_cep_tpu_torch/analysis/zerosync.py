@@ -4,19 +4,24 @@ An advance with `decode=False` must dispatch without waiting for the
 card: the step kernel, the pend append and the group-flush GC are queued
 and the host goes on packing the next batch. One stray `.item()` or
 `bool(tensor)` turns that pipeline into lockstep. chip_smoke.py counts
-the synchronisations of such advances on the card; this scan pins the
+the synchronisations of such advances on the card; this checker pins the
 constructs in the source, for every path, on the CPU.
 
 The hot set is `HOT_PATHS` (fnmatch patterns over qualnames, per module of
 the package) plus every module-level function of the same module that a
 hot function calls by name, transitively; nested functions belong to
-their enclosing function. A pattern that matches nothing is a finding, so
+their enclosing function. A ``# cep: hot-path`` pragma on (or directly
+above) a ``def`` line makes a function hot too -- how fixture and
+out-of-tree code opts in. A pattern that matches nothing is a finding, so
 the table cannot rot. Inside the hot set these are findings:
 
-  * `.item()`, `.cpu()` and any `synchronize(...)`, whatever the receiver;
-  * `.tolist()`, `.numpy()`, `bool()`, `int()`, `float()`,
-    `np.asarray()` / `np.array()` and truthiness (`if`, `while`, `assert`,
-    `not`, `and`/`or` operands) of a tensor value.
+  * CEP-S01: `.item()`, `.cpu()` and any `synchronize(...)`, whatever the
+    receiver; `.tolist()`, `.numpy()`, `np.asarray()` / `np.array()` of
+    a tensor value;
+  * CEP-S02: `bool()`, `int()`, `float()` of a tensor value;
+  * CEP-S03: truthiness (`if`, `while`, `assert`, `not`, `and`/`or`
+    operands) of a tensor value;
+  * CEP-S04: a `HOT_PATHS` pattern that matches no function.
 
 A tensor value is a local dataflow approximation: parameters with the
 engine's tensor names, `self.state` / `self.pool` and their per-shard
@@ -28,7 +33,12 @@ from them by arithmetic, indexing, method calls, `zip` / `enumerate` /
 stored into (`d[k] = t`) is one too.
 `.shape`, `.dtype`, `.device`, `.ndim` and the methods in `HOST_METHODS`
 leave the set. `EXCEPTIONS` lists the functions allowed a host read, each
-with its reason.
+with its reason; a single audited line carries ``# cep: sync-ok(reason)``.
+
+Findings are `core.Finding`s (checker "zerosync") that also carry the
+hot function's qualname (`function`) and the construct (`construct`).
+`scan()` runs the checker over the package's own sources with paths
+relative to the package; `check()` is the gate's entry (analysis/cli.py).
 
 Run: `python -m kafkastreams_cep_tpu_torch.analysis.zerosync` (exit 1 on
 a finding).
@@ -40,7 +50,9 @@ import sys
 from dataclasses import dataclass
 from fnmatch import fnmatch
 from pathlib import Path
-from typing import Dict, List, Optional, Set, Tuple
+from typing import Dict, List, Optional, Sequence, Set, Tuple
+
+from .core import Finding as _CoreFinding, SourceFile, dotted_name as _dotted, package_relpath
 
 PACKAGE = Path(__file__).resolve().parent.parent
 
@@ -103,12 +115,13 @@ ON_TENSOR = {"tolist", "numpy"}
 SCALARIZE = {"bool", "int", "float"}
 
 
-@dataclass(frozen=True)
-class Finding:
-    path: str
-    function: str
-    line: int
-    construct: str
+@dataclass
+class Finding(_CoreFinding):
+    """A zerosync finding: a `core.Finding` that also names the hot
+    function (`function`, its qualname) and the construct found."""
+
+    function: str = ""
+    construct: str = ""
 
     def __str__(self) -> str:
         return f"{self.path}:{self.line} {self.function}: {self.construct}"
@@ -116,17 +129,6 @@ class Finding:
 
 def source(relpath: str) -> str:
     return (PACKAGE / relpath).read_text()
-
-
-def _dotted(node: ast.AST) -> Optional[str]:
-    parts = []
-    while isinstance(node, ast.Attribute):
-        parts.append(node.attr)
-        node = node.value
-    if isinstance(node, ast.Name):
-        parts.append(node.id)
-        return ".".join(reversed(parts))
-    return None
 
 
 class _Index(ast.NodeVisitor):
@@ -247,25 +249,26 @@ class _Traced:
         return False
 
 
-def _findings(fn: ast.AST) -> List[Tuple[int, str]]:
+def _findings(fn: ast.AST) -> List[Tuple[int, str, str]]:
+    """(line, code, construct) of every host read in `fn`."""
     env = _Traced(fn)
-    out: List[Tuple[int, str]] = []
+    out: List[Tuple[int, str, str]] = []
     for node in ast.walk(fn):
         if isinstance(node, ast.Call):
             func = node.func
             if isinstance(func, ast.Attribute):
                 if func.attr in ALWAYS:
-                    out.append((node.lineno, f".{func.attr}()"))
+                    out.append((node.lineno, "CEP-S01", f".{func.attr}()"))
                 elif func.attr in ON_TENSOR and env.tensor(func.value):
-                    out.append((node.lineno, f".{func.attr}() of a tensor"))
+                    out.append((node.lineno, "CEP-S01", f".{func.attr}() of a tensor"))
                 elif (_dotted(func) in ("np.asarray", "np.array", "numpy.asarray")
                       and node.args and env.tensor(node.args[0])):
-                    out.append((node.lineno, f"{_dotted(func)}() of a tensor"))
+                    out.append((node.lineno, "CEP-S01", f"{_dotted(func)}() of a tensor"))
             elif isinstance(func, ast.Name):
                 if func.id == "synchronize":
-                    out.append((node.lineno, "synchronize()"))
+                    out.append((node.lineno, "CEP-S01", "synchronize()"))
                 elif func.id in SCALARIZE and node.args and env.tensor(node.args[0]):
-                    out.append((node.lineno, f"{func.id}() of a tensor"))
+                    out.append((node.lineno, "CEP-S02", f"{func.id}() of a tensor"))
         tests: List[ast.AST] = []
         if isinstance(node, (ast.If, ast.While, ast.IfExp, ast.Assert)):
             tests.append(node.test)
@@ -273,20 +276,33 @@ def _findings(fn: ast.AST) -> List[Tuple[int, str]]:
             tests += node.values
         elif isinstance(node, ast.UnaryOp) and isinstance(node.op, ast.Not):
             tests.append(node.operand)
-        out += [(t.lineno, "truthiness of a tensor") for t in tests if env.tensor(t)]
+        out += [(t.lineno, "CEP-S03", "truthiness of a tensor") for t in tests if env.tensor(t)]
     return out
 
 
-def _hot(relpath: str, tree: ast.AST) -> Tuple[Dict[str, ast.AST], List[str]]:
+def function_index(src: SourceFile) -> Dict[str, ast.AST]:
+    """qualname -> def node for every function of a module."""
     idx = _Index()
-    idx.visit(tree)
+    idx.visit(src.tree)
+    return idx.functions
+
+
+def _hot(relpath: Optional[str], src: SourceFile) -> Tuple[Dict[str, ast.AST], List[str]]:
+    """(qualname -> def node of the hot roots, stale HOT_PATHS patterns)
+    of one module; `relpath` is its path in the package (None outside)."""
+    idx = _Index()
+    idx.visit(src.tree)
     hot: Dict[str, ast.AST] = {}
     stale = []
-    for pattern in HOT_PATHS.get(relpath, ()):
+    for pattern in HOT_PATHS.get(relpath, ()) if relpath is not None else ():
         hits = [q for q in idx.functions if fnmatch(q, pattern)]
         if not hits:
             stale.append(pattern)
         hot.update((q, idx.functions[q]) for q in hits)
+    for qual, node in idx.functions.items():
+        first = min([d.lineno for d in node.decorator_list] + [node.lineno])
+        if src.has_marker(node.lineno, "hot-path") or src.has_marker(first - 1, "hot-path"):
+            hot[qual] = node
     todo = list(hot.values())
     while todo:
         fn = todo.pop()
@@ -301,28 +317,72 @@ def _hot(relpath: str, tree: ast.AST) -> Tuple[Dict[str, ast.AST], List[str]]:
     return roots, stale
 
 
-def _scan(overrides: Optional[Dict[str, str]] = None):
-    overrides = overrides or {}
+def hot_functions(src: SourceFile) -> Tuple[Dict[str, ast.AST], List[str]]:
+    """The hot roots and stale patterns of one analysed file."""
+    return _hot(_module_of(src), src)
+
+
+def _module_of(src: SourceFile) -> Optional[str]:
+    """The file's key in HOT_PATHS: its path in the package, or, for a
+    scan rooted at the package (`scan`), its relpath as it is."""
+    rel = package_relpath(src.relpath)
+    return rel if rel is not None else (src.relpath if src.relpath in HOT_PATHS else None)
+
+
+def _check(files: Sequence[SourceFile]) -> Tuple[List[Finding], List[Tuple[str, str]]]:
     findings: List[Finding] = []
     excepted: List[Tuple[str, str]] = []
-    for relpath in sorted(HOT_PATHS):
-        text = overrides.get(relpath, source(relpath))
-        roots, stale = _hot(relpath, ast.parse(text, filename=relpath))
+    for src in files:
+        module = _module_of(src)
+        roots, stale = _hot(module, src)
         for pattern in stale:
-            findings.append(Finding(relpath, pattern, 0, "HOT_PATHS pattern matches nothing"))
+            findings.append(Finding(
+                "zerosync", "CEP-S04", src.relpath, 0,
+                f"stale HOT_PATHS pattern {pattern!r} matches no function -- "
+                "update analysis/zerosync.py",
+                context=f"hot-paths:{pattern}", function=pattern,
+                construct="HOT_PATHS pattern matches nothing"))
         for qual, fn in sorted(roots.items()):
             found = _findings(fn)
-            if (relpath, qual) in EXCEPTIONS:
+            if (module, qual) in EXCEPTIONS:
                 if found:
-                    excepted.append((relpath, qual))
+                    excepted.append((module, qual))
                 continue
-            findings += [Finding(relpath, qual, line, what) for line, what in found]
+            findings += [Finding(
+                "zerosync", code, src.relpath, line,
+                f"host read {what} in hot-path function {qual}",
+                context=src.context_line(line), function=qual, construct=what)
+                for line, code, what in found]
     return findings, excepted
 
 
+def check(files: Sequence[SourceFile], root_dir: str) -> List[Finding]:
+    """The gate's entry: findings over `files` (analysis/core.py)."""
+    return _check(files)[0]
+
+
+def _package_files(overrides: Optional[Dict[str, str]] = None) -> List[SourceFile]:
+    """The HOT_PATHS modules as SourceFiles rooted at the package
+    (`overrides` replaces the text of some, relpath -> source)."""
+    overrides = overrides or {}
+    return [SourceFile(str(PACKAGE / rel), rel, overrides.get(rel, source(rel)))
+            for rel in sorted(HOT_PATHS)]
+
+
+def _scan(overrides: Optional[Dict[str, str]] = None):
+    files = _package_files(overrides)
+    findings, excepted = _check(files)
+    by_path = {src.relpath: src for src in files}
+    for f in findings:
+        if f.line:
+            f.suppressed_by = by_path[f.path].suppression(f.line, "zerosync")
+    return [f for f in findings if f.suppressed_by is None], excepted
+
+
 def scan(overrides: Optional[Dict[str, str]] = None) -> List[Finding]:
-    """Findings over the package's sources (`overrides` replaces the text
-    of some modules, relpath -> source)."""
+    """Unsuppressed findings over the package's sources, with paths
+    relative to the package (`overrides` replaces the text of some
+    modules, relpath -> source)."""
     return _scan(overrides)[0]
 
 

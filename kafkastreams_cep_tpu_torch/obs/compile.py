@@ -17,6 +17,11 @@ at every `resize`. `gc_group` never reaches the generated source, so
 observes one signature per new shape. A steady state whose knobs settled
 is therefore compile-flat: `seen_count` stops moving.
 
+A registry counts a signature once: every watch on one registry shares
+its seen set, so an engine restored onto the registry of the engine it
+replaces (a checkpoint round trip, a shard move) counts nothing new -- its
+kernel is the library the process already built and loaded.
+
 Registry series (the JAX names):
 
 - ``cep_compiles_total{fn}``   new signatures observed
@@ -27,6 +32,7 @@ Registry series (the JAX names):
 from __future__ import annotations
 
 import threading
+import weakref
 from typing import Any, Dict, Hashable, Optional, Tuple
 
 from .registry import MetricsRegistry, default_registry
@@ -37,14 +43,20 @@ __all__ = ["CompileWatch", "COMPILE_BUCKETS"]
 #: build of the step kernel tens of seconds.
 COMPILE_BUCKETS = (0.01, 0.05, 0.1, 0.5, 1.0, 5.0, 15.0, 60.0, 300.0)
 
+#: registry -> {(fn, signature): seconds}: the signatures counted into it,
+#: shared by every watch on that registry (module doc).
+_SEEN: "weakref.WeakKeyDictionary[MetricsRegistry, Dict[Tuple[str, Hashable], Optional[float]]]" = (
+    weakref.WeakKeyDictionary())
+_SEEN_LOCK = threading.Lock()
+
 
 class CompileWatch:
     """Counts distinct (function, signature) pairs into `registry`."""
 
     def __init__(self, registry: Optional[MetricsRegistry] = None) -> None:
         self.registry = registry if registry is not None else default_registry()
-        self._seen: Dict[Tuple[str, Hashable], Optional[float]] = {}
-        self._lock = threading.Lock()
+        with _SEEN_LOCK:
+            self._seen = _SEEN.setdefault(self.registry, {})
         self._m_compiles = self.registry.counter(
             "cep_compiles_total",
             "New kernel signatures (a new generated source: an nvcc build "
@@ -63,7 +75,7 @@ class CompileWatch:
         """Record one signature of `fn`; returns whether it was new. The
         wall, when given, is observed only for a new signature."""
         key = (fn, signature)
-        with self._lock:
+        with _SEEN_LOCK:
             if key in self._seen:
                 return False
             self._seen[key] = seconds
@@ -78,13 +90,15 @@ class CompileWatch:
 
     @property
     def seen_count(self) -> int:
-        """Distinct (function, signature) pairs observed so far."""
+        """Distinct (function, signature) pairs counted into the registry."""
         return len(self._seen)
 
     def builds(self) -> Dict[str, Any]:
         """JSON-ready summary: signatures and build seconds per function."""
         out: Dict[str, Any] = {}
-        for (fn, _sig), secs in list(self._seen.items()):
+        with _SEEN_LOCK:
+            seen = list(self._seen.items())
+        for (fn, _sig), secs in seen:
             entry = out.setdefault(fn, {"signatures": 0, "seconds": []})
             entry["signatures"] += 1
             if secs is not None:

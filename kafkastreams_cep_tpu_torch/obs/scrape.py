@@ -205,7 +205,7 @@ class MetricsScraper:
         try:
             parsed = parse_prom_text(self._fetch_text())
         except Exception:
-            self.errors += 1  # cep: thread-ok(stop() joins the scraper thread before its final main-thread scrape; roots never overlap)
+            self.errors += 1  # cep: thread-ok(stop joins the scraper thread before its final main-thread scrape; roots never overlap)
             return False
         for name, by_labels in parsed.items():
             vals = list(by_labels.values())
@@ -218,18 +218,18 @@ class MetricsScraper:
             )
             ring = self.series.get(name)
             if ring is None:
-                ring = self.series[name] = TimeSeries(self.maxlen)  # cep: thread-ok(stop() joins the scraper thread before its final main-thread scrape; roots never overlap)
+                ring = self.series[name] = TimeSeries(self.maxlen)  # cep: thread-ok(stop joins the scraper thread before its final main-thread scrape; roots never overlap)
             ring.append(t, folded)
         if self.sample_rss:
             rss = rss_bytes()
             if rss is not None:
                 ring = self.series.get("process_rss_bytes")
                 if ring is None:
-                    ring = self.series["process_rss_bytes"] = TimeSeries(  # cep: thread-ok(stop() joins the scraper thread before its final main-thread scrape; roots never overlap)
+                    ring = self.series["process_rss_bytes"] = TimeSeries(  # cep: thread-ok(stop joins the scraper thread before its final main-thread scrape; roots never overlap)
                         self.maxlen
                     )
                 ring.append(t, rss)
-        self.scrapes += 1  # cep: thread-ok(stop() joins the scraper thread before its final main-thread scrape; roots never overlap)
+        self.scrapes += 1  # cep: thread-ok(stop joins the scraper thread before its final main-thread scrape; roots never overlap)
         return True
 
     # ------------------------------------------------------------ lifecycle

@@ -118,7 +118,7 @@ def launch(lib: ctypes.CDLL, marked: Tensor, frontier: Tensor, pred: Tensor,
     F = frontier.shape[0]
     out = torch.empty_like(marked)
     words = torch.empty(lib.gc_mark_words(BW, K), dtype=torch.int32, device=pred.device)
-    with on_device(pred.device):
+    with on_device(pred.device, lib):
         stream = (torch.cuda.current_stream(pred.device).cuda_stream
                   if pred.device.type == "cuda" else 0)
         err = lib.gc_mark_launch(

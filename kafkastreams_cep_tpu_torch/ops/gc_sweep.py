@@ -224,7 +224,7 @@ def launch(lib: ctypes.CDLL, marked: Tensor, marked_pin: Tensor, state: State, p
     if global_bitmaps or lib.gc_sweep_scratch_words(BW, K) > 0:
         scratch = torch.empty(-(-K // kpb) * lib.gc_sweep_block_words(BW, kpb),
                               dtype=torch.int32, device=dev)
-    with on_device(dev):
+    with on_device(dev, lib):
         stream = torch.cuda.current_stream(dev).cuda_stream if dev.type == "cuda" else 0
         err = lib.gc_sweep_launch(
             ptrs, dims, words.data_ptr(), scratch.data_ptr() if scratch is not None else None,

@@ -17,11 +17,15 @@ build raises RuntimeError. Every compiler run of this process is logged
 in `BUILDS` as (stem, target, seconds); a cache hit runs nothing and logs
 nothing.
 
-Every launch runs under `on_device(<its tensors' device>)`: the CUDA
-runtime's per-device state -- `cudaFuncSetAttribute` (the mark's and the
-sweep's dynamic shared memory), the module a launch loads, the stream --
-acts on the current device, so a shard on another card of a key mesh
-(parallel/key_shard.py) is launched there and nowhere else.
+Every launch runs under `on_device(<its tensors' device>, <library>)`:
+the CUDA runtime's per-device state -- `cudaFuncSetAttribute` (the mark's
+and the sweep's dynamic shared memory), the module a launch loads, the
+stream -- acts on the current device, so a shard on another card of a key
+mesh (parallel/key_shard.py) is launched there and nowhere else. The
+guard also notes the library in `MODULES`: the runtime loads a library's
+module on a device at its first launch there, so `loaded_modules()` counts
+the modules this process has brought onto each device (the kernel-build
+audit, analysis/kernel_audit.py, holds it flat across same-shape epochs).
 """
 from __future__ import annotations
 
@@ -32,9 +36,10 @@ import re
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
-from typing import List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Set, Tuple
 
 import torch
 
@@ -47,6 +52,10 @@ NVCC_FLAGS = (
 )
 #: (stem, target, seconds) of every compiler run of this process.
 BUILDS: List[Tuple[str, str, float]] = []
+#: device -> the libraries launched there (each loads its module on that
+#: device at its first launch); written by `on_device`.
+MODULES: Dict[str, Set[str]] = {}
+_modules_lock = threading.Lock()
 
 CPU_FLAGS = (
     "-x", "c++", "-std=c++20", "-O1", "-ffp-contract=off", "-shared",
@@ -116,7 +125,18 @@ def compile_source(src: str, stem: str, target: str = "sm_90a",
     return lib
 
 
-def on_device(device: torch.device):
+def on_device(device: torch.device, lib: Any = None):
     """The guard a launch runs under: `device` made the current CUDA
-    device for its extent (nothing for the CPU emulation's tensors)."""
+    device for its extent (nothing for the CPU emulation's tensors). A
+    given `lib` (the loaded library) is noted in `MODULES`."""
+    if lib is not None:
+        name = getattr(lib, "_name", None) or type(lib).__name__
+        with _modules_lock:
+            MODULES.setdefault(str(device), set()).add(name)
     return torch.cuda.device(device) if device.type == "cuda" else contextlib.nullcontext()
+
+
+def loaded_modules() -> Dict[str, int]:
+    """Kernel modules this process has launched on each device."""
+    with _modules_lock:
+        return {dev: len(libs) for dev, libs in MODULES.items()}

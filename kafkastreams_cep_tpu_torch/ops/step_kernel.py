@@ -202,7 +202,7 @@ def prepare(query: CompiledQuery, config: EngineConfig, state, xs, scratch_words
 def call(lib: ctypes.CDLL, ptrs, T: int, K: int, device: torch.device) -> None:
     """One launch of the compiled kernel on the device's current stream,
     with that device current; raises if the launch was refused."""
-    with on_device(device):
+    with on_device(device, lib):
         stream = torch.cuda.current_stream(device).cuda_stream if device.type == "cuda" else 0
         err = lib.nfa_step_launch(ptrs, T, K, ctypes.c_void_p(stream))
     if err != 0:

@@ -696,7 +696,7 @@ def decode_event_time_state(data: bytes) -> Dict[str, Any]:
         buffers[key] = entries
     out["buffers"] = buffers
     out["late"] = [get_event(r) for _ in range(r.i32())]
-    out["hwm"] = loads(r.blob())
+    out["hwm"] = loads(r.blob())  # cep: serde-ok(arrival HWMs are consumed by CEPProcessor.restore_event_time, not the gate; the device runtime encodes {})
     r.expect_end()
     return out
 

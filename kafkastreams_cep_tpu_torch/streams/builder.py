@@ -296,7 +296,7 @@ class EventTimeStateStore:
     def flush(self) -> None:
         if self.log is None:
             return
-        self.log.append(
+        self.log.append(  # cep: trace-ok(event-time changelog snapshot: state flush, no record to trace)
             self.topic, None,
             state_serde.encode_event_time_state(self.node.processor.event_time_state()),
         )

@@ -432,7 +432,8 @@ class DeviceStateStore:
     def flush(self) -> None:
         if self.log is None:
             return
-        self.log.append(self.topic, None, self.node.processor.snapshot())
+        self.log.append(  # cep: trace-ok(processor changelog snapshot: state flush, no record to trace)
+            self.topic, None, self.node.processor.snapshot())
 
     def restore_from_changelog(self) -> int:
         """Rebuild the node's processor from the newest valid snapshot.

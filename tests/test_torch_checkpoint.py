@@ -189,12 +189,17 @@ def test_unpickler_maps_jax_paths_and_refuses_the_rest():
     assert type(got[0]) is _Lane and (got[0].index, got[0].key) == (3, "u1")
     assert got[1] == {"x": 1}
     from kafkastreams_cep_tpu.analysis.core import Finding
+    from kafkastreams_cep_tpu.analysis.jit_audit import run_jit_cache_audit
     from kafkastreams_cep_tpu.faults.injection import TransientFault
+    from kafkastreams_cep_tpu_torch.analysis.core import Finding as PortFinding
     from kafkastreams_cep_tpu_torch.faults.injection import TransientFault as PortTransientFault
 
     assert type(serde.loads(pickle.dumps(TransientFault("site")))) is PortTransientFault
+    assert serde.loads(pickle.dumps(Finding)) is PortFinding
+    # The JAX jit audit has no copy in the port (its counterpart is
+    # analysis/kernel_audit.py), so its path is refused.
     with pytest.raises(pickle.UnpicklingError, match="no counterpart"):
-        serde.loads(pickle.dumps(Finding))
+        serde.loads(pickle.dumps(run_jit_cache_audit))
 
 
 # ----------------------------------------------------------- engine snapshots

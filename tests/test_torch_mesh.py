@@ -21,7 +21,10 @@ global reduction (JAX test_global_stats_reduction, which fails on the
 JAX side for a reason of its own and stays untouched), the merged device
 registries and the dryrun (in process and in a subprocess with no
 conftest), the stacked engine and a runtime="cuda" topology on a mesh,
-and the zero-sync scan over the sharded advance.
+and the zero-sync scan over the sharded advance. Two cases run at the
+engines' defaults (exact replay and auto_drain on): branchy seed 72 on a
+mesh that does not divide K against the host oracle, and capacities that
+drop lanes, nodes and matches against the JAX `key_mesh(8)` engine.
 """
 from __future__ import annotations
 
@@ -444,6 +447,76 @@ def test_topology_on_a_mesh_equals_jax_and_the_unsharded_topology():
     flat, _ = run(P, runtime="cuda", device="cpu")
     assert node.engine.n_shards == 8 and node.engine.K == 32
     assert got == want == flat and len(got) > 0
+
+
+# ------------------------------------------------- at the engines' defaults
+@pytest.mark.parametrize("deferred,gc_group", [(False, 1), (True, 2)],
+                         ids=["drained-g1", "deferred-g2"])
+def test_exact_replay_on_a_mesh_that_does_not_divide_k_equals_the_oracle(deferred, gc_group):
+    """Exact replay and auto_drain on (the defaults) over a mesh of 2 for
+    3 keys (padded to 4): tests/test_torch_replay.py's branchy case, seed
+    72, whose lanes collide, gives each key the host oracle's matches."""
+    from kafkastreams_cep_tpu_torch.models.cases import branchy_case
+    from kafkastreams_cep_tpu_torch.nfa import NFA
+    from kafkastreams_cep_tpu_torch.state.aggregates import AggregatesStore
+    from kafkastreams_cep_tpu_torch.state.buffer import SharedVersionedBuffer
+
+    keys = ["kA", "kB", "kC"]
+    pattern, strs = branchy_case(72, keys)
+    want = {}
+    for k in keys:
+        oracle = NFA.build(P.compile_pattern(pattern), AggregatesStore(), SharedVersionedBuffer())
+        out = [P.sequence_to_json(m) for e in strs[k] for m in oracle.match_pattern(e)]
+        if out:
+            want[k] = out
+    eng = P.BatchedDeviceNFA(
+        P.compile_pattern(pattern), keys=keys, device="cpu", mesh=port_mesh(2),
+        config=P.EngineConfig(lanes=256, nodes=4096, matches=2048, matches_per_step=256,
+                              gc_group=gc_group))
+    assert eng.exact_replay and eng.auto_drain and eng.K_padded == 4
+    got = {}
+    for b in range(4):
+        batch = {k: strs[k][b * 5:(b + 1) * 5] for k in keys}
+        if deferred:
+            eng.advance_packed(eng.pack(batch), decode=False)
+            out = eng.drain() if b % 2 else {}
+        else:
+            out = eng.advance(batch)
+        for k, v in js_port(out).items():
+            got.setdefault(k, []).extend(v)
+    assert eng.replays > 0
+    assert got == want and {k: len(v) for k, v in got.items()} == {"kA": 21, "kB": 9}
+
+
+def test_dropping_capacities_with_auto_drain_equal_the_jax_mesh():
+    """At capacities that drop lanes, nodes and matches, with auto_drain
+    and the other options at both packages' defaults: the port on a mesh
+    of 8 and the JAX engine on key_mesh(8), deferred advances drained
+    every second batch, give the same matches, stats and snapshot bytes
+    (11 keys, padded to 16)."""
+    keys = [f"k{i}" for i in range(11)]
+    cfg = dict(lanes=8, nodes=256, matches=8, matches_per_step=4, nodes_per_step=6,
+               pin_interval=True, gc_group=2)
+    jx = JaxBatched(J.compile_pattern(branching_pattern(J)), keys=keys,
+                    config=JaxEngineConfig(**cfg), mesh=jax_key_mesh(8), engine="xla")
+    pe = P.BatchedDeviceNFA(P.compile_pattern(branching_pattern(P)), keys=keys,
+                            config=P.EngineConfig(**cfg), device="cpu", mesh=port_mesh(8))
+    assert pe.auto_drain and pe.K_padded == 16
+    strs_j, strs_p = streams(J, 40, keys=keys), streams(P, 40, keys=keys)
+    got, want = {}, {}
+    for b in range(8):
+        jx.advance_packed(jx.pack(chunk(strs_j, b * 5, b * 5 + 5)), decode=False)
+        pe.advance_packed(pe.pack(chunk(strs_p, b * 5, b * 5 + 5)), decode=False)
+        if b % 2:
+            for k, v in js_jax(jx.drain()).items():
+                want.setdefault(k, []).extend(v)
+            for k, v in js_port(pe.drain()).items():
+                got.setdefault(k, []).extend(v)
+    stats = jx.stats
+    assert stats["lane_drops"] > 0 and stats["node_drops"] > 0 and stats["match_drops"] > 0
+    assert got == want and len(got) > 0
+    assert pe.stats == stats
+    assert pe.snapshot() == jx.snapshot()
 
 
 # ---------------------------------------------------------------- zero sync
